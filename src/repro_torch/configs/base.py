@@ -1,0 +1,69 @@
+"""Model configuration dataclasses of the port, with torch dtypes.
+
+The fields carry the names of the JAX package's ``ModelConfig``; those
+this slice does not use (recurrent, encoder and vision fields, the
+attention and MoE-dispatch backends, distribution switches) are left out
+until a slice ports what reads them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.plan import KernelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    norm_topk_prob: bool = False
+    capacity_factor: float = 2.0
+    first_dense_layers: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                        # dense|moe|ssm|hybrid|audio|vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    block_pattern: Tuple[str, ...] = ("attn",)
+    window: Optional[int] = None
+    moe: Optional[MoESpec] = None
+    dtype: torch.dtype = torch.bfloat16
+    precision: str = "bf16"            # "bf16" | "fp8" for grouped/linear GEMMs
+    # tile shapes of every grouped GEMM; None = KernelConfig()
+    kernel_config: Optional[KernelConfig] = None
+    attn_chunk: int = 512
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def param_count(self) -> int:
+        """Parameter count of an attention + MoE decoder."""
+        d, hd = self.d_model, self.resolved_head_dim
+        attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) \
+            + hd * self.num_heads * d
+        if self.qkv_bias:
+            attn += hd * (self.num_heads + 2 * self.num_kv_heads)
+        m = self.moe
+        ff = 3 * d * m.d_ff_expert * (m.num_experts + m.num_shared_experts) \
+            + d * m.num_experts
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.num_layers * (attn + ff + 2 * d) + emb + d

@@ -1,0 +1,1 @@
+"""Forward-only fp8 grouped GEMM, quantization and the MoE layer."""

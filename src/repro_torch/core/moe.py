@@ -1,0 +1,169 @@
+"""Padding-free Mixture-of-Experts layer built on the grouped GEMM.
+
+This is the paper's target workload: top-k routing produces dynamic group
+sizes per expert; the expert FFNs run as one padding-free fp8 grouped
+GEMM over the concatenated, ragged token buffer.
+
+Ported: ragged dispatch in fp8 on one device (``ep_size=1``), shared
+experts and the aux outputs.  Not yet ported, and raising
+``NotImplementedError``: ``dispatch="dense"`` (ROADMAP A6), expert
+parallelism (ROADMAP A15) and ``precision="bf16"`` (ROADMAP A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.grouped_gemm import (dense_linear_fp8,
+                                           dense_linear_fp8_fused,
+                                           grouped_linear,
+                                           grouped_linear_fused)
+from repro_torch.core.quantization import quantize_activation
+from repro_torch.kernels.plan import KernelConfig, make_tile_plan, \
+    resolve_config
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_model: int
+    d_ff_expert: int
+    num_shared_experts: int = 0
+    norm_topk_prob: bool = False
+    capacity_factor: float = 2.0
+    precision: str = "fp8"
+    kernel_config: Optional[KernelConfig] = None
+    router_dtype: torch.dtype = torch.float32
+    dispatch: str = "ragged"
+
+
+def init_moe_params(cfg: MoEConfig, *, generator: torch.Generator,
+                    device, dtype=torch.float32) -> "dict[str, torch.Tensor]":
+    """Random normal weights scaled like the reference's, drawn from
+    ``generator`` on ``device``."""
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.num_experts
+
+    def normal(shape, scale, dt):
+        x = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (x * scale).to(dt)
+
+    p = {
+        "router": normal((d, e), d ** -0.5, torch.float32),
+        "w_gate": normal((e, d, f), d ** -0.5, dtype),
+        "w_up": normal((e, d, f), d ** -0.5, dtype),
+        "w_down": normal((e, f, d), f ** -0.5, dtype),
+    }
+    if cfg.num_shared_experts:
+        fs = f * cfg.num_shared_experts
+        p["shared_gate"] = normal((d, fs), d ** -0.5, dtype)
+        p["shared_up"] = normal((d, fs), d ** -0.5, dtype)
+        p["shared_down"] = normal((fs, d), fs ** -0.5, dtype)
+    return p
+
+
+def _capacity(num_slots: int, ep_size: int, cf: float,
+              align: int = 128) -> int:
+    """Static capacity of the packed buffer.  With ``ep_size == 1`` every
+    slot is real and the buffer keeps exactly ``num_slots`` rows; the
+    kernel handles the ragged M."""
+    if ep_size == 1:
+        return num_slots
+    cap_all = -(-num_slots // align) * align
+    c = -(-int(num_slots / ep_size * cf) // align) * align
+    return min(cap_all, max(c, align))
+
+
+def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
+              ep_size: int = 1):
+    """x: [T, d_model].  Returns (y [T, d_model], aux dict)."""
+    if ep_size != 1 or ep_rank != 0:
+        raise NotImplementedError("expert parallelism is not ported yet "
+                                  "(ROADMAP A15)")
+    if cfg.dispatch != "ragged":
+        raise NotImplementedError(f"dispatch={cfg.dispatch!r} is not ported "
+                                  "yet (ROADMAP A6)")
+    if cfg.precision != "fp8":
+        raise NotImplementedError(f"precision={cfg.precision!r} is not "
+                                  "ported yet (ROADMAP A8)")
+    t, d = x.shape
+    e, k = cfg.num_experts, cfg.top_k
+    kcfg = resolve_config(cfg.kernel_config)
+
+    # ---- routing (real f32: TF32 is off for the whole port) -------------
+    logits = x.to(cfg.router_dtype) @ params["router"].to(cfg.router_dtype)
+    probs = torch.softmax(logits, dim=-1)
+    weights, ids = torch.topk(probs, k, dim=-1)                # [T, k]
+    if cfg.norm_topk_prob:
+        weights = weights / weights.sum(-1, keepdim=True)
+
+    # ---- pack the T*k slots by expert (all experts are local) -----------
+    num_slots = t * k
+    cap = _capacity(num_slots, ep_size, cfg.capacity_factor,
+                    align=kcfg.block_m)
+    flat_ids = ids.reshape(-1)
+    sel = torch.argsort(flat_ids, stable=True)                # packed slots
+    # slots per expert; a scatter-add, since bincount on CUDA reads the
+    # largest id back to the host
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+        0, flat_ids, torch.ones_like(flat_ids))
+    gs = counts.to(torch.int32)
+    total = gs.sum()
+    token_of = torch.div(sel, k, rounding_mode="floor")
+    xs = x[token_of]                                          # [cap, d]
+
+    # ---- padding-free ragged expert FFN (the paper's kernel) ------------
+    # one plan and one quantization of xs per routing decision serve the
+    # gate, up and down GEMMs
+    tile_plan = make_tile_plan(gs, cap, block_m=kcfg.block_m, num_groups=e)
+    qx = quantize_activation(xs)
+    g = grouped_linear(xs, params["w_gate"], gs, precision="fp8",
+                       config=kcfg, plan=tile_plan, quantized=qx)
+    u = grouped_linear(xs, params["w_up"], gs, precision="fp8",
+                       config=kcfg, plan=tile_plan, quantized=qx)
+    y = grouped_linear_fused(g, u, params["w_down"], gs, act="silu_mul",
+                             config=kcfg, plan=tile_plan)     # [cap, d]
+
+    # ---- combine: each token owns exactly k slots.  Gather them back
+    # through the inverse permutation and add them in packed order, which
+    # is the order of the reference's scatter-add, without atomics.
+    w_flat = weights.reshape(-1)[sel]
+    contrib = y.float() * w_flat[:, None]                     # [cap, d]
+    inv = torch.empty_like(sel)
+    inv[sel] = torch.arange(cap, device=x.device)
+    pos = torch.sort(inv.reshape(t, k), dim=1).values         # [T, k]
+    out = contrib[pos[:, 0]]
+    for j in range(1, k):
+        out = out + contrib[pos[:, j]]
+
+    # ---- shared experts ---------------------------------------------------
+    if cfg.num_shared_experts:
+        fs = params["shared_gate"].shape[1]
+        if d % 128 or fs % 128:
+            raise NotImplementedError(
+                "fp8 shared experts need d_model and the shared width to be "
+                "multiples of 128; the bf16 fallback is ROADMAP A8")
+        splan = make_tile_plan(
+            torch.full((1,), t, dtype=torch.int32, device=x.device), t,
+            block_m=kcfg.block_m, num_groups=1)
+        qs = quantize_activation(x)
+        sg = dense_linear_fp8(x, params["shared_gate"], config=kcfg,
+                              plan=splan, quantized=qs)
+        su = dense_linear_fp8(x, params["shared_up"], config=kcfg,
+                              plan=splan, quantized=qs)
+        out = out + dense_linear_fp8_fused(
+            sg, su, params["shared_down"], act="silu_mul", config=kcfg,
+            out_dtype=torch.float32, plan=splan)
+
+    # ---- aux: load-balance loss + drop stats --------------------------------
+    me = probs.mean(dim=0)
+    ce = counts.float() / t          # mean over tokens of one_hot(ids).sum(1)
+    aux = {
+        "load_balance_loss": e * torch.sum(me * ce) / k,
+        "dropped_fraction": 1.0 - total / num_slots,
+        "expert_ids": ids,
+    }
+    return out.to(x.dtype), aux

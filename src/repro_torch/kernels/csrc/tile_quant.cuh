@@ -1,0 +1,41 @@
+// 1x128 tile quantizer shared by quant.cu and act_quant.cu.
+//
+// One warp owns one 1x128 tile of a row: each lane holds 4 consecutive
+// values.  The tile's amax is a warp-shuffle max, the scale is
+// amax / 448 (1 for an all-zero tile) with an IEEE divide, and every
+// value is divided by the scale (IEEE divide, never a reciprocal
+// multiply) and rounded to e4m3 with saturation.  This is exactly the
+// arithmetic of the plain PyTorch quantizer, so the payload and the
+// scales are bitwise equal to it.  Build without --use_fast_math.
+#pragma once
+
+#include <cuda_fp8.h>
+#include <stdint.h>
+
+namespace repro {
+
+constexpr int kQuantBlock = 128;
+constexpr float kFp8MaxRecip = 1.0f / 448.0f;   // rounded to f32
+
+// v[0..3] are this lane's values of the tile; q points at the tile's 128
+// payload bytes, s at its scale.
+__device__ __forceinline__ void quantize_tile_warp(const float v[4], int lane,
+                                                   uint8_t* q, float* s) {
+  float amax = fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
+                     fmaxf(fabsf(v[2]), fabsf(v[3])));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float scale = amax > 0.0f ? __fmul_rn(amax, kFp8MaxRecip) : 1.0f;
+  uint32_t packed = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_fp8_storage_t b =
+        __nv_cvt_float_to_fp8(__fdiv_rn(v[i], scale), __NV_SATFINITE, __NV_E4M3);
+    packed |= static_cast<uint32_t>(b) << (8 * i);
+  }
+  reinterpret_cast<uint32_t*>(q)[lane] = packed;
+  if (lane == 0) *s = scale;
+}
+
+}  // namespace repro

@@ -1,0 +1,130 @@
+"""Plain PyTorch oracles for the quantizers and the grouped GEMM.
+
+Quantization scheme follows the paper (= DeepSeek-V3):
+  * ``A``  fp8 e4m3, one scale per 1x128 tile:   S_A[m, ceil(K/128)]  (f32)
+  * ``B``  fp8 e4m3, one scale per 128x128 block: S_B[g, ceil(K/128), ceil(N/128)]
+  * ``C``  bf16, accumulated in f32 with per-K-block rescale.
+
+The oracles accept K (and N) that are not multiples of 128 by padding;
+the kernels do not.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+QUANT_BLOCK = 128  # the paper's 1x128 / 128x128 quantization granularity
+FP8_MAX = 448.0    # float8_e4m3fn max normal
+FP8 = torch.float8_e4m3fn
+# XLA compiles the reference's ``amax / 448`` into a multiplication by the
+# f32 reciprocal of 448 (it rewrites every division by a constant), so the
+# port computes the scale that way to agree with it bit for bit.  The
+# division of the values by the scale stays a real IEEE divide.
+FP8_MAX_RECIP = float(torch.tensor(1.0 / FP8_MAX, dtype=torch.float32))
+
+
+def scale_of(amax: torch.Tensor) -> torch.Tensor:
+    """Scale of a tile or block from its f32 amax: ``amax * f32(1/448)``,
+    1.0 for an all-zero tile."""
+    return torch.where(amax > 0, amax * FP8_MAX_RECIP, torch.ones_like(amax))
+
+
+def quantize_tilewise_ref(a: torch.Tensor, block: int = QUANT_BLOCK):
+    """1 x ``block`` per-tile symmetric fp8 quantization of a 2-D activation.
+
+    Returns ``(a_fp8[m, k], s_a[m, ceil(k/block)])`` with
+    ``a ~= a_fp8 * repeat(s_a, block, dim=1)``.
+    """
+    m, k = a.shape
+    kb = (k + block - 1) // block
+    ap = a.float()
+    if kb * block != k:
+        ap = F.pad(ap, (0, kb * block - k))
+    tiles = ap.reshape(m, kb, block)
+    scale = scale_of(tiles.abs().amax(dim=-1))
+    q = (tiles / scale[..., None]).reshape(m, kb * block)[:, :k]
+    return q.to(FP8), scale
+
+
+ACTIVATIONS = ("silu_mul", "gelu")
+
+
+def act_f32(g: torch.Tensor, u: torch.Tensor | None, act: str) -> torch.Tensor:
+    """The activation in f32, the definition the kernel repeats: silu as
+    ``g * sigmoid(g)``, gelu in its tanh form."""
+    gf = g.float()
+    if act == "silu_mul":
+        return gf * torch.sigmoid(gf) * u.float()
+    if act == "gelu":
+        return F.gelu(gf, approximate="tanh")
+    raise ValueError(f"unknown activation {act!r}; expected {ACTIVATIONS}")
+
+
+def act_quantize_ref(g: torch.Tensor, u: torch.Tensor | None = None,
+                     act: str = "silu_mul", block: int = QUANT_BLOCK):
+    """Unfused oracle of the fused activation -> quantize epilogue: the
+    activation in f32, then :func:`quantize_tilewise_ref`."""
+    return quantize_tilewise_ref(act_f32(g, u, act), block)
+
+
+def quantize_blockwise_ref(b: torch.Tensor, block: int = QUANT_BLOCK):
+    """``block`` x ``block`` per-block symmetric fp8 quantization of a
+    weight; leading dims are batch dims.
+
+    ``b``: [..., k, n] -> ``(b_fp8[..., k, n], s_b[..., ceil(k/block),
+    ceil(n/block)])``.
+    """
+    *lead, k, n = b.shape
+    kb = (k + block - 1) // block
+    nb = (n + block - 1) // block
+    bp = b.float()
+    if (kb * block, nb * block) != (k, n):
+        bp = F.pad(bp, (0, nb * block - n, 0, kb * block - k))
+    blocks = bp.reshape(*lead, kb, block, nb, block)
+    scale = scale_of(blocks.abs().amax(dim=(-3, -1)))     # [..., kb, nb]
+    q = (blocks / scale[..., :, None, :, None]).reshape(
+        *lead, kb * block, nb * block)[..., :k, :n]
+    return q.to(FP8), scale
+
+
+def dequantize_tilewise_ref(a_fp8, s_a, block: int = QUANT_BLOCK):
+    k = a_fp8.shape[1]
+    scales = torch.repeat_interleave(s_a, block, dim=1)[:, :k]
+    return a_fp8.float() * scales
+
+
+def dequantize_blockwise_ref(b_fp8, s_b, block: int = QUANT_BLOCK):
+    k, n = b_fp8.shape[-2:]
+    scales = torch.repeat_interleave(
+        torch.repeat_interleave(s_b, block, dim=-2), block, dim=-1)
+    return b_fp8.float() * scales[..., :k, :n]
+
+
+def grouped_gemm_blockscaled_ref(a_fp8, s_a, b_fp8, s_b, group_sizes,
+                                 block: int = QUANT_BLOCK,
+                                 out_dtype=torch.bfloat16):
+    """Oracle with the kernel's math: per-K-block partial products
+    rescaled by ``s_a[:, kb] * s_b[g, kb, nb]`` and accumulated in f32,
+    in the order ``(part * s_a) * s_b``.
+
+    a_fp8 [M, K], s_a [M, KB], b_fp8 [G', K, N], s_b [G', KB, NB];
+    ``group_sizes`` [G <= G'] with sum == M.  Returns [M, N] ``out_dtype``.
+    """
+    sizes = [int(s) for s in torch.as_tensor(group_sizes).tolist()]
+    k = a_fp8.shape[1]
+    n = b_fp8.shape[2]
+    kb = (k + block - 1) // block
+    nb = (n + block - 1) // block
+    out, off = [], 0
+    for g, sz in enumerate(sizes):
+        acc = torch.zeros((sz, n), dtype=torch.float32, device=a_fp8.device)
+        ag = a_fp8[off:off + sz]
+        sag = s_a[off:off + sz]
+        for ki in range(kb):
+            k0, k1 = ki * block, min((ki + 1) * block, k)
+            part = ag[:, k0:k1].float() @ b_fp8[g, k0:k1].float()
+            col_scale = torch.repeat_interleave(s_b[g, ki, :nb], block)[:n]
+            acc = acc + part * sag[:, ki:ki + 1] * col_scale[None, :]
+        out.append(acc)
+        off += sz
+    return torch.cat(out, dim=0).to(out_dtype)

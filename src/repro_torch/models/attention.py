@@ -1,0 +1,187 @@
+"""Attention: GQA with RoPE, optional qk-norm and QKV bias; chunked
+online-softmax attention for prefill and a single-step decode path
+against a KV cache.
+
+``chunked_attention`` repeats the JAX package's online-softmax math in
+plain tensor ops (not ``scaled_dot_product_attention``), so the two
+agree; the flash kernel comes in a later slice.  The sliding-window
+branches are not ported (no ported model has a window).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.layers import init_rms_norm, ninit, rms_norm, rope
+
+NEG_INF = -1e30
+
+
+def init_attention(cfg, dtype, *, generator, device):
+    d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+    kw = dict(generator=generator, device=device)
+    p = {
+        "wq": ninit((d, hq * hd), d ** -0.5, dtype, **kw),
+        "wk": ninit((d, hkv * hd), d ** -0.5, dtype, **kw),
+        "wv": ninit((d, hkv * hd), d ** -0.5, dtype, **kw),
+        "wo": ninit((hq * hd, d), (hq * hd) ** -0.5, dtype, **kw),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq * hd,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hkv * hd,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hkv * hd,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rms_norm(hd, device=device)
+        p["k_norm"] = init_rms_norm(hd, device=device)
+    return p
+
+
+def _project_qkv(p, x, cfg, positions, *, use_rope=True):
+    b, s, d = x.shape
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.norm_eps)
+        k = rms_norm(p["k_norm"], k, cfg.norm_eps)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      chunk: int, q_offset: int = 0, k_offset: int = 0,
+                      k_valid: Optional[int] = None):
+    """Online-softmax attention over q and k chunks.
+
+    q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D].  q rows sit at positions
+    ``q_offset + i``, k rows at ``k_offset + j``.  Chunk pairs with no
+    live (q, k) pair under the causal mask are skipped.
+    """
+    if window is not None:
+        raise NotImplementedError("sliding-window attention is not ported yet")
+    b, sq, hq, hd = q.shape
+    _, sk, hkv, _ = k.shape
+    g = hq // hkv
+    scale = hd ** -0.5
+    cq, ck = min(chunk, sq), min(chunk, sk)
+    if k_valid is None:
+        k_valid = sk
+    nq, nk = -(-sq // cq), -(-sk // ck)
+    dev = q.device
+    outs = []
+    for i in range(nq):
+        qi = q[:, i * cq:(i + 1) * cq]
+        rows = qi.shape[1]
+        if rows < cq:       # pad the last chunk like the reference
+            qi = torch.cat([qi, qi.new_zeros((b, cq - rows, hq, hd))], dim=1)
+        qg = qi.reshape(b, cq, hkv, g, hd).permute(0, 2, 3, 1, 4).float()
+        qpi = q_offset + i * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32, device=dev)
+        l_ = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, cq, hd), dtype=torch.float32, device=dev)
+        for j in range(nk):
+            if causal and (q_offset + i * cq + cq - 1) < (k_offset + j * ck):
+                continue
+            kj, vj = k[:, j * ck:(j + 1) * ck], v[:, j * ck:(j + 1) * ck]
+            if kj.shape[1] < ck:
+                pad = kj.new_zeros((b, ck - kj.shape[1], hkv, hd))
+                kj, vj = torch.cat([kj, pad], 1), torch.cat([vj, pad], 1)
+            kpi = k_offset + j * ck + torch.arange(ck, device=dev)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qg,
+                             kj.permute(0, 2, 1, 3).float()) * scale
+            mask = (kpi[None, :] < k_valid).expand(cq, ck)
+            if causal:
+                mask = mask & (qpi[:, None] >= kpi[None, :])
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            pr = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l_ = l_ * alpha + pr.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", pr, vj.permute(0, 2, 1, 3).float())
+            m = m_new
+        out = acc / torch.clamp(l_, min=1e-20)[..., None]    # [B,Hkv,G,cq,D]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, cq, hq, hd)[:, :rows])
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, q_pos: int, *,
+                     window: Optional[int]):
+    """q: [B, 1, Hq, D] vs cache [B, S, Hkv, D]; positions <= q_pos valid."""
+    if window is not None:
+        raise NotImplementedError("sliding-window attention is not ported yet")
+    b, _, hq, hd = q.shape
+    _, s, hkv, _ = k_cache.shape
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, hd).float()
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * hd ** -0.5
+    mask = torch.arange(s, device=q.device) <= q_pos
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    pr = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", pr, v_cache.float())
+    return out.reshape(b, 1, hq, hd).to(q.dtype)
+
+
+def _cache_from_prefill(k, v, window, capacity=None, dtype=torch.bfloat16):
+    """Decode cache from prefill K/V, padded to ``capacity`` slots so the
+    decode steps can append in place."""
+    if window is not None:
+        raise NotImplementedError("sliding-window caches are not ported yet")
+    b, s, hkv, hd = k.shape
+    cap = max(capacity or s, s)
+    kc = torch.zeros((b, cap, hkv, hd), dtype=dtype, device=k.device)
+    vc = torch.zeros_like(kc)
+    kc[:, :s] = k
+    vc[:, :s] = v
+    return {"k": kc, "v": vc, "len": s}
+
+
+def attention_block(p, x, cfg, positions, *, cache=None, layer_window=None,
+                    causal=True, mode="train", cache_capacity=None,
+                    pos_offset: int = 0):
+    """Full attention sub-block.  With ``cache`` (dict k, v, len) performs
+    one decode step, writing the new K/V into the cache IN PLACE, and
+    returns (out, cache); in prefill mode builds the cache from the
+    full-sequence K/V.  ``pos_offset`` is ``positions[0]`` as a host
+    integer, so no step reads the device back."""
+    b, s, d = x.shape
+    hq, hd = cfg.num_heads, cfg.resolved_head_dim
+    if cache is None:
+        q, k, v = _project_qkv(p, x, cfg, positions)
+        out = chunked_attention(q, k, v, causal=causal, window=layer_window,
+                                chunk=cfg.attn_chunk, q_offset=pos_offset,
+                                k_offset=pos_offset)
+        new_cache = (_cache_from_prefill(k, v, layer_window, cache_capacity)
+                     if mode == "prefill" else None)
+    else:
+        pos = cache["len"]
+        positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+        q, k, v = _project_qkv(p, x, cfg, positions)
+        cache["k"][:, pos:pos + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, pos:pos + 1] = v.to(cache["v"].dtype)
+        out = decode_attention(q, cache["k"], cache["v"], pos,
+                               window=layer_window)
+        new_cache = {"k": cache["k"], "v": cache["v"], "len": pos + 1}
+    out = out.reshape(b, s, hq * hd)
+    return out @ p["wo"].to(x.dtype), new_cache
+
+
+def init_kv_cache(cfg, batch, seq_len, layer_window=None, *, device,
+                  dtype=torch.bfloat16):
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    s = min(seq_len, layer_window) if layer_window else seq_len
+    return {"k": torch.zeros((batch, s, hkv, hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, s, hkv, hd), dtype=dtype, device=device),
+            "len": 0}

@@ -1,0 +1,162 @@
+"""The port's plain grouped GEMM against the JAX package's Pallas kernel
+``gmm_pallas`` (interpret mode on the CPU), and the fp8 grouped linear
+layers against the JAX package's.
+
+Both sum every 128-K block in f32 but in another order, which can flip
+the final bf16 rounding: the tolerance is one bf16 step (2^-7 of the
+value) plus 1e-4 of the largest output for cancellation near zero.
+Structural zeros (rows >= sum(group_sizes), all-empty plans) must match
+exactly.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import grouped_gemm as jgg
+from repro.core import quantization as jquant
+from repro.kernels import ref as jref
+from repro.kernels.grouped_gemm_kernel import gmm_pallas
+from repro.kernels.plan import KernelConfig as JConfig
+from repro_torch.analysis import events
+from repro_torch.convert import tensor_from_numpy
+from repro_torch.core import grouped_gemm as tgg
+from repro_torch.kernels import grouped_gemm_kernel as tgk
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.plan import KernelConfig, make_tile_plan
+
+
+def assert_close_bf16(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    tol = np.abs(want) * 2.0 ** -7 + 1e-4 * np.abs(want).max() + 1e-30
+    assert np.all(np.abs(got - want) <= tol), float(np.abs(got - want).max())
+
+
+def operands(m, k, n, g, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((g, k, n)) * k ** -0.5).astype(np.float32)
+    ja, jsa = jax.jit(jref.quantize_tilewise_ref)(jnp.asarray(a))
+    jb, jsb = jax.jit(jquant.quantize_blockwise_batched)(jnp.asarray(w))
+    t = [tensor_from_numpy(np.asarray(v)) for v in (ja, jsa, jb, jsb)]
+    return (ja, jsa, jb, jsb), t
+
+
+CASES = {
+    # name: (M, K, N, group sizes, block_m)
+    "ragged_tail": (100, 256, 384, [30, 0, 50, 7], 128),
+    "ragged_bm16": (70, 256, 256, [0, 16, 1, 33, 0, 20], 16),
+    "decode_bm16": (16, 384, 256, [0, 3, 0, 0, 9, 4, 0, 0], 16),
+    "all_empty": (48, 128, 256, [0, 0, 0], 16),
+    "single_group": (40, 256, 384, [40], 128),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_gmm_matches_pallas(case):
+    m, k, n, sizes, bm = CASES[case]
+    (ja, jsa, jb, jsb), (ta, tsa, tb, tsb) = operands(m, k, n, len(sizes), 0)
+    want = gmm_pallas(ja, jsa, jb, jsb, jnp.array(sizes, jnp.int32),
+                      block_m=bm, interpret=True)
+    want = np.asarray(want.astype(jnp.float32))
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    got = tgk.gmm(ta, tsa, tb, tsb, gs, block_m=bm)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    total = sum(sizes)
+    assert (got[total:] == 0).all() and np.all(want[total:] == 0)
+    assert_close_bf16(got.float().numpy(), want)
+    # the plain version is the port's per-K-block oracle on the owned rows
+    if total:
+        oracle = tref.grouped_gemm_blockscaled_ref(ta[:total], tsa[:total],
+                                                   tb, tsb, gs)
+        assert torch.equal(got[:total], oracle)
+    # a given plan and an f32 out= buffer give the same result
+    plan = make_tile_plan(gs, m, block_m=bm)
+    out = torch.full((m, n), float("nan"))
+    got32 = tgk.gmm(ta, tsa, tb, tsb, gs, block_m=bm, plan=plan,
+                    out_dtype=torch.float32, out=out)
+    assert got32 is out and not torch.isnan(out).any()
+    np.testing.assert_array_equal(got32.bfloat16().float().numpy(),
+                                  got.float().numpy())
+
+
+def test_gmm_argument_checks():
+    (_, _, _, _), (ta, tsa, tb, tsb) = operands(32, 256, 256, 2, 1)
+    gs = torch.tensor([16, 16], dtype=torch.int32)
+    with pytest.raises(ValueError, match="disagree on K"):
+        tgk.gmm(ta[:, :128].contiguous(), tsa[:, :1].contiguous(), tb, tsb, gs)
+    with pytest.raises(ValueError, match="s_a"):
+        tgk.gmm(ta, tsa[:, :1].contiguous(), tb, tsb, gs)
+    plan = make_tile_plan(gs, 32, block_m=16)
+    with pytest.raises(ValueError, match="TilePlan built for"):
+        tgk.gmm(ta, tsa, tb, tsb, gs, block_m=128, plan=plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgk.gmm_cuda(ta, tsa, tb, tsb, gs)
+    before = tgk.gmm_cuda.launches
+    tgk.gmm(ta, tsa, tb, tsb, gs)
+    assert tgk.gmm_cuda.launches == before
+
+
+def _jcfg(**kw):
+    return JConfig(backend="pallas_interpret", **kw)
+
+
+@pytest.mark.parametrize("layer", ["grouped", "fused", "dense", "dense_fused"])
+def test_fp8_linear_layers_match_jax(layer):
+    rng = np.random.default_rng(4)
+    sizes = [20, 0, 37, 11]
+    m, k, n = 80, 256, 384
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    u = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((len(sizes), k, n)) * k ** -0.5).astype(np.float32)
+    jx, ju = jnp.asarray(x, jnp.bfloat16), jnp.asarray(u, jnp.bfloat16)
+    jw = jnp.asarray(w, jnp.bfloat16)
+    tx, tu, tw = (tensor_from_numpy(np.asarray(v)) for v in (jx, ju, jw))
+    jgs = jnp.array(sizes, jnp.int32)
+    tgs = torch.tensor(sizes, dtype=torch.int32)
+    cfg = KernelConfig(block_m=16)
+    # the JAX layers run jitted, as inside the reference's model: XLA then
+    # computes every quantization scale as amax * f32(1/448), like the port
+    with events.capture() as evs, torch.inference_mode():
+        if layer == "grouped":
+            want = jax.jit(lambda x, w, gs: jgg.grouped_linear(
+                x, w, gs, precision="fp8", config=_jcfg(block_m=16)))(jx, jw, jgs)
+            got = tgg.grouped_linear(tx, tw, tgs, precision="fp8", config=cfg)
+        elif layer == "fused":
+            want = jax.jit(lambda x, u, w, gs: jgg.grouped_linear_fused(
+                x, u, w, gs, config=_jcfg(block_m=16)))(jx, ju, jw, jgs)
+            got = tgg.grouped_linear_fused(tx, tu, tw, tgs, config=cfg)
+        elif layer == "dense":
+            want = jax.jit(lambda x, w: jgg.dense_linear_fp8(
+                x, w, config=_jcfg(), out_dtype=jnp.float32))(jx, jw[0])
+            got = tgg.dense_linear_fp8(tx, tw[0], out_dtype=torch.float32)
+        else:
+            want = jax.jit(lambda x, u, w: jgg.dense_linear_fp8_fused(
+                x, u, w, config=_jcfg(), out_dtype=jnp.float32))(jx, ju, jw[0])
+            got = tgg.dense_linear_fp8_fused(tx, tu, tw[0],
+                                             out_dtype=torch.float32)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == want.shape
+    assert got.dtype == (torch.float32 if layer.startswith("dense")
+                         else torch.bfloat16)
+    if layer in ("grouped", "fused"):
+        assert (got[sum(sizes):] == 0).all()
+    if layer in ("grouped", "dense"):
+        # quantizer and GEMM inputs are bitwise: one bf16 step
+        assert_close_bf16(got.float().numpy(), want)
+        assert events.count(evs, "plan_build") == 1
+        assert events.count(evs, "quantize_tilewise") == 1
+    else:
+        # the fused epilogue may sit one e4m3 step off on a few elements,
+        # moving a dot product by a few e4m3 steps of one term
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= 2e-2 * np.abs(want).max(), err
+
+
+def test_bf16_precision_not_ported():
+    x = torch.zeros((8, 128))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tgg.grouped_linear(x, torch.zeros((1, 128, 128)),
+                           torch.tensor([8], dtype=torch.int32))
