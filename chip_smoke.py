@@ -8,13 +8,25 @@ Phases, each printing one JSON line:
   1. probe   card name and power limit, torch/CUDA versions, nvcc;
   2. build   every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   3. kernel  each kernel against its plain PyTorch version on the card at
-             the serving path's shapes: max error, mismatches, times and
-             the bound of the work;
+             the serving and training paths' shapes: max error,
+             mismatches, times and the bound of the work; the one PyTorch
+             call computing a kernel's function, where there is one,
+             checked against the plain version and timed;
   4. forward the full-width qwen2-moe-a2.7b cut to 2 layers: prefill
              logits through the kernels against the plain versions;
   5. serve   the full 24-layer qwen2-moe-a2.7b in fp8 with random weights:
              batch 4, prompt 64, 16 new tokens, greedy; the launch counts
-             of the run are asserted.
+             of the run are asserted;
+  6. train-parity  the full-width model cut to 2 layers, batch 2, seq 256:
+             loss and gradients of one train step through the kernels
+             against the plain versions;
+  7. train   the full-width model cut to 4 layers (the depth one card's
+             80 GB holds with bf16 params and f32 AdamW state), batch 8,
+             seq 512: 8 steps through ``launch/train.py``'s ``train``
+             (loss must fall, launch counts asserted; a profile of one
+             step and its forward / backward / AdamW split), the same 8
+             steps through the plain versions for comparison, then 2
+             steps with the fp8 wgrad.
 Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
 raises and the script exits non-zero.  Without a CUDA device, or without
@@ -25,8 +37,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -35,16 +49,29 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 peak bandwidth
 FP8_FLOP_PER_S = 1979e12        # dense fp8 tensor-core peak
+BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 L2_BYTES = 50 * 2 ** 20         # H100 L2 cache
+# profiler kernel names -> category, first match wins
+KERNEL_CATEGORIES = (
+    ("grouped GEMM (gmm)", ("gmm_fp8_kernel",)),
+    ("wgrad", ("wgrad_kernel",)),
+    ("quantize + act_quantize", ("quantize_tilewise_kernel",
+                                 "act_quantize_kernel")),
+    ("cuBLAS matmuls", ("gemm", "nvjet", "xmma", "cutlass")),
+)
 REPLACES = {
     "quantize_tilewise": "src/repro/kernels/quant_kernel.py:44",
     "act_quantize": "src/repro/kernels/epilogue_kernel.py:80",
     "gmm": "src/repro/kernels/grouped_gemm_kernel.py:150",
+    "wgrad": "src/repro/kernels/wgrad_kernel.py:219",
+    "wgrad_fp8": "src/repro/kernels/wgrad_kernel.py:331",
 }
 SOURCES = {
     "quantize_tilewise": "src/repro_torch/kernels/csrc/quant.cu",
     "act_quantize": "src/repro_torch/kernels/csrc/act_quant.cu",
     "gmm": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+    "wgrad": "src/repro_torch/kernels/csrc/wgrad.cu",
+    "wgrad_fp8": "src/repro_torch/kernels/csrc/wgrad.cu",
 }
 
 
@@ -106,10 +133,12 @@ def rotation(make, nbytes) -> list:
 
 def kernels():
     from repro_torch.kernels import epilogue_kernel, grouped_gemm_kernel, \
-        quant_kernel
+        quant_kernel, wgrad_kernel
     return {"quantize_tilewise": quant_kernel.quantize_tilewise_cuda,
             "act_quantize": epilogue_kernel.act_quantize_cuda,
-            "gmm": grouped_gemm_kernel.gmm_cuda}
+            "gmm": grouped_gemm_kernel.gmm_cuda,
+            "wgrad": wgrad_kernel.gmm_wgrad_cuda,
+            "wgrad_fp8": wgrad_kernel.gmm_wgrad_fp8_cuda}
 
 
 def reset_counts() -> None:
@@ -123,22 +152,28 @@ def read_counts() -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the serving path through the plain PyTorch versions (on the
-    same card) by swapping the kernel modules' public functions."""
+    """Route the serving and training paths through the plain PyTorch
+    versions (on the same card) by swapping the kernel modules' public
+    functions."""
     from repro_torch.kernels import epilogue_kernel as ek
     from repro_torch.kernels import grouped_gemm_kernel as gk
     from repro_torch.kernels import quant_kernel as qk
-    saved = (qk.quantize_tilewise, ek.act_quantize, gk.gmm)
+    from repro_torch.kernels import wgrad_kernel as wk
+    saved = (qk.quantize_tilewise, ek.act_quantize, gk.gmm, wk.gmm_wgrad,
+             wk.gmm_wgrad_fp8)
     qk.quantize_tilewise = qk.quantize_tilewise_plain
 
     def act_plain(g, u=None, *, s_g=None, s_u=None, act="silu_mul"):
         return ek.act_quantize_plain(g, u, act=act)
     ek.act_quantize = act_plain
     gk.gmm = gk.gmm_plain
+    wk.gmm_wgrad = wk.gmm_wgrad_plain
+    wk.gmm_wgrad_fp8 = wk.gmm_wgrad_fp8_plain
     try:
         yield
     finally:
-        qk.quantize_tilewise, ek.act_quantize, gk.gmm = saved
+        (qk.quantize_tilewise, ek.act_quantize, gk.gmm, wk.gmm_wgrad,
+         wk.gmm_wgrad_fp8) = saved
 
 
 # ---------------------------------------------------------------------------
@@ -267,26 +302,210 @@ def compare_gemm(name, args, kw, plan, *, nan_out=False):
             if scale else 0.0, "mismatches": mism}
 
 
+def wgrad_case(gen, m, k, n, sizes, fp8, *, nan_tail=False):
+    """Operands of one wgrad call: bf16 x, dy or their 1x128 fp8
+    quantizations, the group sizes on the card and the forward's plan.
+    With ``nan_tail`` every row past sum(sizes) holds NaN (payload and
+    scales)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import make_tile_plan
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    dy = torch.randn((m, n), generator=gen, device="cuda") * 1e-2
+    total = int(sizes.sum())
+    gs = sizes.cuda()
+    plan = make_tile_plan(gs, m, block_m=128, num_groups=sizes.numel())
+    if fp8:
+        args = [*ref.quantize_tilewise_ref(x), *ref.quantize_tilewise_ref(dy)]
+    else:
+        args = [x.bfloat16(), dy.bfloat16()]
+    if nan_tail:
+        for t in args:
+            if t.dtype == torch.float8_e4m3fn:
+                t.view(torch.uint8)[total:] = 0x7F      # e4m3 NaN
+            else:
+                t[total:] = float("nan")
+    return (*args, gs), plan
+
+
+def compare_wgrad(name, fp8, args, plan):
+    """Kernel against plain version: within 1e-4 of the largest |dw| plus
+    1e-6 (both sum exact products in f32, in another order; the fp8
+    kernel's scaled dy enters as a bf16 hi + lo pair, ~2^-16 relative);
+    two launches bitwise equal; empty groups exactly zero; no NaN."""
+    import torch
+    from repro_torch.kernels import wgrad_kernel as wk
+    cuda = wk.gmm_wgrad_fp8_cuda if fp8 else wk.gmm_wgrad_cuda
+    plain = wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain
+    dw = cuda(*args, plan=plan)
+    dw2 = cuda(*args, plan=plan)
+    want = plain(*args, plan=plan)
+    torch.cuda.synchronize()
+    label = f"{'wgrad_fp8' if fp8 else 'wgrad'} {name}"
+    if not torch.equal(dw, dw2):
+        raise AssertionError(f"{label}: two launches differ")
+    if not torch.isfinite(dw).all():
+        raise AssertionError(f"{label}: non-finite values in dw")
+    empty = (args[-1] == 0).nonzero().flatten()
+    if (dw[empty] != 0).any():
+        raise AssertionError(f"{label}: an empty group's dw is not zero")
+    err = (dw - want).abs()
+    scale = float(want.abs().max())
+    tol = 1e-4 * scale + 1e-6
+    bad = int((err > tol).sum())
+    if bad:
+        raise AssertionError(f"{label}: {bad} elements beyond {tol} "
+                             f"(max err {float(err.max())})")
+    x, dy = args[0], args[2] if fp8 else args[1]
+    return {"case": name, "shape": [x.shape[0], x.shape[1], dy.shape[1]],
+            "groups": int(args[-1].numel()), "empty_groups": int(empty.numel()),
+            "total_rows": int(args[-1].sum()),
+            "max_abs_err": float(err.max()), "rel_to_max":
+            float(err.max()) / scale if scale else 0.0, "bitwise_repeat": True}
+
+
+def check_wgrad(gen, cpu_gen, routed):
+    """B4 and B6 at the training path's shapes (``routed``: 16384 slots
+    over 60 groups, 8 of them empty; the shared experts' G = 1 over 4096
+    rows) and the edge cases.  Returns the rows and the routed gate's
+    operands."""
+    import torch
+    shared = torch.tensor([4096], dtype=torch.int32)
+    cases = {
+        "routed_gate_up": (16384, 2048, 1408, routed, {}),
+        "routed_down": (16384, 1408, 2048, routed, {}),
+        "shared_gate_up": (4096, 2048, 5632, shared, {}),
+        "shared_down": (4096, 5632, 2048, shared, {}),
+        "nan_tail": (4096, 2048, 1408,
+                     ragged_sizes(cpu_gen, 4096, 60, 3900, empty=8),
+                     {"nan_tail": True}),
+        "all_empty": (1024, 256, 256, torch.zeros(8, dtype=torch.int32), {}),
+        "mid_chunk": (300, 256, 384,
+                      torch.tensor([1, 37, 0, 200, 5, 57], dtype=torch.int32),
+                      {}),
+    }
+    rows = {"wgrad": [], "wgrad_fp8": []}
+    keep = {}
+    for fp8, key in ((False, "wgrad"), (True, "wgrad_fp8")):
+        for name, (m, k, n, sizes, kw) in cases.items():
+            args, plan = wgrad_case(gen, m, k, n, sizes, fp8, **kw)
+            rows[key].append(compare_wgrad(name, fp8, args, plan))
+            if name == "routed_gate_up":
+                keep[key] = (args, plan)
+            del args
+    return rows, keep
+
+
+def library_call(fn, want, tol_fn):
+    """Time ``fn()``, the one PyTorch call computing a kernel's function,
+    after checking it against ``want`` (the plain version's output).
+    Returns ``(ms, note)``; ``ms`` is None with the reason where the call
+    raises or computes something else."""
+    import torch
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+    except Exception as exc:                   # noqa: BLE001 - recorded
+        return None, f"{type(exc).__name__}: " + \
+            (str(exc).strip().splitlines() or [""])[0][:200]
+    if tuple(got.shape) != tuple(want.shape):
+        return None, f"computes another shape {tuple(got.shape)}"
+    err = (got.float() - want.float()).abs()
+    bad = int((err > tol_fn(want.float())).sum()) + \
+        int((~torch.isfinite(got.float())).sum())
+    if bad:
+        return None, (f"computes something else: {bad} elements beyond the "
+                      f"kernel's tolerance (max err {float(err.max())})")
+    return cuda_ms(lambda i: fn(), iters=10), "matches the plain version"
+
+
+def phase_library(gmm_setup, wgrad_setup):
+    """The library column: ``F.scaled_grouped_mm`` (1x128 A, 128x128 B,
+    ``offs``) for the fp8 grouped GEMM, ``F.grouped_mm(x.T, dy, offs=...)``
+    for the bf16 wgrad; no single PyTorch call computes the quantizers, the
+    fused activation quantizer or the wgrad on fp8 operands whose scales
+    run along the contracted axis."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import grouped_gemm_kernel as gk
+    from repro_torch.kernels import wgrad_kernel as wk
+    out = {name: (None, "no single PyTorch call computes this function")
+           for name in SOURCES}
+    args, kw, plan = gmm_setup
+    a8, sa, b8, sb, gs = args
+    ends = torch.cumsum(gs, 0).to(torch.int32)
+    want = gk.gmm_plain(*args, **kw)
+    total = int(plan.total_rows())
+    # B column-major, as the fp8 grouped GEMMs take it
+    b8_cm = b8.transpose(1, 2).contiguous().transpose(1, 2)
+    if hasattr(F, "scaled_grouped_mm"):
+        st = F.ScalingType
+        out["gmm"] = library_call(
+            lambda: F.scaled_grouped_mm(
+                a8[:total], b8_cm, sa[:total], st.BlockWise1x128, sb,
+                st.BlockWise128x128, offs=ends,
+                output_dtype=torch.bfloat16),
+            want[:total],
+            lambda w: w.abs() * 2.0 ** -7 + 1e-4 * w.abs().max())
+    else:
+        out["gmm"] = (None, "torch.nn.functional has no scaled_grouped_mm")
+    (x, dy, wgs), wplan = wgrad_setup["wgrad"]
+    wends = torch.cumsum(wgs, 0).to(torch.int32)
+    wwant = wk.gmm_wgrad_plain(x, dy, wgs, plan=wplan)
+    if hasattr(F, "grouped_mm"):
+        ms, note = library_call(
+            lambda: F.grouped_mm(x.T, dy, offs=wends,
+                                 out_dtype=torch.float32),
+            wwant, lambda w: 1e-4 * w.abs().max() + 1e-6)
+        if ms is None:
+            # the training path casts dw to the weights' bf16 at once, as
+            # the reference does: the default bf16 output is what it
+            # consumes (within half a bf16 step of the plain f32 dw)
+            f32_note = note
+            ms, note = library_call(
+                lambda: F.grouped_mm(x.T, dy, offs=wends), wwant,
+                lambda w: w.abs() * 2.0 ** -8 + 1e-4 * w.abs().max() + 1e-6)
+            note = (f"bf16 output, the dtype the training path consumes "
+                    f"({note}); with out_dtype=f32: {f32_note}")
+        out["wgrad"] = (ms, note)
+    else:
+        out["wgrad"] = (None, "torch.nn.functional has no grouped_mm")
+    for name, (ms, note) in out.items():
+        emit({"phase": "library", "kernel": name, "library_ms": ms,
+              "note": note})
+    return out
+
+
 def phase_kernels(full: bool):
     import torch
     from repro_torch.kernels import epilogue_kernel as ek
     from repro_torch.kernels import grouped_gemm_kernel as gk
     from repro_torch.kernels import quant_kernel as qk
+    from repro_torch.kernels import wgrad_kernel as wk
     gen = torch.Generator(device="cuda").manual_seed(1)
     cpu_gen = torch.Generator().manual_seed(2)
     results = {}
 
-    # quantize: routed xs at prefill/decode, the shared experts' x
+    # quantize: routed xs at prefill/decode, the shared experts' x; in
+    # training (batch 8 x seq 512) the routed xs [16384, 2048] and the
+    # shared x [4096, 2048], and every dy of the backward: routed gate/up
+    # [16384, 1408] and down [16384, 2048], shared gate/up [4096, 5632]
+    # and down [4096, 2048]
     results["quantize_tilewise"] = check_quantize(
-        gen, [(1024, 2048), (256, 2048), (16, 2048), (4, 2048)])
+        gen, [(1024, 2048), (256, 2048), (16, 2048), (4, 2048),
+              (16384, 2048), (16384, 1408), (4096, 5632), (4096, 2048)])
     results["act_quantize"] = check_act_quantize(
         gen, [(1024, 1408, "silu_mul"), (256, 5632, "silu_mul"),
               (16, 1408, "silu_mul"), (4, 5632, "silu_mul"),
-              (1024, 1408, "gelu")])
+              (1024, 1408, "gelu"),
+              (16384, 1408, "silu_mul"), (4096, 5632, "silu_mul")])
 
     gemm = []
     pre = ragged_sizes(cpu_gen, 1024, 60, 1000, empty=8)
     dec = ragged_sizes(cpu_gen, 16, 60, 16, empty=48)
+    # training: 16384 routed slots over 60 groups, 8 of them empty
+    routed = ragged_sizes(cpu_gen, 16384, 60, 16384, empty=8)
+    shared = torch.tensor([4096], dtype=torch.int32)
     cases = {
         "prefill_gate": (1024, 2048, 1408, pre, 128, torch.bfloat16),
         "prefill_down": (1024, 1408, 2048, pre, 128, torch.bfloat16),
@@ -306,12 +525,29 @@ def phase_kernels(full: bool):
                                    torch.float32),
         "all_empty": (256, 256, 256, torch.zeros(4, dtype=torch.int32), 128,
                       torch.bfloat16),
+        # the training step's forward (bf16 out) and dgrads (dx = dy @ w^T,
+        # f32 out): routed at 16384 rows, shared at 4096
+        "train_gate_up": (16384, 2048, 1408, routed, 128, torch.bfloat16),
+        "train_down": (16384, 1408, 2048, routed, 128, torch.bfloat16),
+        "train_dgrad_gate_up_f32": (16384, 1408, 2048, routed, 128,
+                                    torch.float32),
+        "train_dgrad_down_f32": (16384, 2048, 1408, routed, 128,
+                                 torch.float32),
+        "train_shared_gate_up": (4096, 2048, 5632, shared, 128,
+                                 torch.bfloat16),
+        "train_shared_down": (4096, 5632, 2048, shared, 128, torch.bfloat16),
+        "train_shared_dgrad_gate_up_f32": (4096, 5632, 2048, shared, 128,
+                                           torch.float32),
+        "train_shared_dgrad_down_f32": (4096, 2048, 5632, shared, 128,
+                                        torch.float32),
     }
     setups = {}
     for name, (m, k, n, sizes, bm, dt) in cases.items():
         args, kw, plan = gemm_case(gen, m, k, n, sizes, bm, dt)
-        setups[name] = (args, kw, plan)
         gemm.append(compare_gemm(name, args, kw, plan))
+        if not name.startswith("train"):       # keep what is used below
+            setups[name] = (args, kw, plan)
+        del args
     args, kw, plan = setups["prefill_gate"]
     gemm.append(compare_gemm("prefill_gate_nan_out", args, kw, plan,
                              nan_out=True))
@@ -323,8 +559,11 @@ def phase_kernels(full: bool):
         except ValueError:
             pass
     results["gmm"] = gemm
+    wrows, wsetups = check_wgrad(gen, cpu_gen, routed)
+    results.update(wrows)
     for name, rows in results.items():
         emit({"phase": "kernel", "kernel": name, "checks": rows})
+    library = phase_library(setups["prefill_gate"], wsetups)
 
     # the largest error over every case checked above
     worst = {name: max(r["max_abs_err"] for r in rows)
@@ -381,11 +620,36 @@ def phase_kernels(full: bool):
         plain_ms=cuda_ms(lambda i: gk.gmm_plain(*args, **kw), iters=3),
         bytes=m * k + visited * k * n + 2 * m * n, flops=2 * rows * k * n,
         max_abs_err=worst["gmm"])
+    del args, setups
+    # the wgrads at the routed gate/up shape: 16384 rows, 60 groups, K 2048,
+    # N 1408; each call writes a 692 MB dw, so inputs and output overflow
+    # the L2 on every call
+    for key, fp8 in (("wgrad", False), ("wgrad_fp8", True)):
+        (wargs, wplan) = wsetups.pop(key)
+        x, dy = wargs[0], wargs[-3 if fp8 else 1]
+        total = int(wplan.total_rows())
+        g = int(wargs[-1].numel())
+        k, n = x.shape[1], dy.shape[1]
+        cuda = kernels()[key]
+        plain = (wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain)
+        in_bytes = total * (k + n) * (1 if fp8 else 2) + \
+            (4 * total * (k + n) // 128 if fp8 else 0)
+        timing[key] = dict(
+            shape=[x.shape[0], k, n], groups=g, total_rows=total,
+            ms=graph_ms(lambda i: cuda(*wargs, plan=wplan), iters=4,
+                        replays=3),
+            eager_ms=cuda_ms(lambda i: cuda(*wargs, plan=wplan), iters=4),
+            plain_ms=cuda_ms(lambda i: plain(*wargs, plan=wplan), iters=3,
+                             warmup=1),
+            bytes=in_bytes + 4 * g * k * n, flops=2 * total * k * n,
+            peak_flop_per_s=BF16_FLOP_PER_S, max_abs_err=worst[key])
+        del wargs
     for name, t in timing.items():
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = t["flops"] / FP8_FLOP_PER_S * 1e3
+        t_ops = t["flops"] / t.pop("peak_flop_per_s", FP8_FLOP_PER_S) * 1e3
         t["bound_ms"] = max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        t["library_ms"], t["library_note"] = library[name]
         emit({"phase": "kernel_time", "kernel": name, **t})
     return timing
 
@@ -452,8 +716,14 @@ def profile_breakdown(fn, top=8):
         rows.append((e.self_device_time_total / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    by_category = {}
+    for ms, _, key in rows:
+        cat = next((c for c, marks in KERNEL_CATEGORIES
+                    if any(m in key for m in marks)), "other PyTorch kernels")
+        by_category[cat] = by_category.get(cat, 0.0) + ms
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
+            "by_category": by_category,
             "top": [{"name": k[:80], "ms": ms, "calls": c}
                     for ms, c, k in rows[:top]]}
 
@@ -510,7 +780,8 @@ def phase_serve():
     forwards = new
     expect = {"quantize_tilewise": forwards * cfg.num_layers * 2,
               "gmm": forwards * cfg.num_layers * 6,
-              "act_quantize": forwards * cfg.num_layers * 2}
+              "act_quantize": forwards * cfg.num_layers * 2,
+              "wgrad": 0, "wgrad_fp8": 0}
     toks = res.tokens
     ok_tokens = (tuple(toks.shape) == (batch_size, new)
                  and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size)
@@ -532,6 +803,195 @@ def phase_serve():
     if not ok_tokens or not torch.isfinite(last.float()).all():
         raise AssertionError("serve produced malformed tokens or logits")
     return counts
+
+
+def free_memory() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_parity():
+    """Full widths, 2 layers, batch 2, seq 256: the loss and gradients of
+    one train step (what the optimizer would take, with the global norm it
+    would clip by) through the kernels against the plain versions, on one
+    set of weights, on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import make_model
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.trainer import value_and_grad
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2)
+    model = make_model(cfg, "cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(4))
+    batch = SyntheticLM(DataConfig(seed=1, batch_size=2, seq_len=256), cfg,
+                        device="cuda").batch_at(0)
+    reset_counts()
+    (loss_k, _), grads_k = value_and_grad(model.loss, params, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with plain_kernels():
+        (loss_p, _), grads_p = value_and_grad(model.loss, params, batch)
+    torch.cuda.synchronize()
+    if read_counts() != counts:
+        raise AssertionError("the plain train step launched a kernel")
+    per_step = {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
+                "wgrad": 6, "wgrad_fp8": 0}
+    expect = {k: v * cfg.num_layers for k, v in per_step.items()}
+    norm_k, norm_p = float(global_norm(grads_k)), float(global_norm(grads_p))
+    loss_err = abs(float(loss_k) - float(loss_p))
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    weights = {}
+    for li, (gk, gp) in enumerate(zip(grads_k["layers"], grads_p["layers"])):
+        for key in ("w_gate", "w_up", "w_down", "shared_gate", "shared_up",
+                    "shared_down"):
+            a, b = gk["moe"][key].float(), gp["moe"][key].float()
+            weights[f"layers.{li}.{key}"] = float((a - b).abs().max()
+                                                  / b.abs().max())
+    worst = max(weights.values())
+    emit({"phase": "train_parity", "layers": cfg.num_layers, "batch": 2,
+          "seq": 256, "loss_kernels": float(loss_k), "loss_plain":
+          float(loss_p), "loss_abs_err": loss_err, "loss_bound": 1e-2,
+          "grad_norm_kernels": norm_k, "grad_norm_plain": norm_p,
+          "grad_norm_rel_err": norm_rel, "grad_norm_bound": 2e-2,
+          "expert_grad_rel_to_max": weights, "expert_grad_bound": 5e-2,
+          "launches": counts, "expected_launches": expect})
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts} != expected {expect}")
+    if not (loss_err <= 1e-2 and norm_rel <= 2e-2 and worst <= 5e-2):
+        raise AssertionError(f"train step kernels vs plain: loss err "
+                             f"{loss_err}, grad norm rel {norm_rel}, worst "
+                             f"expert grad {worst}")
+
+
+def phase_train():
+    """The slice's path at full width, cut to 4 layers: 8 steps of
+    ``launch/train.py``'s ``train`` (bf16 wgrad), then 2 with the fp8
+    wgrad; loss falls, launch counts exact; a profile of one step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=4)
+    batch, seq, steps = 8, 512, 8
+    per_step = {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
+                "wgrad": 6, "wgrad_fp8": 0}
+    out = {}
+    for wgrad, n in (("bf16", steps), ("fp8", 2)):
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        run = train(cfg, steps=n, batch=batch, seq=seq, lr=1e-3,
+                    warmup_steps=3, seed=0, log_every=1, device="cuda",
+                    wgrad_precision=wgrad,
+                    log=lambda line: print("train", line, flush=True))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        expect = {k: v * cfg.num_layers * n for k, v in per_step.items()}
+        if wgrad == "fp8":
+            expect["wgrad_fp8"], expect["wgrad"] = expect["wgrad"], 0
+        hist = run.history
+        step_ms = statistics.median(h["step_ms"] for h in hist[-5:])
+        rec = {"phase": "train", "wgrad_precision": wgrad,
+               "layers": cfg.num_layers, "params": cfg.param_count(),
+               "batch": batch, "seq": seq, "steps": n,
+               "losses": [h["loss"] for h in hist],
+               "grad_norms": [h["grad_norm"] for h in hist],
+               "lrs": [h["lr"] for h in hist],
+               "step_ms": [h["step_ms"] for h in hist],
+               "step_ms_median_last5": step_ms,
+               "tok_per_s": batch * seq / step_ms * 1e3,
+               "max_memory_allocated_gb": peak / 1e9,
+               "launches": counts, "expected_launches": expect}
+        emit(rec)
+        if counts != expect:
+            raise AssertionError(f"train ({wgrad} wgrad) launch counts "
+                                 f"{counts} != expected {expect}")
+        finite = all(torch.isfinite(torch.tensor([h["loss"], h["grad_norm"]]))
+                     .all() for h in hist)
+        if not finite:
+            raise AssertionError(f"train ({wgrad} wgrad): non-finite loss or "
+                                 "grad norm")
+        if wgrad == "bf16":
+            if not hist[-1]["loss"] < hist[0]["loss"]:
+                raise AssertionError(f"train: loss did not fall "
+                                     f"({hist[0]['loss']} -> {hist[-1]['loss']})")
+            nxt = run.data.batch_at(n)
+            br = profile_breakdown(lambda: run.step_fn(run.params,
+                                                       run.opt_state, nxt),
+                                   top=14)
+            emit({"phase": "profile", "of": "train_step", **br})
+            emit({"phase": "train_split", **split_step(cfg, run, nxt)})
+        out[wgrad] = counts
+        del run
+        if wgrad == "bf16":
+            # the same 8 steps through the plain versions: does the
+            # trajectory (its spikes included) belong to the kernels?
+            free_memory()
+            with plain_kernels():
+                plain = train(cfg, steps=n, batch=batch, seq=seq, lr=1e-3,
+                              warmup_steps=3, seed=0, log_every=n,
+                              device="cuda", log=lambda line: None)
+            # one step agrees to ~1e-4 (train-parity phase); 8 Adam steps
+            # through an lr of 1e-3 amplify that, so the trajectories are
+            # held at 5e-2 of the plain loss, step by step
+            rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                      for a, b in zip(hist, plain.history))
+            emit({"phase": "train_plain", "losses":
+                  [h["loss"] for h in plain.history], "grad_norms":
+                  [h["grad_norm"] for h in plain.history],
+                  "max_abs_loss_diff_vs_kernels": max(
+                      abs(a["loss"] - b["loss"])
+                      for a, b in zip(hist, plain.history)),
+                  "max_rel_loss_diff_vs_kernels": rel, "bound": 5e-2})
+            del plain
+            if not rel <= 5e-2:
+                raise AssertionError(f"train: kernel and plain loss "
+                                     f"trajectories differ by {rel} > 5e-2")
+    free_memory()
+    return out
+
+
+def split_step(cfg, run, batch):
+    """One more step of ``run`` cut into forward, backward and AdamW,
+    each timed by CUDA events; and the plain blockwise weight quantization
+    such a step does (forward: w, backward: w^T, every expert weight)."""
+    import torch
+    from repro_torch.core import quantization as q
+    from repro_torch.models.model_zoo import make_model
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    model = make_model(cfg, "cuda")
+    opt_cfg = adamw.OptConfig(lr=1e-3, total_steps=8, warmup_steps=3)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    leaves = tree_leaves(run.params)
+    for p in leaves:
+        p.requires_grad_(True)
+    ev[0].record()
+    loss, _ = model.loss(run.params, batch)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, leaves)
+    ev[2].record()
+    for p in leaves:
+        p.requires_grad_(False)
+    adamw.apply_updates(run.params, tree_unflatten(run.params, grads),
+                        run.opt_state, opt_cfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    moe = run.params["layers"][0]["moe"]
+
+    def quant_weights():
+        for key in ("w_gate", "w_up", "w_down", "shared_gate", "shared_up",
+                    "shared_down"):
+            w = moe[key] if moe[key].dim() == 3 else moe[key][None]
+            q.quantize_blockwise_batched(w)
+            q.quantize_blockwise_batched(w.transpose(1, 2).contiguous())
+    wq_ms = cuda_ms(lambda i: quant_weights(), iters=3, warmup=1)
+    return {"forward_ms": ev[0].elapsed_time(ev[1]),
+            "backward_ms": ev[1].elapsed_time(ev[2]),
+            "adamw_ms": ev[2].elapsed_time(ev[3]),
+            "weight_quant_ms_per_step": wq_ms * cfg.num_layers}
 
 
 def main(argv=None) -> int:
@@ -557,18 +1017,31 @@ def main(argv=None) -> int:
                           if "registers" in ln or "spill" in ln]
                     for src, out in notes.items()}})
     timing = phase_kernels(full=not args.quick)
-    counts = {}
     if not args.quick:
+        free_memory()
         phase_forward()
-        torch.cuda.empty_cache()
-        counts = phase_serve()
+        free_memory()
+        paths = {"serve": phase_serve()}
+        free_memory()
+        phase_train_parity()
+        free_memory()
+        train_counts = phase_train()
+        paths["train"] = train_counts["bf16"]
+        paths["train_fp8_wgrad"] = train_counts["fp8"]
+        # launches: the sum over the main paths driven (serving, training
+        # with each wgrad precision), each counted from 0
         emit({"kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name],
-             "replaces": REPLACES[name], "launches": counts[name],
+             "replaces": REPLACES[name],
+             "launches": sum(c.get(name, 0) for c in paths.values()),
+             "launches_by_path": {p: c.get(name, 0)
+                                  for p, c in paths.items()},
              "max_abs_err": timing[name]["max_abs_err"],
              "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
              "bound_ms": timing[name]["bound_ms"],
-             "bound_by": timing[name]["bound_by"], "library_ms": None}
+             "bound_by": timing[name]["bound_by"],
+             "library_ms": timing[name]["library_ms"],
+             "library_note": timing[name]["library_note"]}
             for name in SOURCES]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""Parameters of the JAX package -> parameters of the port.
+"""Parameters and AdamW state of the JAX package -> the port's.
 
 The JAX package's param tree comes in as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), so the two packages compute the
@@ -52,4 +52,15 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cpu"):
         raise ValueError(f"the tree holds {n} layers, the config {cfg.num_layers}")
     out["layers"] = [tree_from_numpy(_index(stacked, i), device)
                      for i in range(n)]
+    return out
+
+
+def opt_state_from_jax(np_state, cfg: ModelConfig, device="cpu"):
+    """The JAX package's AdamW state (numpy leaves: param-shaped ``m``,
+    ``v`` and optional ``master`` / ``ef`` trees, a scalar ``step``) ->
+    the port's, so both packages train on from identical state."""
+    out = {k: params_from_jax(v, cfg, device) for k, v in np_state.items()
+           if k != "step"}
+    out["step"] = torch.tensor(int(np.asarray(np_state["step"])),
+                               dtype=torch.int32, device=device)
     return out

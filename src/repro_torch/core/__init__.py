@@ -1,1 +1,1 @@
-"""Forward-only fp8 grouped GEMM, quantization and the MoE layer."""
+"""Differentiable fp8 grouped GEMM, quantization and the MoE layer."""

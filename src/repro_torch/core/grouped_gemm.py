@@ -1,4 +1,4 @@
-"""Padding-free FP8 grouped linear layers, forward only.
+"""Differentiable padding-free FP8 grouped linear layers.
 
 ``grouped_linear(x, w, group_sizes)`` computes ``y[rows of group g] =
 x[rows of g] @ w[g]`` over the unpadded concatenated token buffer: x is
@@ -8,10 +8,17 @@ product runs on the padding-free grouped GEMM.  ``grouped_linear_fused``
 takes the gate/up outputs instead of x and runs the fused
 activation->quantize epilogue in front of the GEMM.
 
-These are plain functions for inference; call them under
-``torch.inference_mode()``.  The differentiable versions come with the
-training slice.  The kernels are reached through
-``grouped_gemm_kernel.gmm``, which chooses by the tensor's device.
+Both are ``torch.autograd.Function``s that mirror the JAX package's
+custom VJPs.  The backward quantizes ``dy`` 1x128 ONCE for both of its
+GEMMs: the dgrad ``dx = dy @ w^T`` on the same fp8 grouped GEMM (w^T
+re-quantized 128x128, f32 out) and the wgrad ``dw[g] = x_g^T dy_g`` on
+the wgrad kernel, bf16 operands by default or, under
+``KernelConfig.wgrad_precision="fp8"``, the fp8 operands the forward and
+the dgrad already hold.  All GEMMs of a layer reuse one
+:class:`TilePlan`.  The kernels are reached through the kernel modules'
+attributes (``grouped_gemm_kernel.gmm``, ``wgrad_kernel.gmm_wgrad*``),
+which choose by the tensor's device.  The config (tile shapes,
+``wgrad_precision``) is read in the forward and kept for the backward.
 """
 from __future__ import annotations
 
@@ -20,21 +27,127 @@ from typing import Optional
 import torch
 
 from repro_torch.core import quantization as q
-from repro_torch.kernels import grouped_gemm_kernel
+from repro_torch.kernels import grouped_gemm_kernel, wgrad_kernel
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.epilogue_kernel import ACTIVATIONS
 from repro_torch.kernels.plan import KernelConfig, TilePlan, make_tile_plan, \
     resolve_config
 
 
-def _gemm(a8, sa, w, group_sizes, cfg: KernelConfig, plan: Optional[TilePlan]):
-    b8, sb = q.quantize_blockwise_batched(w)
+def _plan(plan: Optional[TilePlan], group_sizes, m: int, cfg: KernelConfig,
+          num_groups: int) -> TilePlan:
     if plan is None:
-        plan = make_tile_plan(group_sizes, a8.shape[0], block_m=cfg.block_m,
-                              num_groups=w.shape[0])
+        plan = make_tile_plan(group_sizes, m, block_m=cfg.block_m,
+                              num_groups=num_groups)
+    return plan
+
+
+def _gemm(a8, sa, w, group_sizes, cfg: KernelConfig, plan: TilePlan,
+          out_dtype):
+    """``a @ w[g]`` per group on the fp8 grouped GEMM, w quantized here."""
+    b8, sb = q.quantize_blockwise_batched(w)
     return grouped_gemm_kernel.gmm(
         a8, sa, b8, sb, group_sizes, num_groups=w.shape[0],
         block_m=cfg.block_m, block_n=cfg.block_n, block_k=cfg.block_k,
-        out_dtype=cfg.out_dtype, plan=plan)
+        out_dtype=out_dtype, plan=plan)
+
+
+def _dgrad(d8, sd, w, group_sizes, cfg: KernelConfig, plan: TilePlan):
+    """``dx = dy @ w[g]^T`` per group on the fp8 grouped GEMM, w^T
+    quantized 128x128 blockwise, f32 out, on the forward's plan."""
+    # contiguous before quantizing: the quantizer keeps its input's
+    # strides, and the kernel takes a row-major [G, N, K]
+    return _gemm(d8, sd, w.transpose(1, 2).contiguous(), group_sizes, cfg,
+                 plan, torch.float32)
+
+
+def _wgrad(operands, group_sizes, cfg: KernelConfig, plan: TilePlan,
+           num_groups: int):
+    """``dw[g] = a_g^T dy_g`` in f32.  ``operands``: ``(a, dy)``, cast to
+    bf16 here, or under fp8 wgrad ``(a8, s_a, d8, s_d)``."""
+    kw = dict(num_groups=num_groups, block_n=cfg.block_n,
+              block_k=cfg.block_k, out_dtype=torch.float32, plan=plan)
+    if cfg.wgrad_precision == "fp8":
+        return wgrad_kernel.gmm_wgrad_fp8(*operands, group_sizes, **kw)
+    a, dy = (t.to(torch.bfloat16).contiguous() for t in operands)
+    return wgrad_kernel.gmm_wgrad(a, dy, group_sizes, **kw)
+
+
+class _GroupedLinearFP8(torch.autograd.Function):
+    """Mirrors ``_fp8_fwd`` / ``_fp8_bwd`` of the JAX package's
+    ``core/grouped_gemm.py``."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes, plan, quantized, cfg):
+        # quantize-once: a caller's QuantizedActivation (the MoE gate/up
+        # pair shares one) replaces the tilewise quantization of x
+        if quantized is None:
+            quantized = q.quantize_activation(x)
+        plan = _plan(plan, group_sizes, x.shape[0], cfg, w.shape[0])
+        y = _gemm(quantized.q, quantized.scale, w, group_sizes, cfg, plan,
+                  cfg.out_dtype)
+        ctx.cfg, ctx.plan, ctx.x_dtype = cfg, plan, x.dtype
+        if cfg.wgrad_precision == "fp8":
+            # the residual is the quantized activation; x itself is freed
+            ctx.save_for_backward(quantized.q, quantized.scale, w,
+                                  group_sizes)
+        else:
+            # DeepSeek recipe: the wgrad contracts the highest-precision x
+            ctx.save_for_backward(x, w, group_sizes)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        cfg, plan = ctx.cfg, ctx.plan
+        *res, w, group_sizes = ctx.saved_tensors
+        # ONE quantization of dy serves the dgrad and the fp8 wgrad
+        d8, sd = q.quantize_tilewise(dy.float().contiguous())
+        dx = _dgrad(d8, sd, w, group_sizes, cfg, plan)
+        # res: (a8, s_a) under fp8 wgrad, else (x,)
+        operands = (*res, d8, sd) if cfg.wgrad_precision == "fp8" \
+            else (res[0], dy)
+        dw = _wgrad(operands, group_sizes, cfg, plan, w.shape[0])
+        # a supplied QuantizedActivation gets no gradient: x's reaches it
+        # through dx, as the JAX package's zero cotangent for it says
+        return dx.to(ctx.x_dtype), dw.to(w.dtype), None, None, None, None
+
+
+class _GroupedLinearFP8Fused(torch.autograd.Function):
+    """Mirrors ``_fused_fwd`` / ``_fused_bwd`` of the JAX package's
+    ``core/grouped_gemm.py``."""
+
+    @staticmethod
+    def forward(ctx, g, u, w, group_sizes, plan, cfg, act):
+        # ONE fused pass: activation + 1x128 quantization; h never exists
+        qh = q.fused_act_quantize(g, u, act=act)
+        plan = _plan(plan, group_sizes, g.shape[0], cfg, w.shape[0])
+        y = _gemm(qh.q, qh.scale, w, group_sizes, cfg, plan, cfg.out_dtype)
+        ctx.cfg, ctx.plan, ctx.act = cfg, plan, act
+        # (g, u) for the activation's VJP; under fp8 wgrad the quantized h
+        # rides along, so h is never quantized standalone
+        h_res = (qh.q, qh.scale) if cfg.wgrad_precision == "fp8" else ()
+        ctx.save_for_backward(g, u, w, group_sizes, *h_res)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        cfg, plan, act = ctx.cfg, ctx.plan, ctx.act
+        g, u, w, group_sizes, *h_res = ctx.saved_tensors
+        d8, sd = q.quantize_tilewise(dy.float().contiguous())
+        dh = _dgrad(d8, sd, w, group_sizes, cfg, plan)
+        # dsilu(g)*u / silu(g)*du: autograd of the f32 activation the
+        # kernel fused, recomputed from the residuals
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (g, u) if t is not None]
+            h = kref.act_f32(ins[0], ins[1] if u is not None else None, act)
+            grads = torch.autograd.grad(h, ins, dh)
+        # under bf16 wgrad the recomputed h (cast to bf16) is contracted
+        operands = (*h_res, d8, sd) if cfg.wgrad_precision == "fp8" \
+            else (h.detach(), dy)
+        dw = _wgrad(operands, group_sizes, cfg, plan, w.shape[0])
+        dg = grads[0].to(g.dtype)
+        du = grads[1].to(u.dtype) if u is not None else None
+        return dg, du, dw.to(w.dtype), None, None, None, None
 
 
 def grouped_linear(x: torch.Tensor, w: torch.Tensor,
@@ -45,13 +158,15 @@ def grouped_linear(x: torch.Tensor, w: torch.Tensor,
                    quantized: Optional[q.QuantizedActivation] = None
                    ) -> torch.Tensor:
     """x: [M, K]; w: [G, K, N]; group_sizes: [G] with ``sum <= M``.  Rows
-    beyond the last group come back as zeros.
+    beyond the last group come back as zeros, and are excluded from the
+    backward's wgrad.
 
     ``plan``: the routing decision's :class:`TilePlan`, shared by every
     GEMM with these ``group_sizes``.  ``quantized``: the
     :class:`~repro_torch.core.quantization.QuantizedActivation` of exactly
-    this ``x``, shared by every GEMM that consumes it.  ``out_dtype``:
-    explicit > the config's > ``x.dtype``.
+    this ``x``, shared by every GEMM that consumes it; it gets no
+    gradient.  ``out_dtype``: explicit > the config's > ``x.dtype``.
+    The wgrad's precision is the config's ``wgrad_precision``.
     """
     if precision != "fp8":
         raise NotImplementedError(
@@ -60,9 +175,7 @@ def grouped_linear(x: torch.Tensor, w: torch.Tensor,
     cfg = resolve_config(config, out_dtype=out_dtype)
     if cfg.out_dtype is None:
         cfg = cfg.with_(out_dtype=x.dtype)
-    if quantized is None:
-        quantized = q.quantize_activation(x)
-    return _gemm(quantized.q, quantized.scale, w, group_sizes, cfg, plan)
+    return _GroupedLinearFP8.apply(x, w, group_sizes, plan, quantized, cfg)
 
 
 def dense_linear_fp8(x: torch.Tensor, w: torch.Tensor, *,
@@ -89,7 +202,9 @@ def grouped_linear_fused(g: torch.Tensor, u: Optional[torch.Tensor],
     """``y[rows of g'] = act(g, u)[rows of g'] @ w[g']`` with ``act`` =
     ``silu(g)*u`` or unary ``gelu(g)``.  The activation and its 1x128
     quantization run as ONE fused pass; the down GEMM consumes its fp8
-    output directly.  ``out_dtype``: explicit > the config's > ``g.dtype``.
+    output directly.  The backward recomputes the activation in f32 from
+    ``(g, u)``; the wgrad as in :func:`grouped_linear`.
+    ``out_dtype``: explicit > the config's > ``g.dtype``.
     """
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown activation {act!r}; "
@@ -101,8 +216,7 @@ def grouped_linear_fused(g: torch.Tensor, u: Optional[torch.Tensor],
     cfg = resolve_config(config, out_dtype=out_dtype)
     if cfg.out_dtype is None:
         cfg = cfg.with_(out_dtype=g.dtype)
-    qh = q.fused_act_quantize(g, u, act=act)
-    return _gemm(qh.q, qh.scale, w, group_sizes, cfg, plan)
+    return _GroupedLinearFP8Fused.apply(g, u, w, group_sizes, plan, cfg, act)
 
 
 def dense_linear_fp8_fused(g: torch.Tensor, u: Optional[torch.Tensor],

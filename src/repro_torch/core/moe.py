@@ -5,7 +5,11 @@ sizes per expert; the expert FFNs run as one padding-free fp8 grouped
 GEMM over the concatenated, ragged token buffer.
 
 Ported: ragged dispatch in fp8 on one device (``ep_size=1``), shared
-experts and the aux outputs.  Not yet ported, and raising
+experts and the aux outputs, forward and backward.  Gradients reach the
+router through the top-k weights and the load-balance loss; the token
+dispatch and the combine are gathers both ways, so the backward, like
+the forward, sums each token's k slots in one fixed order without
+atomics.  Not yet ported, and raising
 ``NotImplementedError``: ``dispatch="dense"`` (ROADMAP A6), expert
 parallelism (ROADMAP A15) and ``precision="bf16"`` (ROADMAP A8).
 """
@@ -77,6 +81,47 @@ def _capacity(num_slots: int, ep_size: int, cf: float,
     return min(cap_all, max(c, align))
 
 
+def _sum_slots(rows: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``out[t] = sum_j rows[pos[t, j]]`` in f32, added in ascending slot
+    order (``pos`` is sorted along its rows): the packed order of the
+    reference's scatter-add, computed with gathers."""
+    out = rows[pos[:, 0]].float()
+    for j in range(1, pos.shape[1]):
+        out = out + rows[pos[:, j]].float()
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """``xs = x[token_of]``: each packed slot reads its token's row.  The
+    backward sums each token's k slot gradients with :func:`_sum_slots`,
+    in the combine's order, instead of an atomic scatter-add."""
+
+    @staticmethod
+    def forward(ctx, x, token_of, pos):
+        ctx.save_for_backward(pos)
+        return x[token_of]
+
+    @staticmethod
+    def backward(ctx, dxs):
+        (pos,) = ctx.saved_tensors
+        return _sum_slots(dxs, pos).to(dxs.dtype), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``out[t] = sum_j contrib[pos[t, j]]`` (f32); its backward hands each
+    slot its token's gradient, ``dout[token_of]``."""
+
+    @staticmethod
+    def forward(ctx, contrib, token_of, pos):
+        ctx.save_for_backward(token_of)
+        return _sum_slots(contrib, pos)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (token_of,) = ctx.saved_tensors
+        return dout[token_of], None, None
+
+
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
               ep_size: int = 1):
     """x: [T, d_model].  Returns (y [T, d_model], aux dict)."""
@@ -113,7 +158,11 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
     gs = counts.to(torch.int32)
     total = gs.sum()
     token_of = torch.div(sel, k, rounding_mode="floor")
-    xs = x[token_of]                                          # [cap, d]
+    # each token owns exactly k slots; pos[t] lists them in packed order
+    inv = torch.empty_like(sel)
+    inv[sel] = torch.arange(cap, device=x.device)
+    pos = torch.sort(inv.reshape(t, k), dim=1).values         # [T, k]
+    xs = _Dispatch.apply(x, token_of, pos)                    # [cap, d]
 
     # ---- padding-free ragged expert FFN (the paper's kernel) ------------
     # one plan and one quantization of xs per routing decision serve the
@@ -127,17 +176,12 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
     y = grouped_linear_fused(g, u, params["w_down"], gs, act="silu_mul",
                              config=kcfg, plan=tile_plan)     # [cap, d]
 
-    # ---- combine: each token owns exactly k slots.  Gather them back
-    # through the inverse permutation and add them in packed order, which
-    # is the order of the reference's scatter-add, without atomics.
+    # ---- combine: gather each token's k slots back through the inverse
+    # permutation and add them in packed order, the order of the
+    # reference's scatter-add, without atomics
     w_flat = weights.reshape(-1)[sel]
     contrib = y.float() * w_flat[:, None]                     # [cap, d]
-    inv = torch.empty_like(sel)
-    inv[sel] = torch.arange(cap, device=x.device)
-    pos = torch.sort(inv.reshape(t, k), dim=1).values         # [T, k]
-    out = contrib[pos[:, 0]]
-    for j in range(1, k):
-        out = out + contrib[pos[:, j]]
+    out = _Combine.apply(contrib, token_of, pos)
 
     # ---- shared experts ---------------------------------------------------
     if cfg.num_shared_experts:

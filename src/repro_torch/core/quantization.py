@@ -1,4 +1,4 @@
-"""FP8 quantization of activations and weights (forward only).
+"""FP8 quantization of activations and weights.
 
 1x128 per-tile activation quant + 128x128 per-block weight quant, the
 paper's (= DeepSeek-V3's) scheme.
@@ -40,7 +40,8 @@ class QuantizedActivation:
 
 
 def quantize_tilewise(x: torch.Tensor):
-    """[M, K] f32 -> (e4m3 [M, K], f32 [M, K/128])."""
+    """[M, K] f32 -> (e4m3 [M, K], f32 [M, K/128]).  The backward's
+    quantizations of ``dy`` come through here too."""
     # one event per STANDALONE tilewise quantization: the quantize-once
     # counts read these; the fused epilogue quantizes in its kernel
     _events.emit("quantize_tilewise", shape=tuple(x.shape))
@@ -49,8 +50,10 @@ def quantize_tilewise(x: torch.Tensor):
 
 def quantize_activation(x: torch.Tensor) -> QuantizedActivation:
     """ONE ``quantize_tilewise`` of ``x`` (cast to f32, as the reference
-    does), wrapped as the shareable record."""
-    q8, s = quantize_tilewise(x.float().contiguous())
+    does), wrapped as the shareable record.  Like the reference's
+    ``stop_gradient`` producer, the record carries no gradient: the
+    layers consuming it return x's gradient through their dgrad."""
+    q8, s = quantize_tilewise(x.detach().float().contiguous())
     return QuantizedActivation(q8, s)
 
 

@@ -1,10 +1,12 @@
 """TilePlan subsystem: the grouped GEMM's tile shapes and visit schedule.
 
 ``KernelConfig``
-    One frozen record of the tile-shape decisions (``block_m/n/k``) and
-    the output dtype of a grouped GEMM.  Static alignment constraints are
-    checked at construction, the shape-dependent ones by
-    :meth:`KernelConfig.validate`.
+    One frozen record of the tile-shape decisions (``block_m/n/k``), the
+    output dtype of a grouped GEMM and the operand precision of the
+    training step's wgrad.  Static alignment constraints are checked at
+    construction, the shape-dependent ones by :meth:`KernelConfig.validate`.
+    ``config=None`` call sites resolve to :func:`get_default_config`,
+    which the trainer scopes with :func:`default_config`.
 
 ``TilePlan``
     The visitation schedule (``group_offsets/group_ids/m_tile_ids``) the
@@ -17,6 +19,7 @@ building it never waits for the device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -37,6 +40,12 @@ class KernelConfig:
     # None = the call site decides (grouped_linear uses x.dtype); pin a
     # dtype to override every consumer
     out_dtype: Optional[torch.dtype] = None
+    # operand precision of the training step's wgrad GEMM: "bf16" (the
+    # DeepSeek recipe: the wgrad contracts the highest-precision operands)
+    # or "fp8" (arXiv 2505.20524: x and dy arrive as fp8 with their 1x128
+    # tile scales, the forward's and the dgrad's, and are dequantized in
+    # the kernel)
+    wgrad_precision: str = "bf16"
 
     def __post_init__(self):
         if self.block_m % 8 != 0:
@@ -52,26 +61,61 @@ class KernelConfig:
                                                          torch.dtype):
             raise TypeError(f"out_dtype must be a torch.dtype, got "
                             f"{self.out_dtype!r}")
+        if self.wgrad_precision not in ("bf16", "fp8"):
+            raise ValueError(f"wgrad_precision must be 'bf16' or 'fp8', "
+                             f"got {self.wgrad_precision!r}")
 
-    def validate(self, m: int, k: int, n: int) -> "KernelConfig":
+    def validate(self, m: int, k: int, n: int, *,
+                 family: str = "gemm") -> "KernelConfig":
         """Shape-dependent constraints.  M is deliberately unconstrained:
         handling arbitrary (ragged) M without padding is the point of the
-        paper."""
+        paper.  ``family="wgrad"``: K and N are the output's [K, N] tile
+        axes, and must be multiples of 128 (the 1x128 scales of the fp8
+        operands run along them)."""
+        if family not in ("gemm", "wgrad"):
+            raise ValueError(f"unknown family {family!r}")
         if k % self.block_k != 0:
             raise ValueError(f"K={k} must be a multiple of block_k={self.block_k}")
         if n % self.block_n != 0:
             raise ValueError(f"N={n} must be a multiple of block_n={self.block_n}")
+        if family == "wgrad" and (k % QUANT_BLOCK or n % QUANT_BLOCK):
+            raise ValueError(f"wgrad needs K={k} and N={n} to be multiples "
+                             f"of {QUANT_BLOCK}")
         return self
 
     def with_(self, **kw) -> "KernelConfig":
         return dataclasses.replace(self, **kw)
 
 
+# the config ``config=None`` call sites resolve to, while a
+# :func:`default_config` scope is open
+_default_config: Optional[KernelConfig] = None
+
+
+def get_default_config() -> KernelConfig:
+    return _default_config if _default_config is not None else KernelConfig()
+
+
+@contextlib.contextmanager
+def default_config(config: Optional[KernelConfig]):
+    """Scope the config of every ``config=None`` call site (the trainer
+    wraps its loss in one, to pin tile shapes and ``wgrad_precision``).
+    The grouped linear layers read it in their forward and keep it for
+    their backward, which runs outside the scope."""
+    global _default_config
+    prev = _default_config
+    _default_config = config
+    try:
+        yield
+    finally:
+        _default_config = prev
+
+
 def resolve_config(config: Optional[KernelConfig] = None, *,
                    out_dtype: Optional[torch.dtype] = None) -> KernelConfig:
     """Effective config for a call site: the explicit ``config`` or the
     default one, with a per-call ``out_dtype`` override on top."""
-    cfg = config if config is not None else KernelConfig()
+    cfg = config if config is not None else get_default_config()
     if out_dtype is not None:
         cfg = cfg.with_(out_dtype=out_dtype)
     return cfg

@@ -128,3 +128,37 @@ def grouped_gemm_blockscaled_ref(a_fp8, s_a, b_fp8, s_b, group_sizes,
         out.append(acc)
         off += sz
     return torch.cat(out, dim=0).to(out_dtype)
+
+
+def wgrad_exact_ref(x, dy, group_sizes, *, num_groups=None,
+                    out_dtype=torch.float32):
+    """Oracle of the wgrad, ``dw[g] = x_g^T @ dy_g`` contracted in f32,
+    one group at a time: the function of the JAX package's one-hot
+    ``wgrad_xla_exact`` oracle.  Rows at or beyond ``sum(group_sizes)``
+    never enter, whatever they hold (NaN included); groups with no rows,
+    and groups past ``len(group_sizes)`` up to ``num_groups``, are zero.
+    Reads the group sizes back to the host.
+
+    x [M, K], dy [M, N], group_sizes [G] -> [num_groups or G, K, N]
+    ``out_dtype``.
+    """
+    sizes = [int(s) for s in torch.as_tensor(group_sizes).tolist()]
+    dw = torch.zeros((num_groups or len(sizes), x.shape[1], dy.shape[1]),
+                     dtype=torch.float32, device=x.device)
+    off = 0
+    for g, sz in enumerate(sizes):
+        if sz:
+            dw[g] = x[off:off + sz].float().T @ dy[off:off + sz].float()
+        off += sz
+    return dw.to(out_dtype)
+
+
+def wgrad_fp8_exact_ref(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
+                        num_groups=None, out_dtype=torch.float32):
+    """fp8-operand oracle: dequantize both operands exactly in f32 (the
+    1x128 row-tile layout is the same on the x and dy sides), then
+    :func:`wgrad_exact_ref`."""
+    return wgrad_exact_ref(dequantize_tilewise_ref(x_fp8, s_x),
+                           dequantize_tilewise_ref(dy_fp8, s_dy),
+                           group_sizes, num_groups=num_groups,
+                           out_dtype=out_dtype)

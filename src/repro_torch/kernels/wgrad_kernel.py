@@ -1,0 +1,207 @@
+"""Ragged-contraction (wgrad) grouped GEMM: the CUDA kernels
+(``csrc/wgrad.cu``) and their plain PyTorch versions.
+
+``dw[g] = x_g^T @ dy_g``, where the contracted axis is the ragged M axis:
+group g owns rows ``[offsets[g], offsets[g+1])`` of both the activation
+``x`` [M, K] and the upstream gradient ``dy`` [M, N].  This is the last
+GEMM of the training step's backward; it shares the forward's
+:class:`~repro_torch.kernels.plan.TilePlan` (only its group offsets
+matter here).  Rows at or beyond ``sum(group_sizes)`` are excluded, and
+groups with no rows come back exactly zero.
+
+Two operand precisions:
+  * :func:`gmm_wgrad`: bf16 operands, f32 accumulation (the DeepSeek-V3
+    recipe keeps the wgrad at the highest precision); the default.
+  * :func:`gmm_wgrad_fp8`: e4m3 operands with their 1x128 tile scales,
+    the forward's ``(a8, s_a)`` and the dgrad's ``(d8, s_d)``, dequantized
+    in the kernel (arXiv 2505.20524's all-fp8 step).
+
+Each public function chooses by the tensor's device: a CPU tensor goes
+to the plain version, a CUDA tensor to the ``*_cuda`` wrapper, which
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.plan import QUANT_BLOCK, KernelConfig, TilePlan
+from repro_torch.kernels.ref import FP8, wgrad_exact_ref, \
+    wgrad_fp8_exact_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _prepare(m, k, m2, n, group_sizes, num_groups, block_m, block_n,
+             block_k, plan):
+    """Shape checks; returns ``(num_groups, offsets [G+1] int32)``."""
+    if m != m2:
+        raise ValueError(f"x and dy disagree on M: x is [M={m}, K={k}] but "
+                         f"dy is [M={m2}, N={n}]")
+    num_groups = num_groups or group_sizes.shape[0]
+    KernelConfig(block_m=block_m, block_n=block_n,
+                 block_k=block_k).validate(m, k, n, family="wgrad")
+    if plan is not None:
+        plan.check_against(m, plan.block_m, num_groups)
+        return num_groups, plan.group_offsets
+    sizes = group_sizes.to(torch.int64)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64,
+                                     device=sizes.device),
+                         torch.cumsum(sizes, 0)])
+    return num_groups, offsets.to(torch.int32)
+
+
+def _check_scales(m, k, n, s_x, s_dy):
+    if tuple(s_x.shape) != (m, k // QUANT_BLOCK):
+        raise ValueError(f"s_x must be [M={m}, K/{QUANT_BLOCK}="
+                         f"{k // QUANT_BLOCK}], got {tuple(s_x.shape)}")
+    if tuple(s_dy.shape) != (m, n // QUANT_BLOCK):
+        raise ValueError(f"s_dy must be [M={m}, N/{QUANT_BLOCK}="
+                         f"{n // QUANT_BLOCK}], got {tuple(s_dy.shape)}")
+
+
+def gmm_wgrad_plain(x, dy, group_sizes, *, num_groups: Optional[int] = None,
+                    block_m: int = 128, block_n: int = 128,
+                    block_k: int = 128,
+                    out_dtype: torch.dtype = torch.float32,
+                    plan: Optional[TilePlan] = None) -> torch.Tensor:
+    """The kernel's function in PyTorch ops: the checks of
+    :func:`gmm_wgrad` around :func:`~repro_torch.kernels.ref.wgrad_exact_ref`
+    (one f32 product per group).  Same signature as :func:`gmm_wgrad`."""
+    (m, k), (m2, n) = x.shape, dy.shape
+    num_groups, _ = _prepare(m, k, m2, n, group_sizes, num_groups,
+                             block_m, block_n, block_k, plan)
+    return wgrad_exact_ref(x, dy, group_sizes, num_groups=num_groups,
+                           out_dtype=out_dtype)
+
+
+def gmm_wgrad_fp8_plain(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
+                        num_groups: Optional[int] = None, block_m: int = 128,
+                        block_n: int = 128, block_k: int = 128,
+                        out_dtype: torch.dtype = torch.float32,
+                        plan: Optional[TilePlan] = None) -> torch.Tensor:
+    """The fp8 kernel's function in PyTorch ops: the checks of
+    :func:`gmm_wgrad_fp8` around
+    :func:`~repro_torch.kernels.ref.wgrad_fp8_exact_ref` (both operands
+    dequantized in f32, then the f32 contraction).  Same signature as
+    :func:`gmm_wgrad_fp8`."""
+    (m, k), (m2, n) = x_fp8.shape, dy_fp8.shape
+    num_groups, _ = _prepare(m, k, m2, n, group_sizes, num_groups,
+                             block_m, block_n, block_k, plan)
+    _check_scales(m, k, n, s_x, s_dy)
+    return wgrad_fp8_exact_ref(x_fp8, s_x, dy_fp8, s_dy, group_sizes,
+                               num_groups=num_groups, out_dtype=out_dtype)
+
+
+def _check_cuda(block_n, block_k, operands):
+    if block_n != 128 or block_k != 128:
+        raise ValueError(f"the CUDA wgrad tiles K and N at 128, got "
+                         f"block_n={block_n}, block_k={block_k}")
+    dev = operands[0][1].device
+    for name, t, dt in operands:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    return dev
+
+
+def _launch(symbol, argtypes, ptrs, m, k, n, num_groups, dev, out_dtype,
+            what):
+    dw = torch.empty((num_groups, k, n), dtype=torch.float32, device=dev)
+    if m == 0 or num_groups == 0:
+        return dw.zero_().to(out_dtype), False
+    fn = build.function("wgrad", symbol, argtypes)
+    status = fn(*ptrs, dw.data_ptr(), m, k, n, num_groups,
+                build.stream_ptr(dev))
+    build.check(status, what)
+    return dw.to(out_dtype), True
+
+
+def gmm_wgrad_cuda(x, dy, group_sizes, *, num_groups: Optional[int] = None,
+                   block_m: int = 128, block_n: int = 128,
+                   block_k: int = 128,
+                   out_dtype: torch.dtype = torch.float32,
+                   plan: Optional[TilePlan] = None) -> torch.Tensor:
+    """Launch B4 (one launch for every group) on bf16 CUDA tensors.  The
+    kernel writes f32; another ``out_dtype`` is a cast of its output."""
+    (m, k), (m2, n) = x.shape, dy.shape
+    num_groups, offsets = _prepare(m, k, m2, n, group_sizes, num_groups,
+                                   block_m, block_n, block_k, plan)
+    dev = _check_cuda(block_n, block_k, (
+        ("x", x, torch.bfloat16), ("dy", dy, torch.bfloat16),
+        ("group offsets", offsets, torch.int32)))
+    dw, launched = _launch(
+        "wgrad_bf16", [_P] * 4 + [_I] * 4 + [_P],
+        (x.data_ptr(), dy.data_ptr(), offsets.data_ptr()),
+        m, k, n, num_groups, dev, out_dtype, "gmm_wgrad")
+    gmm_wgrad_cuda.launches += launched
+    return dw
+
+
+gmm_wgrad_cuda.launches = 0
+
+
+def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
+                       num_groups: Optional[int] = None, block_m: int = 128,
+                       block_n: int = 128, block_k: int = 128,
+                       out_dtype: torch.dtype = torch.float32,
+                       plan: Optional[TilePlan] = None) -> torch.Tensor:
+    """Launch B6 (one launch for every group) on e4m3 CUDA tensors and
+    their f32 1x128 scales."""
+    (m, k), (m2, n) = x_fp8.shape, dy_fp8.shape
+    num_groups, offsets = _prepare(m, k, m2, n, group_sizes, num_groups,
+                                   block_m, block_n, block_k, plan)
+    _check_scales(m, k, n, s_x, s_dy)
+    dev = _check_cuda(block_n, block_k, (
+        ("x_fp8", x_fp8, FP8), ("s_x", s_x, torch.float32),
+        ("dy_fp8", dy_fp8, FP8), ("s_dy", s_dy, torch.float32),
+        ("group offsets", offsets, torch.int32)))
+    dw, launched = _launch(
+        "wgrad_fp8", [_P] * 6 + [_I] * 4 + [_P],
+        (x_fp8.data_ptr(), s_x.data_ptr(), dy_fp8.data_ptr(),
+         s_dy.data_ptr(), offsets.data_ptr()),
+        m, k, n, num_groups, dev, out_dtype, "gmm_wgrad_fp8")
+    gmm_wgrad_fp8_cuda.launches += launched
+    return dw
+
+
+gmm_wgrad_fp8_cuda.launches = 0
+
+
+def gmm_wgrad(x, dy, group_sizes, *, num_groups: Optional[int] = None,
+              block_m: int = 128, block_n: int = 128, block_k: int = 128,
+              out_dtype: torch.dtype = torch.float32,
+              plan: Optional[TilePlan] = None) -> torch.Tensor:
+    """Padding-free ragged-contraction grouped GEMM, bf16 operands.
+
+    x [M, K], dy [M, N], group_sizes [G] int with ``sum <= M``; rows
+    beyond the last group, and whatever they hold, are excluded.
+    ``plan``: the forward's :class:`TilePlan` of these ``group_sizes``
+    (its offsets are used; built from ``group_sizes`` when absent).
+    Returns [G, K, N] ``out_dtype`` with f32 accumulation; empty groups
+    are exactly zero.
+    """
+    fn = gmm_wgrad_cuda if x.is_cuda else gmm_wgrad_plain
+    return fn(x, dy, group_sizes, num_groups=num_groups, block_m=block_m,
+              block_n=block_n, block_k=block_k, out_dtype=out_dtype,
+              plan=plan)
+
+
+def gmm_wgrad_fp8(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
+                  num_groups: Optional[int] = None, block_m: int = 128,
+                  block_n: int = 128, block_k: int = 128,
+                  out_dtype: torch.dtype = torch.float32,
+                  plan: Optional[TilePlan] = None) -> torch.Tensor:
+    """:func:`gmm_wgrad` on e4m3 operands: x_fp8 [M, K] with s_x [M, K/128]
+    and dy_fp8 [M, N] with s_dy [M, N/128], each row dequantized by its
+    own 1x128 scales before the f32-accumulated contraction."""
+    fn = gmm_wgrad_fp8_cuda if x_fp8.is_cuda else gmm_wgrad_fp8_plain
+    return fn(x_fp8, s_x, dy_fp8, s_dy, group_sizes, num_groups=num_groups,
+              block_m=block_m, block_n=block_n, block_k=block_k,
+              out_dtype=out_dtype, plan=plan)

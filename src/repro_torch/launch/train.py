@@ -1,0 +1,144 @@
+"""Training command line of the port.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cuda \
+      --arch qwen2-moe-a2.7b --steps 100 --batch 8 --seq 512
+
+``--smoke`` takes the reduced config; ``--device cpu`` runs the plain
+PyTorch versions of the kernels on the CPU.  The loop lives in
+:func:`train`, which a caller can drive with a config of its own (for
+example a depth-cut one).  Checkpointing is not ported yet: ``--ckpt-dir``,
+``--save-every`` and ``--fail-at-step`` raise.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.models.model_zoo import make_model
+from repro_torch.optim import adamw
+from repro_torch.train.trainer import make_train_step
+
+
+@dataclasses.dataclass
+class TrainRun:
+    params: dict
+    opt_state: dict
+    step_fn: object          # (params, opt_state, batch) -> (.., .., metrics)
+    data: SyntheticLM
+    history: list            # per step: step, loss, grad_norm, lr, step_ms
+
+
+class _StepTimer:
+    """Time of one step: CUDA events on a card, the host clock on the CPU;
+    :meth:`stop` waits for the step to finish."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def start(self):
+        if self.cuda:
+            self.t0 = torch.cuda.Event(enable_timing=True)
+            self.t0.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self) -> float:
+        if self.cuda:
+            t1 = torch.cuda.Event(enable_timing=True)
+            t1.record()
+            t1.synchronize()
+            return self.t0.elapsed_time(t1)
+        return (time.perf_counter() - self.t0) * 1e3
+
+
+def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
+          grad_accum: int = 1, lr: float = 3e-4, seed: int = 0,
+          log_every: int = 10, device=None,
+          warmup_steps: Optional[int] = None,
+          wgrad_precision: Optional[str] = None, log=print) -> TrainRun:
+    """Train ``cfg`` from random weights (drawn from ``seed``) on the
+    synthetic pipeline for ``steps`` steps.  Warmup defaults to the JAX
+    package's ``max(steps // 20, 5)``; bf16 models keep f32 masters."""
+    model = make_model(cfg, device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    params = model.init_params(gen)
+    opt_cfg = adamw.OptConfig(
+        lr=lr, total_steps=steps,
+        warmup_steps=(max(steps // 20, 5) if warmup_steps is None
+                      else warmup_steps),
+        use_master=cfg.dtype == torch.bfloat16)
+    opt_state = adamw.init_opt_state(params, opt_cfg)
+    step_fn = make_train_step(model.loss, opt_cfg, grad_accum=grad_accum,
+                              wgrad_precision=wgrad_precision)
+    data = SyntheticLM(DataConfig(seed=seed, batch_size=batch, seq_len=seq),
+                       cfg, device=model.device)
+    timer = _StepTimer(model.device)
+    history = []
+    t0 = time.perf_counter()
+    for step in range(steps):
+        b = data.batch_at(step)
+        timer.start()
+        params, opt_state, metrics = step_fn(params, opt_state, b)
+        rec = {"step": step, "step_ms": timer.stop(),
+               **{k: float(metrics[k]) for k in ("loss", "grad_norm", "lr")}}
+        history.append(rec)
+        if step % log_every == 0 or step == steps - 1:
+            tps = (step + 1) * batch * seq / max(time.perf_counter() - t0,
+                                                 1e-9)
+            log(f"step {step:5d}  loss {rec['loss']:.4f}  "
+                f"gnorm {rec['grad_norm']:.3f}  lr {rec['lr']:.2e}  "
+                f"step {rec['step_ms']:.1f} ms  tok/s {tps:,.0f}")
+    return TrainRun(params, opt_state, step_fn, data, history)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-moe-a2.7b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-sized)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--precision", default=None, choices=[None, "bf16", "fp8"])
+    ap.add_argument("--dtype", default=None, choices=[None, "f32", "bf16"])
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=None)
+    ap.add_argument("--fail-at-step", type=int, default=None,
+                    help="inject a crash (restart testing)")
+    args = ap.parse_args(argv)
+    for flag in ("ckpt_dir", "save_every", "fail_at_step"):
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} needs the checkpointer, which "
+                "is not ported yet (ROADMAP A10)")
+
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    repl = {}
+    if args.precision:
+        repl["precision"] = args.precision
+    if args.dtype:
+        repl["dtype"] = torch.float32 if args.dtype == "f32" \
+            else torch.bfloat16
+    if repl:
+        cfg = dataclasses.replace(cfg, **repl)
+    run = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                grad_accum=args.grad_accum, lr=args.lr, seed=args.seed,
+                log_every=args.log_every, device=args.device)
+    print("done.")
+    return run
+
+
+if __name__ == "__main__":
+    main()

@@ -49,6 +49,17 @@ def init_embedding(vocab, d, dtype, tie: bool, *, generator, device):
     return p
 
 
+def cross_entropy(logits, labels):
+    """Mean token cross-entropy in f32; labels < 0 are ignored."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return torch.sum((logz - gold) * valid) / torch.clamp(valid.sum(),
+                                                         min=1.0)
+
+
 def embed(p, tokens):
     return p["embedding"][tokens]
 

@@ -1,5 +1,5 @@
 """Model API of the port: ``make_model(cfg)`` returns a :class:`Model`
-with init / prefill / decode entry points bound to one device.
+with init / loss / prefill / decode entry points bound to one device.
 
 The device defaults to CUDA; without a card, and without
 ``device="cpu"``, :func:`make_model` raises.
@@ -21,6 +21,7 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init_params: Callable    # (generator) -> params
+    loss: Callable           # (params, batch) -> (loss, metrics)
     prefill: Callable        # (params, batch, cache_capacity) -> (logits, cache)
     decode_step: Callable    # (params, tokens, cache) -> (logits, cache)
     init_cache: Callable     # (batch_size, seq) -> cache
@@ -34,6 +35,9 @@ def make_model(cfg: ModelConfig, device=None) -> Model:
 
     def init_params(generator: torch.Generator):
         return tfm.init_decoder(cfg, generator=generator, device=dev)
+
+    def loss(params, batch):
+        return tfm.lm_loss(params, batch, cfg)
 
     def prefill(params, batch, cache_capacity=None):
         logits, cache, _ = tfm.decoder_forward(
@@ -49,7 +53,7 @@ def make_model(cfg: ModelConfig, device=None) -> Model:
     def init_cache(batch_size, seq):
         return tfm.init_cache(cfg, batch_size, seq, device=dev)
 
-    return Model(cfg=cfg, device=dev, init_params=init_params,
+    return Model(cfg=cfg, device=dev, init_params=init_params, loss=loss,
                  prefill=prefill, decode_step=decode_step,
                  init_cache=init_cache)
 

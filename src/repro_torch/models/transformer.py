@@ -2,8 +2,9 @@
 
 The JAX package scans over stacked layer params; here ``params["layers"]``
 is a list of per-layer dicts and the scan is a Python loop.  Modes:
-"train" (forward only in this slice), "prefill" (returns per-layer
-caches), "decode" (one token against the caches, updated in place).
+"train" (differentiable: :func:`lm_loss` trains through it), "prefill"
+(returns per-layer caches), "decode" (one token against the caches,
+updated in place).
 Only the ``("attn",)`` block pattern with MoE in every layer is ported.
 """
 from __future__ import annotations
@@ -15,8 +16,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import MoEConfig, init_moe_params, moe_apply
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (embed, init_embedding, init_rms_norm,
-                                       rms_norm, unembed)
+from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
+                                       init_rms_norm, rms_norm, unembed)
 
 
 def moe_config(cfg: ModelConfig) -> MoEConfig:
@@ -107,3 +108,13 @@ def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
         x = x[:, -1:]        # serving prefill needs only the last position
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x), new_cache, aux_total
+
+
+def lm_loss(params, batch, cfg: ModelConfig, *, aux_weight=0.01):
+    """batch: {tokens [B, S], labels [B, S] (-1 = ignore)}.  Next-token
+    cross-entropy plus ``aux_weight`` times the MoE load-balance loss;
+    returns ``(loss, {"ce", "aux"})``."""
+    logits, _, aux = decoder_forward(params, batch["tokens"], cfg,
+                                     mode="train")
+    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
