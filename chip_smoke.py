@@ -4,33 +4,39 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --quick    # probe, build and kernel checks only
 
-Phases, each printing one JSON line:
+Three configurations of qwen2-moe-a2.7b at full width are driven, built
+with ``dataclasses.replace``: ``fp8`` (the fused activation epilogue),
+``fp8_fused`` (``KernelConfig(fuse_producer=True)``: the gate/up GEMMs
+store fp8 directly) and ``bf16`` (``precision="bf16"``, the bf16 grouped
+GEMM).  Phases, each printing JSON lines:
   1. probe   card name and power limit, torch/CUDA versions, nvcc;
   2. build   every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   3. kernel  each kernel against its plain PyTorch version on the card at
              the serving and training paths' shapes: max error,
              mismatches, times and the bound of the work; the one PyTorch
              call computing a kernel's function, where there is one,
-             checked against the plain version and timed;
-  4. forward the full-width qwen2-moe-a2.7b cut to 2 layers: prefill
-             logits through the kernels against the plain versions;
-  5. serve   the full 24-layer qwen2-moe-a2.7b in fp8 with random weights:
-             batch 4, prompt 64, 16 new tokens, greedy; the launch counts
-             of the run are asserted;
-  6. train-parity  the full-width model cut to 2 layers, batch 2, seq 256:
+             checked against the plain version and timed; the quantizing
+             GEMM bitwise against the quantizer applied to the GEMM;
+  4. forward each configuration cut to 2 layers: prefill logits through
+             the kernels against the plain versions;
+  5. serve   the full 24-layer model with random weights, one param tree,
+             each configuration: batch 4, prompt 64, 16 new tokens,
+             greedy; the launch counts of each run are asserted;
+  6. train-parity  each configuration cut to 2 layers, batch 2, seq 256:
              loss and gradients of one train step through the kernels
              against the plain versions;
-  7. train   the full-width model cut to 4 layers (the depth one card's
+  7. train   each configuration cut to 4 layers (the depth one card's
              80 GB holds with bf16 params and f32 AdamW state), batch 8,
              seq 512: 8 steps through ``launch/train.py``'s ``train``
              (loss must fall, launch counts asserted; a profile of one
              step and its forward / backward / AdamW split), the same 8
-             steps through the plain versions for comparison, then 2
-             steps with the fp8 wgrad.
-Then the ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Any failure
-raises and the script exits non-zero.  Without a CUDA device, or without
-the package beside it, it exits non-zero and prints no result.
+             steps through the plain versions for comparison; for
+             ``fp8`` then 2 steps with the fp8 wgrad.
+Each phase's seconds are printed.  Then the ``{"kernels": [...]}`` line,
+the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
+"device": {...}}``.  Any failure raises and the script exits non-zero.
+Without a CUDA device, or without the package beside it, it exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -53,7 +59,7 @@ BF16_FLOP_PER_S = 989e12        # dense bf16 tensor-core peak
 L2_BYTES = 50 * 2 ** 20         # H100 L2 cache
 # profiler kernel names -> category, first match wins
 KERNEL_CATEGORIES = (
-    ("grouped GEMM (gmm)", ("gmm_fp8_kernel",)),
+    ("grouped GEMMs (gmm, gmm_quant, gmm_bf16)", ("gmm_kernel",)),
     ("wgrad", ("wgrad_kernel",)),
     ("quantize + act_quantize", ("quantize_tilewise_kernel",
                                  "act_quantize_kernel")),
@@ -62,17 +68,57 @@ KERNEL_CATEGORIES = (
 REPLACES = {
     "quantize_tilewise": "src/repro/kernels/quant_kernel.py:44",
     "act_quantize": "src/repro/kernels/epilogue_kernel.py:80",
+    "act_quantize_fp8": "src/repro/kernels/epilogue_kernel.py:80",
     "gmm": "src/repro/kernels/grouped_gemm_kernel.py:150",
+    "gmm_quant": "src/repro/kernels/grouped_gemm_kernel.py:454",
+    "gmm_bf16": "src/repro/kernels/grouped_gemm_kernel.py:306",
     "wgrad": "src/repro/kernels/wgrad_kernel.py:219",
     "wgrad_fp8": "src/repro/kernels/wgrad_kernel.py:331",
 }
 SOURCES = {
     "quantize_tilewise": "src/repro_torch/kernels/csrc/quant.cu",
     "act_quantize": "src/repro_torch/kernels/csrc/act_quant.cu",
+    "act_quantize_fp8": "src/repro_torch/kernels/csrc/act_quant.cu",
     "gmm": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+    "gmm_quant": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+    "gmm_bf16": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
     "wgrad": "src/repro_torch/kernels/csrc/wgrad.cu",
     "wgrad_fp8": "src/repro_torch/kernels/csrc/wgrad.cu",
 }
+# the configurations driven: ModelConfig fields replaced on the registry's
+# qwen2-moe-a2.7b (the kernel configs are filled in by variant_config)
+VARIANTS = ("fp8", "fp8_fused", "bf16")
+# launch counts per layer of one forward (serving) and of one train step
+SERVE_PER_LAYER = {
+    "fp8": {"quantize_tilewise": 2, "act_quantize": 2, "gmm": 6},
+    "fp8_fused": {"quantize_tilewise": 2, "gmm_quant": 4,
+                  "act_quantize_fp8": 2, "gmm": 2},
+    "bf16": {"gmm_bf16": 3},
+}
+TRAIN_PER_LAYER = {
+    "fp8": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
+            "wgrad": 6},
+    "fp8_fused": {"quantize_tilewise": 8, "gmm_quant": 4,
+                  "act_quantize_fp8": 2, "gmm": 8, "wgrad": 6},
+    "bf16": {"gmm_bf16": 6, "wgrad": 3},
+}
+
+
+def variant_config(variant: str, **kw):
+    """qwen2-moe-a2.7b in one of the configurations, with ``kw`` (e.g. a
+    depth cut) replaced too."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.plan import KernelConfig
+    repl = {"fp8": {}, "fp8_fused": {"kernel_config":
+                                     KernelConfig(fuse_producer=True)},
+            "bf16": {"precision": "bf16"}}[variant]
+    return dataclasses.replace(get_config("qwen2-moe-a2.7b"), **repl, **kw)
+
+
+def expected(per_layer: dict, times: int) -> dict:
+    """Expected launch counts of every kernel: ``per_layer`` times
+    ``times`` (layers x forwards or steps), 0 for the others."""
+    return {name: per_layer.get(name, 0) * times for name in SOURCES}
 
 
 def emit(obj) -> None:
@@ -131,23 +177,30 @@ def rotation(make, nbytes) -> list:
     return [make() for _ in range(max(2, -(-3 * L2_BYTES // nbytes)))]
 
 
-def kernels():
+def counters() -> dict:
+    """name -> (wrapper, attribute) of each kernel's launch count; the
+    fused activation quantizer counts its two input modes apart."""
     from repro_torch.kernels import epilogue_kernel, grouped_gemm_kernel, \
         quant_kernel, wgrad_kernel
-    return {"quantize_tilewise": quant_kernel.quantize_tilewise_cuda,
-            "act_quantize": epilogue_kernel.act_quantize_cuda,
-            "gmm": grouped_gemm_kernel.gmm_cuda,
-            "wgrad": wgrad_kernel.gmm_wgrad_cuda,
-            "wgrad_fp8": wgrad_kernel.gmm_wgrad_fp8_cuda}
+    return {"quantize_tilewise": (quant_kernel.quantize_tilewise_cuda,
+                                  "launches"),
+            "act_quantize": (epilogue_kernel.act_quantize_cuda, "launches"),
+            "act_quantize_fp8": (epilogue_kernel.act_quantize_cuda,
+                                 "fp8_launches"),
+            "gmm": (grouped_gemm_kernel.gmm_cuda, "launches"),
+            "gmm_quant": (grouped_gemm_kernel.gmm_quant_cuda, "launches"),
+            "gmm_bf16": (grouped_gemm_kernel.gmm_bf16_cuda, "launches"),
+            "wgrad": (wgrad_kernel.gmm_wgrad_cuda, "launches"),
+            "wgrad_fp8": (wgrad_kernel.gmm_wgrad_fp8_cuda, "launches")}
 
 
 def reset_counts() -> None:
-    for fn in kernels().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernels().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
 @contextlib.contextmanager
@@ -159,21 +212,29 @@ def plain_kernels():
     from repro_torch.kernels import grouped_gemm_kernel as gk
     from repro_torch.kernels import quant_kernel as qk
     from repro_torch.kernels import wgrad_kernel as wk
-    saved = (qk.quantize_tilewise, ek.act_quantize, gk.gmm, wk.gmm_wgrad,
-             wk.gmm_wgrad_fp8)
+    saved = (qk.quantize_tilewise, ek.act_quantize, gk.gmm, gk.gmm_quant,
+             gk.gmm_bf16, wk.gmm_wgrad, wk.gmm_wgrad_fp8)
     qk.quantize_tilewise = qk.quantize_tilewise_plain
-
-    def act_plain(g, u=None, *, s_g=None, s_u=None, act="silu_mul"):
-        return ek.act_quantize_plain(g, u, act=act)
-    ek.act_quantize = act_plain
+    ek.act_quantize = ek.act_quantize_plain
     gk.gmm = gk.gmm_plain
+    gk.gmm_quant = gk.gmm_quant_plain
+    gk.gmm_bf16 = gk.gmm_bf16_plain
     wk.gmm_wgrad = wk.gmm_wgrad_plain
     wk.gmm_wgrad_fp8 = wk.gmm_wgrad_fp8_plain
     try:
         yield
     finally:
-        (qk.quantize_tilewise, ek.act_quantize, gk.gmm, wk.gmm_wgrad,
-         wk.gmm_wgrad_fp8) = saved
+        (qk.quantize_tilewise, ek.act_quantize, gk.gmm, gk.gmm_quant,
+         gk.gmm_bf16, wk.gmm_wgrad, wk.gmm_wgrad_fp8) = saved
+
+
+@contextlib.contextmanager
+def timed(name: str):
+    """Print the seconds the phase ``name`` took, once it is done."""
+    t0 = time.perf_counter()
+    yield
+    emit({"phase": "seconds", "of": name,
+          "seconds": time.perf_counter() - t0})
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +457,148 @@ def check_wgrad(gen, cpu_gen, routed):
     return rows, keep
 
 
+def dequant(q, s):
+    import torch
+    return q.float() * torch.repeat_interleave(s, 128, dim=1)
+
+
+def check_act_quantize_fp8(gen, rows):
+    """B3's fp8-input mode against its plain version, bitwise (payload and
+    scales): both dequantize as float(q) * s and run B3's activation and
+    B1's quantizer."""
+    import torch
+    from repro_torch.kernels import epilogue_kernel as ek
+    from repro_torch.kernels import ref
+    out = []
+    for m, k, act in rows:
+        g8, sg = ref.quantize_tilewise_ref(
+            torch.randn((m, k), generator=gen, device="cuda") * 2)
+        u8, su = (None, None) if act == "gelu" else ref.quantize_tilewise_ref(
+            torch.randn((m, k), generator=gen, device="cuda") * 2)
+        q, s = ek.act_quantize_cuda(g8, u8, s_g=sg, s_u=su, act=act)
+        qp, sp = ek.act_quantize_plain(g8, u8, s_g=sg, s_u=su, act=act)
+        torch.cuda.synchronize()
+        mism = int((q.view(torch.uint8) != qp.view(torch.uint8)).sum()) \
+            + int((s != sp).sum())
+        if mism:
+            raise AssertionError(f"act_quantize fp8 {act} [{m},{k}]: {mism} "
+                                 "payload/scale values differ from the plain "
+                                 "version")
+        out.append({"shape": [m, k], "act": act, "mismatches": 0,
+                    "max_abs_err": float((dequant(q, s)
+                                          - dequant(qp, sp)).abs().max())})
+    return out
+
+
+def compare_gemm_quant(name, args, kw, plan):
+    """B7 bitwise against B1 applied to B2's output (payload bytes and
+    scales), and against its plain version within one e4m3 step plus the
+    GEMM's one-bf16-step tolerance; tail rows payload 0 and scale 1."""
+    import torch
+    from repro_torch.kernels import grouped_gemm_kernel as gk
+    from repro_torch.kernels import quant_kernel as qk
+    m, n = args[0].shape[0], args[2].shape[2]
+    q, s = gk.gmm_quant_cuda(*args, **kw)
+    q2, s2 = qk.quantize_tilewise_cuda(gk.gmm_cuda(*args, **kw).float())
+    qp, sp = gk.gmm_quant_plain(*args, **kw)
+    torch.cuda.synchronize()
+    total = int(plan.total_rows())
+    qb = q.view(torch.uint8)
+    mism = int((qb != q2.view(torch.uint8)).sum()) + int((s != s2).sum())
+    if mism:
+        raise AssertionError(f"gmm_quant {name}: {mism} payload/scale values "
+                             "differ from the quantizer applied to gmm")
+    if (qb[total:] != 0).any() or (s[total:] != 1).any():
+        raise AssertionError(f"gmm_quant {name}: rows >= total={total} are "
+                             "not payload 0 / scale 1")
+    if ((qb & 0x7F) == 0x7F).any() or not torch.isfinite(s).all():
+        raise AssertionError(f"gmm_quant {name}: NaN in the output")
+    dq, dp = dequant(q, s), dequant(qp, sp)
+    step = torch.maximum(e4m3_step(q) * torch.repeat_interleave(s, 128, 1),
+                         e4m3_step(qp) * torch.repeat_interleave(sp, 128, 1))
+    scale = float(dp.abs().max()) if dp.numel() else 0.0
+    err = (dq - dp).abs()
+    tol = step + dp.abs() * 2.0 ** -7 + 1e-4 * scale + 1e-30
+    bad = int((err > tol).sum())
+    if bad:
+        raise AssertionError(f"gmm_quant {name}: {bad} dequantized values "
+                             f"beyond tolerance of the plain version (max "
+                             f"err {float(err.max())})")
+    return {"case": name, "shape": [m, args[0].shape[1], n],
+            "groups": args[2].shape[0], "total_rows": total,
+            "block_m": kw["block_m"], "bitwise_vs_quantize_of_gmm": True,
+            "max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "rel_to_max": float(err.max()) / scale if scale else 0.0}
+
+
+def check_gemm_quant(gen, cases):
+    import torch
+    out = []
+    for name, (m, k, n, sizes, bm, nan_tail) in cases.items():
+        args, kw, plan = gemm_case(gen, m, k, n, sizes, bm, torch.bfloat16)
+        if nan_tail:
+            # rows past sum(sizes) hold NaN: they must not be read into
+            # any owned row, and come back as payload 0 / scale 1
+            total = int(sizes.sum())
+            args[0].view(torch.uint8)[total:] = 0x7F
+            args[1][total:] = float("nan")
+        out.append(compare_gemm_quant(name, args, kw, plan))
+        del args
+    return out
+
+
+def bf16_case(gen, m, k, n, sizes, block_m, out_dtype):
+    import torch
+    from repro_torch.kernels.plan import make_tile_plan
+    g = sizes.numel()
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((g, k, n), generator=gen, device="cuda")
+         * k ** -0.5).bfloat16()
+    gs = sizes.cuda()
+    plan = make_tile_plan(gs, m, block_m=block_m, num_groups=g)
+    kw = dict(num_groups=g, block_m=block_m, out_dtype=out_dtype, plan=plan)
+    return (x, w, gs), kw, plan
+
+
+def compare_gemm_bf16(name, args, kw, plan, *, nan_out=False):
+    """B5 against its plain version: one bf16 step (2^-7 of the value +
+    1e-4 of the max) for a bf16 output, 1e-5 of the max for an f32 one
+    (the two sum each 128-K block in another order); tail rows exactly 0."""
+    import torch
+    from repro_torch.kernels import grouped_gemm_kernel as gk
+    x, w, _ = args
+    m, n = x.shape[0], w.shape[2]
+    out = None
+    if nan_out:
+        out = torch.full((m, n), float("nan"), dtype=kw["out_dtype"],
+                         device="cuda")
+    y = gk.gmm_bf16_cuda(*args, out=out, **kw).float()
+    yp = gk.gmm_bf16_plain(*args, **kw).float()
+    torch.cuda.synchronize()
+    total = int(plan.total_rows())
+    if torch.isnan(y).any():
+        raise AssertionError(f"gmm_bf16 {name}: NaN rows left in the output")
+    if (y[total:] != 0).any():
+        raise AssertionError(f"gmm_bf16 {name}: rows >= total={total} are "
+                             "not zero")
+    err = (y - yp).abs()
+    scale = float(yp.abs().max()) if yp.numel() else 0.0
+    if kw["out_dtype"] == torch.float32:
+        tol = 1e-5 * scale + 1e-30
+    else:
+        tol = yp.abs() * 2.0 ** -7 + 1e-4 * scale + 1e-30
+    bad = int((err > tol).sum())
+    if bad:
+        raise AssertionError(f"gmm_bf16 {name}: {bad} elements beyond "
+                             f"tolerance (max err {float(err.max())})")
+    return {"case": name, "shape": [m, x.shape[1], n], "groups": w.shape[0],
+            "total_rows": total, "block_m": kw["block_m"],
+            "out_dtype": str(kw["out_dtype"]),
+            "max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "rel_to_max": float(err.max()) / scale if scale else 0.0,
+            "mismatches": int((err > 0).sum())}
+
+
 def library_call(fn, want, tol_fn):
     """Time ``fn()``, the one PyTorch call computing a kernel's function,
     after checking it against ``want`` (the plain version's output).
@@ -419,12 +622,14 @@ def library_call(fn, want, tol_fn):
     return cuda_ms(lambda i: fn(), iters=10), "matches the plain version"
 
 
-def phase_library(gmm_setup, wgrad_setup):
+def phase_library(gmm_setup, wgrad_setup, bf16_setup):
     """The library column: ``F.scaled_grouped_mm`` (1x128 A, 128x128 B,
-    ``offs``) for the fp8 grouped GEMM, ``F.grouped_mm(x.T, dy, offs=...)``
-    for the bf16 wgrad; no single PyTorch call computes the quantizers, the
-    fused activation quantizer or the wgrad on fp8 operands whose scales
-    run along the contracted axis."""
+    ``offs``) for the fp8 grouped GEMM, ``F.grouped_mm(x, w, offs=...)``
+    for the bf16 grouped GEMM (owned rows only: it has no tail),
+    ``F.grouped_mm(x.T, dy, offs=...)`` for the bf16 wgrad; no single
+    PyTorch call computes the quantizers, the fused activation quantizer,
+    the quantizing GEMM or the wgrad on fp8 operands whose scales run
+    along the contracted axis."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import grouped_gemm_kernel as gk
@@ -449,6 +654,16 @@ def phase_library(gmm_setup, wgrad_setup):
             lambda w: w.abs() * 2.0 ** -7 + 1e-4 * w.abs().max())
     else:
         out["gmm"] = (None, "torch.nn.functional has no scaled_grouped_mm")
+    (x16, w16, bgs), bkw, bplan = bf16_setup
+    bends = torch.cumsum(bgs, 0).to(torch.int32)
+    btotal = int(bplan.total_rows())
+    if hasattr(F, "grouped_mm"):
+        out["gmm_bf16"] = library_call(
+            lambda: F.grouped_mm(x16[:btotal], w16, offs=bends),
+            gk.gmm_bf16_plain(x16, w16, bgs, **bkw)[:btotal],
+            lambda w: w.abs() * 2.0 ** -7 + 1e-4 * w.abs().max())
+    else:
+        out["gmm_bf16"] = (None, "torch.nn.functional has no grouped_mm")
     (x, dy, wgs), wplan = wgrad_setup["wgrad"]
     wends = torch.cumsum(wgs, 0).to(torch.int32)
     wwant = wk.gmm_wgrad_plain(x, dy, wgs, plan=wplan)
@@ -561,9 +776,64 @@ def phase_kernels(full: bool):
     results["gmm"] = gemm
     wrows, wsetups = check_wgrad(gen, cpu_gen, routed)
     results.update(wrows)
+
+    # B3's fp8-input mode: the fused-producer path's routed g/u at prefill
+    # and in training, the shared experts' in training
+    results["act_quantize_fp8"] = check_act_quantize_fp8(
+        gen, [(1024, 1408, "silu_mul"), (16384, 1408, "silu_mul"),
+              (4096, 5632, "silu_mul"), (16, 1408, "silu_mul"),
+              (1024, 1408, "gelu")])
+    # B7 at the fused-producer path's gate/up shapes: routed prefill,
+    # decode, training (routed and shared), an all-empty plan and a NaN
+    # tail in A
+    results["gmm_quant"] = check_gemm_quant(gen, {
+        "prefill_gate_up": (1024, 2048, 1408, pre, 128, False),
+        "decode_gate_up": (16, 2048, 1408, dec, 16, False),
+        "shared_decode_gate_up": (4, 2048, 5632,
+                                  torch.tensor([4], dtype=torch.int32), 16,
+                                  False),
+        "train_gate_up": (16384, 2048, 1408, routed, 128, False),
+        "train_shared_gate_up": (4096, 2048, 5632, shared, 128, False),
+        "all_empty": (256, 256, 256, torch.zeros(4, dtype=torch.int32), 128,
+                      False),
+        "nan_tail": (1024, 2048, 1408, pre, 128, True),
+    })
+    # B5 at the bf16 path's shapes: forward (bf16 out) and dgrad (f32 out)
+    bf16_cases = {
+        "prefill_gate": (1024, 2048, 1408, pre, 128, torch.bfloat16),
+        "prefill_down": (1024, 1408, 2048, pre, 128, torch.bfloat16),
+        "decode_gate": (16, 2048, 1408, dec, 16, torch.bfloat16),
+        "decode_down": (16, 1408, 2048, dec, 16, torch.bfloat16),
+        "all_empty": (256, 256, 256, torch.zeros(4, dtype=torch.int32), 128,
+                      torch.bfloat16),
+        "train_gate_up": (16384, 2048, 1408, routed, 128, torch.bfloat16),
+        "train_down": (16384, 1408, 2048, routed, 128, torch.bfloat16),
+        "train_dgrad_gate_up_f32": (16384, 1408, 2048, routed, 128,
+                                    torch.float32),
+        "train_dgrad_down_f32": (16384, 2048, 1408, routed, 128,
+                                 torch.float32),
+    }
+    bf16_rows, bf16_setups = [], {}
+    for name, (m, k, n, sizes, bm, dt) in bf16_cases.items():
+        bargs, bkw, bplan = bf16_case(gen, m, k, n, sizes, bm, dt)
+        bf16_rows.append(compare_gemm_bf16(name, bargs, bkw, bplan))
+        if name in ("prefill_gate", "train_gate_up"):
+            bf16_setups[name] = (bargs, bkw, bplan)
+        del bargs
+    bargs, bkw, bplan = bf16_setups["prefill_gate"]
+    bf16_rows.append(compare_gemm_bf16("prefill_gate_nan_out", bargs, bkw,
+                                       bplan, nan_out=True))
+    for bm in (24, 64):
+        try:
+            gk.gmm_bf16_cuda(*bargs, **{**bkw, "block_m": bm, "plan": None})
+            raise AssertionError(f"gmm_bf16 accepted block_m={bm}")
+        except ValueError:
+            pass
+    results["gmm_bf16"] = bf16_rows
     for name, rows in results.items():
         emit({"phase": "kernel", "kernel": name, "checks": rows})
-    library = phase_library(setups["prefill_gate"], wsetups)
+    library = phase_library(setups["prefill_gate"], wsetups,
+                            bf16_setups["prefill_gate"])
 
     # the largest error over every case checked above
     worst = {name: max(r["max_abs_err"] for r in rows)
@@ -620,7 +890,63 @@ def phase_kernels(full: bool):
         plain_ms=cuda_ms(lambda i: gk.gmm_plain(*args, **kw), iters=3),
         bytes=m * k + visited * k * n + 2 * m * n, flops=2 * rows * k * n,
         max_abs_err=worst["gmm"])
+    # B7 on the same operands: the output is 1 B an element plus 4 B per
+    # 128; beside it, B2 then B1 run one after the other (with the f32
+    # upcast between them that B1 takes)
+    timing["gmm_quant"] = dict(
+        shape=[m, k, n], groups=b8.shape[0],
+        ms=graph_ms(lambda i: gk.gmm_quant_cuda(*args, **kw)),
+        eager_ms=cuda_ms(lambda i: gk.gmm_quant_cuda(*args, **kw)),
+        plain_ms=cuda_ms(lambda i: gk.gmm_quant_plain(*args, **kw), iters=3),
+        gmm_then_quantize_ms=graph_ms(lambda i: qk.quantize_tilewise_cuda(
+            gk.gmm_cuda(*args, **kw).float())),
+        bytes=m * k + visited * k * n + m * n + 4 * m * n // 128,
+        flops=2 * rows * k * n, max_abs_err=worst["gmm_quant"])
     del args, setups
+    # B3's fp8 mode at the routed prefill's g/u [1024, 1408]
+    m, k = 1024, 1408
+    nbytes = 2 * (m * k + 4 * m * k // 128) + m * k + 4 * m * k // 128
+    from repro_torch.kernels import ref as kref
+    g8us = rotation(lambda: tuple(
+        t for _ in range(2) for t in kref.quantize_tilewise_ref(
+            torch.randn((m, k), generator=gen, device="cuda"))), nbytes)
+    n_g8u = len(g8us)
+
+    def fp8_act(fn, i):
+        g8, sg, u8, su = g8us[i % n_g8u]
+        return fn(g8, u8, s_g=sg, s_u=su)
+    timing["act_quantize_fp8"] = dict(
+        shape=[m, k], input_copies=n_g8u,
+        ms=graph_ms(lambda i: fp8_act(ek.act_quantize_cuda, i),
+                    iters=2 * n_g8u),
+        eager_ms=cuda_ms(lambda i: fp8_act(ek.act_quantize_cuda, i),
+                         iters=2 * n_g8u),
+        plain_ms=graph_ms(lambda i: fp8_act(ek.act_quantize_plain, i),
+                          iters=2 * n_g8u),
+        bytes=nbytes, flops=0, max_abs_err=worst["act_quantize_fp8"])
+    del g8us
+    # B5 at the routed prefill (its visited bf16 weights, 300 MB, overflow
+    # the L2 alone) and at the training path's 16384 routed rows
+    for case, key in (("prefill_gate", "gmm_bf16"),
+                      ("train_gate_up", "gmm_bf16_train")):
+        (x16, w16, bgs), bkw, bplan = bf16_setups.pop(case)
+        m, k = x16.shape
+        n = w16.shape[2]
+        rows = int(bplan.total_rows())
+        visited = int((bgs > 0).sum())
+        timing[key] = dict(
+            shape=[m, k, n], groups=w16.shape[0], total_rows=rows,
+            ms=graph_ms(lambda i: gk.gmm_bf16_cuda(x16, w16, bgs, **bkw),
+                        iters=10),
+            eager_ms=cuda_ms(lambda i: gk.gmm_bf16_cuda(x16, w16, bgs, **bkw),
+                             iters=10),
+            plain_ms=cuda_ms(lambda i: gk.gmm_bf16_plain(x16, w16, bgs,
+                                                         **bkw),
+                             iters=3, warmup=1),
+            bytes=2 * m * k + 2 * visited * k * n + 2 * m * n,
+            flops=2 * rows * k * n, peak_flop_per_s=BF16_FLOP_PER_S,
+            max_abs_err=worst["gmm_bf16"])
+        del x16, w16
     # the wgrads at the routed gate/up shape: 16384 rows, 60 groups, K 2048,
     # N 1408; each call writes a 692 MB dw, so inputs and output overflow
     # the L2 on every call
@@ -630,7 +956,7 @@ def phase_kernels(full: bool):
         total = int(wplan.total_rows())
         g = int(wargs[-1].numel())
         k, n = x.shape[1], dy.shape[1]
-        cuda = kernels()[key]
+        cuda = counters()[key][0]
         plain = (wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain)
         in_bytes = total * (k + n) * (1 if fp8 else 2) + \
             (4 * total * (k + n) // 128 if fp8 else 0)
@@ -649,7 +975,8 @@ def phase_kernels(full: bool):
         t_ops = t["flops"] / t.pop("peak_flop_per_s", FP8_FLOP_PER_S) * 1e3
         t["bound_ms"] = max(t_bytes, t_ops)
         t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        t["library_ms"], t["library_note"] = library[name]
+        t["library_ms"], t["library_note"] = library.get(
+            name, (None, "not timed at this shape"))
         emit({"phase": "kernel_time", "kernel": name, **t})
     return timing
 
@@ -658,13 +985,12 @@ def phase_kernels(full: bool):
 # phases 4 and 5: the model
 # ---------------------------------------------------------------------------
 
-def phase_forward():
+def phase_forward(variant: str):
     """Full widths, 2 layers: prefill logits through the kernels against
     the same forward through the plain versions, on the card."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import make_model, synthetic_batch
-    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2)
+    cfg = variant_config(variant, num_layers=2)
     model = make_model(cfg, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
     params = model.init_params(gen)
@@ -679,19 +1005,25 @@ def phase_forward():
         torch.cuda.synchronize()
         if read_counts() != counts:
             raise AssertionError("the plain forward launched a kernel")
+    expect = expected(SERVE_PER_LAYER[variant], cfg.num_layers)
     lk, lp = logits_k.float(), logits_p.float()
     if not torch.isfinite(lk).all():
         raise AssertionError("non-finite logits through the kernels")
     rel = float((lk - lp).abs().max() / lp.abs().max())
-    # the quantizer is bitwise, act_quant within one e4m3 step and the GEMM
-    # within one bf16 step; through 2 layers and the bf16 residual stream
-    # that stays a few bf16 steps of the largest logit
+    # the quantizers and B7 are bitwise, act_quant within one e4m3 step and
+    # the GEMMs within one bf16 step; through 2 layers and the bf16
+    # residual stream that stays a few bf16 steps of the largest logit
     bound = 2e-2
-    emit({"phase": "forward", "layers": 2, "batch": 4, "prompt": 64,
-          "logits_shape": list(lk.shape), "rel_to_max_err": rel,
-          "bound": bound, "launches": counts})
+    emit({"phase": "forward", "config": variant, "layers": 2, "batch": 4,
+          "prompt": 64, "logits_shape": list(lk.shape),
+          "rel_to_max_err": rel, "bound": bound, "launches": counts,
+          "expected_launches": expect})
+    if counts != expect:
+        raise AssertionError(f"forward {variant}: launch counts {counts} != "
+                             f"expected {expect}")
     if rel > bound:
-        raise AssertionError(f"kernel vs plain logits rel-to-max {rel} > {bound}")
+        raise AssertionError(f"{variant}: kernel vs plain logits rel-to-max "
+                             f"{rel} > {bound}")
     del params, model
 
 
@@ -728,81 +1060,103 @@ def profile_breakdown(fn, top=8):
                     for ms, c, k in rows[:top]]}
 
 
+def path_name(base: str, variant: str) -> str:
+    return base if variant == "fp8" else f"{base}_{variant}"
+
+
 def phase_serve():
+    """The full 24-layer model, one param tree served by each
+    configuration in turn; returns each run's launch counts."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import quantization as q
-    from repro_torch.kernels.plan import KernelConfig
     from repro_torch.models.model_zoo import make_model, synthetic_batch
     from repro_torch.serve.engine import Engine
-    cfg = get_config("qwen2-moe-a2.7b")
     batch_size, prompt, new = 4, 64, 16
-    model = make_model(cfg, "cuda")
+    cfg = variant_config("fp8")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    params = model.init_params(gen)
+    params = make_model(cfg, "cuda").init_params(gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batch = synthetic_batch(gen, cfg, prompt, batch_size)
-    engine = Engine(model, params, max_new_tokens=new,
-                    kernel_config=KernelConfig(),
-                    decode_kernel_config=KernelConfig(block_m=16))
-    engine.generate(batch)                   # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    res = engine.generate(batch)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    with torch.inference_mode():
-        t0 = time.perf_counter()
-        last, _ = engine.prefill(batch, prompt + new)
+    paths = {}
+    for variant in VARIANTS:
+        t_variant = time.perf_counter()
+        cfg = variant_config(variant)
+        model = make_model(cfg, "cuda")
+        # no tile configs given: prefill runs the model's config, decode
+        # the same with 16-row tiles (fuse_producer carried over)
+        engine = Engine(model, params, max_new_tokens=new)
+        if engine.decode_config.block_m != 16 or (
+                engine.decode_config.fuse_producer
+                != (variant == "fp8_fused")):
+            raise AssertionError(f"serve {variant}: decode config "
+                                 f"{engine.decode_config}")
+        engine.generate(batch)                   # warm-up
         torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        # the per-call blockwise weight quantization of one forward
-        lp = params["layers"][0]["moe"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = engine.generate(batch)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        wq_layer_ms = None
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            last, _ = engine.prefill(batch, prompt + new)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            if cfg.precision == "fp8":
+                # the per-call blockwise weight quantization of one forward
+                lp = params["layers"][0]["moe"]
 
-        def quant_weights():
-            for key in ("w_gate", "w_up", "w_down", "shared_gate",
-                        "shared_up", "shared_down"):
-                w = lp[key]
-                q.quantize_blockwise_batched(w if w.dim() == 3 else w[None])
-        wq_layer_ms = cuda_ms(lambda i: quant_weights(), iters=5, warmup=1)
-        _, cache = engine.prefill(batch, prompt + new)
-        tok = res.tokens[:, 0]
-        prof = {"prefill": profile_breakdown(
-                    lambda: engine.prefill(batch, prompt + new)),
-                "decode_step": profile_breakdown(
-                    lambda: engine.decode_step(tok, cache))}
-    forwards = new
-    expect = {"quantize_tilewise": forwards * cfg.num_layers * 2,
-              "gmm": forwards * cfg.num_layers * 6,
-              "act_quantize": forwards * cfg.num_layers * 2,
-              "wgrad": 0, "wgrad_fp8": 0}
-    toks = res.tokens
-    ok_tokens = (tuple(toks.shape) == (batch_size, new)
-                 and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size)
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
-          "params": cfg.param_count(), "precision": cfg.precision,
-          "batch": batch_size, "prompt": prompt, "max_new_tokens": new,
-          "init_s": init_s, "generate_ms": gen_s * 1e3,
-          "prefill_ms": prefill_s * 1e3,
-          "decode_ms_per_step": (gen_s - prefill_s) * 1e3 / (new - 1),
-          "tok_per_s": batch_size * new / gen_s,
-          "weight_quant_ms_per_forward": wq_layer_ms * cfg.num_layers,
-          "max_memory_allocated_gb": peak / 1e9,
-          "launches": counts, "expected_launches": expect,
-          "tokens_ok": ok_tokens, "sample": toks[0].tolist()})
-    for name, br in prof.items():
-        emit({"phase": "profile", "of": name, **br})
-    if counts != expect:
-        raise AssertionError(f"launch counts {counts} != expected {expect}")
-    if not ok_tokens or not torch.isfinite(last.float()).all():
-        raise AssertionError("serve produced malformed tokens or logits")
-    return counts
+                def quant_weights():
+                    for key in ("w_gate", "w_up", "w_down", "shared_gate",
+                                "shared_up", "shared_down"):
+                        w = lp[key]
+                        q.quantize_blockwise_batched(
+                            w if w.dim() == 3 else w[None])
+                wq_layer_ms = cuda_ms(lambda i: quant_weights(), iters=5,
+                                      warmup=1)
+            _, cache = engine.prefill(batch, prompt + new)
+            tok = res.tokens[:, 0]
+            prof = {"prefill": profile_breakdown(
+                        lambda: engine.prefill(batch, prompt + new)),
+                    "decode_step": profile_breakdown(
+                        lambda: engine.decode_step(tok, cache))}
+        expect = expected(SERVE_PER_LAYER[variant], cfg.num_layers * new)
+        toks = res.tokens
+        ok_tokens = (tuple(toks.shape) == (batch_size, new)
+                     and int(toks.min()) >= 0
+                     and int(toks.max()) < cfg.vocab_size)
+        emit({"phase": "serve", "config": variant, "arch": cfg.name,
+              "layers": cfg.num_layers, "params": cfg.param_count(),
+              "precision": cfg.precision,
+              "fuse_producer": variant == "fp8_fused",
+              "batch": batch_size, "prompt": prompt, "max_new_tokens": new,
+              "init_s": init_s, "generate_ms": gen_s * 1e3,
+              "prefill_ms": prefill_s * 1e3,
+              "decode_ms_per_step": (gen_s - prefill_s) * 1e3 / (new - 1),
+              "tok_per_s": batch_size * new / gen_s,
+              "weight_quant_ms_per_forward": None if wq_layer_ms is None
+              else wq_layer_ms * cfg.num_layers,
+              "max_memory_allocated_gb": peak / 1e9,
+              "launches": counts, "expected_launches": expect,
+              "tokens_ok": ok_tokens, "sample": toks[0].tolist(),
+              "seconds": time.perf_counter() - t_variant})
+        for name, br in prof.items():
+            emit({"phase": "profile", "config": variant, "of": name, **br})
+        if counts != expect:
+            raise AssertionError(f"serve {variant}: launch counts {counts} "
+                                 f"!= expected {expect}")
+        if not ok_tokens or not torch.isfinite(last.float()).all():
+            raise AssertionError(f"serve {variant} produced malformed tokens "
+                                 "or logits")
+        paths[path_name("serve", variant)] = counts
+        del engine, model, cache
+    return paths
 
 
 def free_memory() -> None:
@@ -811,18 +1165,17 @@ def free_memory() -> None:
     torch.cuda.empty_cache()
 
 
-def phase_train_parity():
+def phase_train_parity(variant: str):
     """Full widths, 2 layers, batch 2, seq 256: the loss and gradients of
     one train step (what the optimizer would take, with the global norm it
     would clip by) through the kernels against the plain versions, on one
     set of weights, on the card."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model_zoo import make_model
     from repro_torch.optim.adamw import global_norm
     from repro_torch.train.trainer import value_and_grad
-    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2)
+    cfg = variant_config(variant, num_layers=2)
     model = make_model(cfg, "cuda")
     params = model.init_params(torch.Generator(device="cuda").manual_seed(4))
     batch = SyntheticLM(DataConfig(seed=1, batch_size=2, seq_len=256), cfg,
@@ -836,9 +1189,7 @@ def phase_train_parity():
     torch.cuda.synchronize()
     if read_counts() != counts:
         raise AssertionError("the plain train step launched a kernel")
-    per_step = {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
-                "wgrad": 6, "wgrad_fp8": 0}
-    expect = {k: v * cfg.num_layers for k, v in per_step.items()}
+    expect = expected(TRAIN_PER_LAYER[variant], cfg.num_layers)
     norm_k, norm_p = float(global_norm(grads_k)), float(global_norm(grads_p))
     loss_err = abs(float(loss_k) - float(loss_p))
     norm_rel = abs(norm_k - norm_p) / norm_p
@@ -850,7 +1201,8 @@ def phase_train_parity():
             weights[f"layers.{li}.{key}"] = float((a - b).abs().max()
                                                   / b.abs().max())
     worst = max(weights.values())
-    emit({"phase": "train_parity", "layers": cfg.num_layers, "batch": 2,
+    emit({"phase": "train_parity", "config": variant,
+          "layers": cfg.num_layers, "batch": 2,
           "seq": 256, "loss_kernels": float(loss_k), "loss_plain":
           float(loss_p), "loss_abs_err": loss_err, "loss_bound": 1e-2,
           "grad_norm_kernels": norm_k, "grad_norm_plain": norm_p,
@@ -858,26 +1210,29 @@ def phase_train_parity():
           "expert_grad_rel_to_max": weights, "expert_grad_bound": 5e-2,
           "launches": counts, "expected_launches": expect})
     if counts != expect:
-        raise AssertionError(f"launch counts {counts} != expected {expect}")
+        raise AssertionError(f"train parity {variant}: launch counts "
+                             f"{counts} != expected {expect}")
     if not (loss_err <= 1e-2 and norm_rel <= 2e-2 and worst <= 5e-2):
-        raise AssertionError(f"train step kernels vs plain: loss err "
+        raise AssertionError(f"{variant} train step kernels vs plain: loss err "
                              f"{loss_err}, grad norm rel {norm_rel}, worst "
                              f"expert grad {worst}")
 
 
-def phase_train():
-    """The slice's path at full width, cut to 4 layers: 8 steps of
-    ``launch/train.py``'s ``train`` (bf16 wgrad), then 2 with the fp8
-    wgrad; loss falls, launch counts exact; a profile of one step."""
+def phase_train(variant: str):
+    """The configuration at full width, cut to 4 layers: 8 steps of
+    ``launch/train.py``'s ``train`` (bf16 wgrad), and for ``fp8`` then 2
+    with the fp8 wgrad; loss falls, launch counts exact; a profile of one
+    step; the same 8 steps through the plain versions.  Returns each
+    run's launch counts by path name."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch.train import train
-    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=4)
+    cfg = variant_config(variant, num_layers=4)
     batch, seq, steps = 8, 512, 8
-    per_step = {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
-                "wgrad": 6, "wgrad_fp8": 0}
+    per_step = TRAIN_PER_LAYER[variant]
+    runs = (("bf16", steps), ("fp8", 2)) if variant == "fp8" \
+        else (("bf16", steps),)
     out = {}
-    for wgrad, n in (("bf16", steps), ("fp8", 2)):
+    for wgrad, n in runs:
         free_memory()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -888,12 +1243,12 @@ def phase_train():
         torch.cuda.synchronize()
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
-        expect = {k: v * cfg.num_layers * n for k, v in per_step.items()}
+        expect = expected(per_step, cfg.num_layers * n)
         if wgrad == "fp8":
             expect["wgrad_fp8"], expect["wgrad"] = expect["wgrad"], 0
         hist = run.history
         step_ms = statistics.median(h["step_ms"] for h in hist[-5:])
-        rec = {"phase": "train", "wgrad_precision": wgrad,
+        rec = {"phase": "train", "config": variant, "wgrad_precision": wgrad,
                "layers": cfg.num_layers, "params": cfg.param_count(),
                "batch": batch, "seq": seq, "steps": n,
                "losses": [h["loss"] for h in hist],
@@ -906,24 +1261,27 @@ def phase_train():
                "launches": counts, "expected_launches": expect}
         emit(rec)
         if counts != expect:
-            raise AssertionError(f"train ({wgrad} wgrad) launch counts "
-                                 f"{counts} != expected {expect}")
+            raise AssertionError(f"train {variant} ({wgrad} wgrad) launch "
+                                 f"counts {counts} != expected {expect}")
         finite = all(torch.isfinite(torch.tensor([h["loss"], h["grad_norm"]]))
                      .all() for h in hist)
         if not finite:
-            raise AssertionError(f"train ({wgrad} wgrad): non-finite loss or "
-                                 "grad norm")
+            raise AssertionError(f"train {variant} ({wgrad} wgrad): "
+                                 "non-finite loss or grad norm")
         if wgrad == "bf16":
             if not hist[-1]["loss"] < hist[0]["loss"]:
-                raise AssertionError(f"train: loss did not fall "
+                raise AssertionError(f"train {variant}: loss did not fall "
                                      f"({hist[0]['loss']} -> {hist[-1]['loss']})")
             nxt = run.data.batch_at(n)
             br = profile_breakdown(lambda: run.step_fn(run.params,
                                                        run.opt_state, nxt),
                                    top=14)
-            emit({"phase": "profile", "of": "train_step", **br})
-            emit({"phase": "train_split", **split_step(cfg, run, nxt)})
-        out[wgrad] = counts
+            emit({"phase": "profile", "config": variant, "of": "train_step",
+                  **br})
+            emit({"phase": "train_split", "config": variant,
+                  **split_step(cfg, run, nxt)})
+        out[path_name("train_fp8_wgrad" if wgrad == "fp8" else "train",
+                      variant)] = counts
         del run
         if wgrad == "bf16":
             # the same 8 steps through the plain versions: does the
@@ -938,7 +1296,7 @@ def phase_train():
             # held at 5e-2 of the plain loss, step by step
             rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
                       for a, b in zip(hist, plain.history))
-            emit({"phase": "train_plain", "losses":
+            emit({"phase": "train_plain", "config": variant, "losses":
                   [h["loss"] for h in plain.history], "grad_norms":
                   [h["grad_norm"] for h in plain.history],
                   "max_abs_loss_diff_vs_kernels": max(
@@ -947,7 +1305,7 @@ def phase_train():
                   "max_rel_loss_diff_vs_kernels": rel, "bound": 5e-2})
             del plain
             if not rel <= 5e-2:
-                raise AssertionError(f"train: kernel and plain loss "
+                raise AssertionError(f"train {variant}: kernel and plain loss "
                                      f"trajectories differ by {rel} > 5e-2")
     free_memory()
     return out
@@ -980,6 +1338,12 @@ def split_step(cfg, run, batch):
     ev[3].record()
     torch.cuda.synchronize()
     moe = run.params["layers"][0]["moe"]
+    split = {"forward_ms": ev[0].elapsed_time(ev[1]),
+             "backward_ms": ev[1].elapsed_time(ev[2]),
+             "adamw_ms": ev[2].elapsed_time(ev[3]),
+             "weight_quant_ms_per_step": None}
+    if cfg.precision != "fp8":
+        return split
 
     def quant_weights():
         for key in ("w_gate", "w_up", "w_down", "shared_gate", "shared_up",
@@ -988,10 +1352,8 @@ def split_step(cfg, run, batch):
             q.quantize_blockwise_batched(w)
             q.quantize_blockwise_batched(w.transpose(1, 2).contiguous())
     wq_ms = cuda_ms(lambda i: quant_weights(), iters=3, warmup=1)
-    return {"forward_ms": ev[0].elapsed_time(ev[1]),
-            "backward_ms": ev[1].elapsed_time(ev[2]),
-            "adamw_ms": ev[2].elapsed_time(ev[3]),
-            "weight_quant_ms_per_step": wq_ms * cfg.num_layers}
+    split["weight_quant_ms_per_step"] = wq_ms * cfg.num_layers
+    return split
 
 
 def main(argv=None) -> int:
@@ -1016,33 +1378,48 @@ def main(argv=None) -> int:
           "ptxas": {src: [ln.strip() for ln in out.splitlines()
                           if "registers" in ln or "spill" in ln]
                     for src, out in notes.items()}})
-    timing = phase_kernels(full=not args.quick)
+    with timed("kernel"):
+        timing = phase_kernels(full=not args.quick)
     if not args.quick:
+        paths = {}
+        for variant in VARIANTS:
+            free_memory()
+            with timed(f"forward {variant}"):
+                phase_forward(variant)
         free_memory()
-        phase_forward()
+        with timed("serve"):
+            paths.update(phase_serve())
+        for variant in VARIANTS:
+            free_memory()
+            with timed(f"train_parity {variant}"):
+                phase_train_parity(variant)
+        for variant in VARIANTS:
+            free_memory()
+            with timed(f"train {variant}"):
+                paths.update(phase_train(variant))
         free_memory()
-        paths = {"serve": phase_serve()}
-        free_memory()
-        phase_train_parity()
-        free_memory()
-        train_counts = phase_train()
-        paths["train"] = train_counts["bf16"]
-        paths["train_fp8_wgrad"] = train_counts["fp8"]
-        # launches: the sum over the main paths driven (serving, training
-        # with each wgrad precision), each counted from 0
-        emit({"kernels": [
-            {"name": name, "route": "cuda", "source": SOURCES[name],
-             "replaces": REPLACES[name],
-             "launches": sum(c.get(name, 0) for c in paths.values()),
-             "launches_by_path": {p: c.get(name, 0)
-                                  for p, c in paths.items()},
-             "max_abs_err": timing[name]["max_abs_err"],
-             "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
-             "bound_ms": timing[name]["bound_ms"],
-             "bound_by": timing[name]["bound_by"],
-             "library_ms": timing[name]["library_ms"],
-             "library_note": timing[name]["library_note"]}
-            for name in SOURCES]})
+        # launches: the sum over the main paths driven (serving and
+        # training in each configuration, training with the fp8 wgrad),
+        # each counted from 0
+        rows = []
+        for name in SOURCES:
+            t = timing[name]
+            row = {"name": name, "route": "cuda", "source": SOURCES[name],
+                   "replaces": REPLACES[name],
+                   "launches": sum(c.get(name, 0) for c in paths.values()),
+                   "launches_by_path": {p: c.get(name, 0)
+                                        for p, c in paths.items()},
+                   "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                   "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                   "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                   "library_note": t["library_note"]}
+            if name == "gmm_bf16":
+                tr = timing["gmm_bf16_train"]
+                row.update(train_shape=tr["shape"], train_ms=tr["ms"],
+                           train_bound_ms=tr["bound_ms"],
+                           train_bound_by=tr["bound_by"])
+            rows.append(row)
+        emit({"kernels": rows})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,21 @@
-"""Differentiable padding-free FP8 grouped linear layers.
+"""Differentiable padding-free grouped linear layers, fp8 and bf16.
 
 ``grouped_linear(x, w, group_sizes)`` computes ``y[rows of group g] =
-x[rows of g] @ w[g]`` over the unpadded concatenated token buffer: x is
-quantized 1x128 tilewise (or comes quantized, see ``quantized=``), w is
-quantized 128x128 blockwise on every call, as in the reference, and the
-product runs on the padding-free grouped GEMM.  ``grouped_linear_fused``
-takes the gate/up outputs instead of x and runs the fused
-activation->quantize epilogue in front of the GEMM.
+x[rows of g] @ w[g]`` over the unpadded concatenated token buffer.  With
+``precision="fp8"`` x is quantized 1x128 tilewise (or comes quantized,
+see ``quantized=``), w is quantized 128x128 blockwise on every call, as
+in the reference, and the product runs on the padding-free fp8 grouped
+GEMM; with ``precision="bf16"`` both run as bf16 on the bf16 grouped
+GEMM, the numerics baseline.  ``grouped_linear_fused`` takes the gate/up
+outputs instead of x and runs the fused activation->quantize epilogue in
+front of the GEMM.  ``grouped_linear_ffn`` is the whole expert FFN with
+producer-side quantizing epilogues: the gate/up GEMMs store fp8 and the
+activation dequantizes them on load, so g and u never exist wider than
+fp8.
 
-Both are ``torch.autograd.Function``s that mirror the JAX package's
-custom VJPs.  The backward quantizes ``dy`` 1x128 ONCE for both of its
-GEMMs: the dgrad ``dx = dy @ w^T`` on the same fp8 grouped GEMM (w^T
+All are ``torch.autograd.Function``s that mirror the JAX package's
+custom VJPs.  The fp8 backward quantizes ``dy`` 1x128 ONCE for both of
+its GEMMs: the dgrad ``dx = dy @ w^T`` on the same fp8 grouped GEMM (w^T
 re-quantized 128x128, f32 out) and the wgrad ``dw[g] = x_g^T dy_g`` on
 the wgrad kernel, bf16 operands by default or, under
 ``KernelConfig.wgrad_precision="fp8"``, the fp8 operands the forward and
@@ -50,6 +55,29 @@ def _gemm(a8, sa, w, group_sizes, cfg: KernelConfig, plan: TilePlan,
         a8, sa, b8, sb, group_sizes, num_groups=w.shape[0],
         block_m=cfg.block_m, block_n=cfg.block_n, block_k=cfg.block_k,
         out_dtype=out_dtype, plan=plan)
+
+
+def _gemm_quant(a8, sa, w, group_sizes, cfg: KernelConfig, plan: TilePlan,
+                round_dtype):
+    """``a @ w[g]`` per group on the quantizing fp8 grouped GEMM: e4m3
+    payload and 1x128 scales of the product rounded through
+    ``round_dtype``."""
+    b8, sb = q.quantize_blockwise_batched(w)
+    return grouped_gemm_kernel.gmm_quant(
+        a8, sa, b8, sb, group_sizes, num_groups=w.shape[0],
+        block_m=cfg.block_m, block_n=cfg.block_n, block_k=cfg.block_k,
+        out_dtype=round_dtype, plan=plan)
+
+
+def _gemm_bf16(x, w, group_sizes, cfg: KernelConfig, plan: TilePlan,
+               out_dtype):
+    """``x @ w[g]`` per group on the bf16 grouped GEMM, operands cast to
+    contiguous bf16."""
+    return grouped_gemm_kernel.gmm_bf16(
+        x.to(torch.bfloat16).contiguous(), w.to(torch.bfloat16).contiguous(),
+        group_sizes, num_groups=w.shape[0], block_m=cfg.block_m,
+        block_n=cfg.block_n, block_k=cfg.block_k, out_dtype=out_dtype,
+        plan=plan)
 
 
 def _dgrad(d8, sd, w, group_sizes, cfg: KernelConfig, plan: TilePlan):
@@ -150,6 +178,112 @@ class _GroupedLinearFP8Fused(torch.autograd.Function):
         return dg, du, dw.to(w.dtype), None, None, None, None
 
 
+class _GroupedLinearFFNFP8(torch.autograd.Function):
+    """Mirrors ``_ffn_fwd`` / ``_ffn_bwd`` of the JAX package's
+    ``core/grouped_gemm.py``."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, group_sizes, plan, quantized,
+                cfg, act):
+        # quantize-once: ONE tilewise quantization of x feeds the gate AND
+        # up GEMMs (and, under fp8 wgrad, both of their wgrads)
+        if quantized is None:
+            quantized = q.quantize_activation(x)
+        a8, sa = quantized.q, quantized.scale
+        plan = _plan(plan, group_sizes, x.shape[0], cfg, w_up.shape[0])
+        # producer epilogue: the gate/up GEMMs round through x.dtype (what
+        # the unfused GEMM would store) and store fp8 + 1x128 scales
+        u8, su = _gemm_quant(a8, sa, w_up, group_sizes, cfg, plan, x.dtype)
+        if w_gate is not None:
+            g8, sg = _gemm_quant(a8, sa, w_gate, group_sizes, cfg, plan,
+                                 x.dtype)
+            qh = q.fused_act_quantize_fp8(g8, sg, u8, su, act=act)
+        else:
+            # unary activation (gelu): w_up is the single projection
+            g8 = sg = None
+            qh = q.fused_act_quantize_fp8(u8, su, act=act)
+        y = _gemm(qh.q, qh.scale, w_down, group_sizes, cfg, plan,
+                  cfg.out_dtype)
+        ctx.cfg, ctx.plan, ctx.act, ctx.x_dtype = cfg, plan, act, x.dtype
+        if cfg.wgrad_precision == "fp8":
+            # all-fp8 step: the quantized x and h are the residuals, so the
+            # backward quantizes neither again; x itself is freed
+            res = (a8, sa, qh.q, qh.scale)
+        else:
+            # DeepSeek recipe: the raw x is kept, h recomputed in f32
+            res = (x,)
+        ctx.save_for_backward(g8, sg, u8, su, w_gate, w_up, w_down,
+                              group_sizes, *res)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        cfg, plan, act = ctx.cfg, ctx.plan, ctx.act
+        (g8, sg, u8, su, w_gate, w_up, w_down, group_sizes,
+         *res) = ctx.saved_tensors
+        num_groups = w_up.shape[0]
+        # ONE quantization of dy serves the down dgrad AND its fp8 wgrad
+        d8, sd = q.quantize_tilewise(dy.float().contiguous())
+        dh = _dgrad(d8, sd, w_down, group_sizes, cfg, plan)
+        # recompute the activation from the dequantized fp8 payloads: the
+        # values the fused epilogue ran on (g and u never existed wider);
+        # tail rows dequantize to 0 (payload 0, scale 1)
+        with torch.enable_grad():
+            ins = [kref.dequantize_tilewise_ref(t, s).requires_grad_()
+                   for t, s in ((g8, sg), (u8, su)) if t is not None]
+            h = kref.act_f32(ins[0], ins[1] if len(ins) == 2 else None, act)
+            grads = torch.autograd.grad(h, ins, dh)
+        dg, du = grads if w_gate is not None else (None, grads[0])
+        # quantize du (and dg) ONCE each: for the dgrads and, under fp8
+        # wgrad, the wgrads.  Standalone quantizations of the whole
+        # forward + backward: x, dy, dg, du; never g, u or h
+        du8, sdu = q.quantize_tilewise(du.contiguous())
+        dx = _dgrad(du8, sdu, w_up, group_sizes, cfg, plan)
+        if w_gate is not None:
+            dg8, sdg = q.quantize_tilewise(dg.contiguous())
+            dx = dx + _dgrad(dg8, sdg, w_gate, group_sizes, cfg, plan)
+        if cfg.wgrad_precision == "fp8":
+            a8, sa, h8, sh = res
+            ops_down, ops_up = (h8, sh, d8, sd), (a8, sa, du8, sdu)
+            ops_gate = None if w_gate is None else (a8, sa, dg8, sdg)
+        else:
+            (x,) = res
+            ops_down, ops_up = (h.detach(), dy), (x, du)
+            ops_gate = None if w_gate is None else (x, dg)
+        dw_down = _wgrad(ops_down, group_sizes, cfg, plan, num_groups)
+        dw_up = _wgrad(ops_up, group_sizes, cfg, plan, num_groups)
+        dw_gate = None if w_gate is None else \
+            _wgrad(ops_gate, group_sizes, cfg, plan, num_groups).to(w_gate.dtype)
+        # a supplied QuantizedActivation gets no gradient, as in
+        # _GroupedLinearFP8
+        return (dx.to(ctx.x_dtype), dw_gate, dw_up.to(w_up.dtype),
+                dw_down.to(w_down.dtype), None, None, None, None, None)
+
+
+class _GroupedLinearBF16(torch.autograd.Function):
+    """Mirrors ``_bf16_fwd`` / ``_bf16_bwd`` of the JAX package's
+    ``core/grouped_gemm.py``, on the bf16 grouped GEMM."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes, plan, cfg):
+        plan = _plan(plan, group_sizes, x.shape[0], cfg, w.shape[0])
+        y = _gemm_bf16(x, w, group_sizes, cfg, plan, cfg.out_dtype)
+        ctx.cfg, ctx.plan = cfg, plan
+        ctx.save_for_backward(x, w, group_sizes)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        cfg, plan = ctx.cfg, ctx.plan
+        x, w, group_sizes = ctx.saved_tensors
+        # dx = dy @ w^T on the same kernel, f32 out; w^T contiguous, the
+        # layout the kernel takes
+        dx = _gemm_bf16(dy, w.transpose(1, 2), group_sizes, cfg, plan,
+                        torch.float32)
+        dw = _wgrad((x, dy), group_sizes, cfg, plan, w.shape[0])
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None
+
+
 def grouped_linear(x: torch.Tensor, w: torch.Tensor,
                    group_sizes: torch.Tensor, *, precision: str = "bf16",
                    out_dtype: Optional[torch.dtype] = None,
@@ -161,21 +295,35 @@ def grouped_linear(x: torch.Tensor, w: torch.Tensor,
     beyond the last group come back as zeros, and are excluded from the
     backward's wgrad.
 
-    ``plan``: the routing decision's :class:`TilePlan`, shared by every
-    GEMM with these ``group_sizes``.  ``quantized``: the
-    :class:`~repro_torch.core.quantization.QuantizedActivation` of exactly
-    this ``x``, shared by every GEMM that consumes it; it gets no
-    gradient.  ``out_dtype``: explicit > the config's > ``x.dtype``.
-    The wgrad's precision is the config's ``wgrad_precision``.
+    ``precision``: ``"fp8"`` (the paper's kernel) or ``"bf16"`` (the bf16
+    grouped GEMM forward and dgrad, the bf16 wgrad: the numerics
+    baseline).  ``plan``: the routing decision's :class:`TilePlan`,
+    shared by every GEMM with these ``group_sizes``.  ``quantized`` (fp8
+    only): the :class:`~repro_torch.core.quantization.QuantizedActivation`
+    of exactly this ``x``, shared by every GEMM that consumes it; it gets
+    no gradient.  ``out_dtype``: explicit > the config's > ``x.dtype``.
+    The fp8 wgrad's precision is the config's ``wgrad_precision``; the
+    bf16 path takes only ``"bf16"``.
     """
-    if precision != "fp8":
-        raise NotImplementedError(
-            f"grouped_linear(precision={precision!r}): only the fp8 path is "
-            "ported; the bf16 grouped GEMM kernel is ROADMAP A8")
     cfg = resolve_config(config, out_dtype=out_dtype)
     if cfg.out_dtype is None:
         cfg = cfg.with_(out_dtype=x.dtype)
-    return _GroupedLinearFP8.apply(x, w, group_sizes, plan, quantized, cfg)
+    if precision == "fp8":
+        return _GroupedLinearFP8.apply(x, w, group_sizes, plan, quantized,
+                                       cfg)
+    if precision == "bf16":
+        if quantized is not None:
+            raise ValueError(
+                "grouped_linear(precision='bf16') takes no quantized=...: "
+                "the bf16 path never quantizes; use precision='fp8' to "
+                "consume a QuantizedActivation")
+        if cfg.wgrad_precision == "fp8":
+            raise ValueError(
+                "grouped_linear(precision='bf16') takes no "
+                "wgrad_precision='fp8': the fp8-operand wgrad needs the fp8 "
+                "forward's quantized residual; use precision='fp8'")
+        return _GroupedLinearBF16.apply(x, w, group_sizes, plan, cfg)
+    raise ValueError(f"unknown precision {precision!r}")
 
 
 def dense_linear_fp8(x: torch.Tensor, w: torch.Tensor, *,
@@ -233,3 +381,65 @@ def dense_linear_fp8_fused(g: torch.Tensor, u: Optional[torch.Tensor],
     y = grouped_linear_fused(g2, u2, w[None], gs, act=act,
                              out_dtype=out_dtype, config=config, plan=plan)
     return y.reshape(*lead, w.shape[-1])
+
+
+def grouped_linear_ffn(x: torch.Tensor, w_gate: Optional[torch.Tensor],
+                       w_up: torch.Tensor, w_down: torch.Tensor,
+                       group_sizes: torch.Tensor, *, act: str = "silu_mul",
+                       out_dtype: Optional[torch.dtype] = None,
+                       config: Optional[KernelConfig] = None,
+                       plan: Optional[TilePlan] = None,
+                       quantized: Optional[q.QuantizedActivation] = None
+                       ) -> torch.Tensor:
+    """Whole fp8 expert FFN with producer-side quantizing epilogues:
+    ``y = act(x @ w_gate, x @ w_up) @ w_down`` per group, where the
+    gate/up GEMMs store fp8 payload + 1x128 scales directly and the
+    activation dequantizes them on load.  Nothing wider than fp8 crosses
+    device memory between the producer GEMMs and the down GEMM.
+
+    ``w_gate``: [G, K, F] (``None`` for the unary ``gelu``, where ``w_up``
+    is the single projection); ``w_up``: [G, K, F]; ``w_down``: [G, F,
+    N].  ``quantized``/``plan`` as in :func:`grouped_linear`; the wgrad's
+    precision is the config's ``wgrad_precision``.
+
+    Numerics: the producer is bitwise the unfused GEMM -> quantize
+    composition, but the FFN applies one more e4m3 quantization to g/u
+    than :func:`grouped_linear_fused` pipelines: a tolerance, not
+    equality.  Standalone quantizations: forward one (``x``, none when
+    ``quantized`` is given); forward + backward four (``x``, ``dy``,
+    ``dg``, ``du``).
+    """
+    if act not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {act!r}; "
+                         f"expected one of {ACTIVATIONS}")
+    if act == "silu_mul" and w_gate is None:
+        raise ValueError("act='silu_mul' needs both w_gate and w_up")
+    if act != "silu_mul" and w_gate is not None:
+        raise ValueError(f"act={act!r} is unary; pass the single projection "
+                         "as w_up with w_gate=None")
+    cfg = resolve_config(config, out_dtype=out_dtype)
+    if cfg.out_dtype is None:
+        cfg = cfg.with_(out_dtype=x.dtype)
+    return _GroupedLinearFFNFP8.apply(x, w_gate, w_up, w_down, group_sizes,
+                                      plan, quantized, cfg, act)
+
+
+def dense_ffn_fp8(x: torch.Tensor, w_gate: Optional[torch.Tensor],
+                  w_up: torch.Tensor, w_down: torch.Tensor, *,
+                  act: str = "silu_mul",
+                  out_dtype: Optional[torch.dtype] = None,
+                  config: Optional[KernelConfig] = None,
+                  plan: Optional[TilePlan] = None,
+                  quantized: Optional[q.QuantizedActivation] = None
+                  ) -> torch.Tensor:
+    """G=1 producer-fused fp8 FFN (the MoE shared experts).  Leading dims
+    of ``x`` are flattened to rows; ``plan`` is the caller's G=1 plan of
+    those rows."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k)
+    gs = torch.full((1,), x2.shape[0], dtype=torch.int32, device=x.device)
+    y = grouped_linear_ffn(
+        x2, None if w_gate is None else w_gate[None], w_up[None],
+        w_down[None], gs, act=act, out_dtype=out_dtype, config=config,
+        plan=plan, quantized=quantized)
+    return y.reshape(*lead, w_down.shape[-1])

@@ -1,17 +1,20 @@
 """Padding-free Mixture-of-Experts layer built on the grouped GEMM.
 
 This is the paper's target workload: top-k routing produces dynamic group
-sizes per expert; the expert FFNs run as one padding-free fp8 grouped
-GEMM over the concatenated, ragged token buffer.
+sizes per expert; the expert FFNs run as one padding-free grouped GEMM
+over the concatenated, ragged token buffer.
 
-Ported: ragged dispatch in fp8 on one device (``ep_size=1``), shared
-experts and the aux outputs, forward and backward.  Gradients reach the
-router through the top-k weights and the load-balance loss; the token
-dispatch and the combine are gathers both ways, so the backward, like
-the forward, sums each token's k slots in one fixed order without
-atomics.  Not yet ported, and raising
-``NotImplementedError``: ``dispatch="dense"`` (ROADMAP A6), expert
-parallelism (ROADMAP A15) and ``precision="bf16"`` (ROADMAP A8).
+Ported: ragged dispatch on one device (``ep_size=1``), shared experts and
+the aux outputs, forward and backward, in three recipes: fp8 (the fused
+activation epilogue feeds the down GEMM), fp8 with
+``KernelConfig.fuse_producer`` (the gate/up GEMMs store fp8 directly, so
+g and u never exist wider) and ``precision="bf16"`` (the bf16 grouped
+GEMM, the numerics baseline).  Gradients reach the router through the
+top-k weights and the load-balance loss; the token dispatch and the
+combine are gathers both ways, so the backward, like the forward, sums
+each token's k slots in one fixed order without atomics.  Not yet ported,
+and raising ``NotImplementedError``: ``dispatch="dense"`` (ROADMAP A6)
+and expert parallelism (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -20,9 +23,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.grouped_gemm import (dense_linear_fp8,
+from repro_torch.core.grouped_gemm import (dense_ffn_fp8, dense_linear_fp8,
                                            dense_linear_fp8_fused,
-                                           grouped_linear,
+                                           grouped_linear, grouped_linear_ffn,
                                            grouped_linear_fused)
 from repro_torch.core.quantization import quantize_activation
 from repro_torch.kernels.plan import KernelConfig, make_tile_plan, \
@@ -122,6 +125,13 @@ class _Combine(torch.autograd.Function):
         return dout[token_of], None, None
 
 
+def _silu_mul_bf16(g, u):
+    """``silu(g) * u`` in the operands' dtype, one rounding per operation
+    as the reference's ``jax.nn.silu(g) * u`` on bf16 tensors (its "§Perf
+    I5": activations in the compute dtype)."""
+    return g * torch.sigmoid(g) * u
+
+
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
               ep_size: int = 1):
     """x: [T, d_model].  Returns (y [T, d_model], aux dict)."""
@@ -131,9 +141,8 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
     if cfg.dispatch != "ragged":
         raise NotImplementedError(f"dispatch={cfg.dispatch!r} is not ported "
                                   "yet (ROADMAP A6)")
-    if cfg.precision != "fp8":
-        raise NotImplementedError(f"precision={cfg.precision!r} is not "
-                                  "ported yet (ROADMAP A8)")
+    if cfg.precision not in ("fp8", "bf16"):
+        raise ValueError(f"unknown precision {cfg.precision!r}")
     t, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
     kcfg = resolve_config(cfg.kernel_config)
@@ -165,16 +174,32 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
     xs = _Dispatch.apply(x, token_of, pos)                    # [cap, d]
 
     # ---- padding-free ragged expert FFN (the paper's kernel) ------------
-    # one plan and one quantization of xs per routing decision serve the
-    # gate, up and down GEMMs
+    # one plan per routing decision serves every GEMM of the layer; in
+    # fp8, one quantization of xs serves the gate and up GEMMs
+    fp8 = cfg.precision == "fp8"
     tile_plan = make_tile_plan(gs, cap, block_m=kcfg.block_m, num_groups=e)
-    qx = quantize_activation(xs)
-    g = grouped_linear(xs, params["w_gate"], gs, precision="fp8",
-                       config=kcfg, plan=tile_plan, quantized=qx)
-    u = grouped_linear(xs, params["w_up"], gs, precision="fp8",
-                       config=kcfg, plan=tile_plan, quantized=qx)
-    y = grouped_linear_fused(g, u, params["w_down"], gs, act="silu_mul",
-                             config=kcfg, plan=tile_plan)     # [cap, d]
+    qx = quantize_activation(xs) if fp8 else None
+    if fp8 and kcfg.fuse_producer:
+        # producer-fused FFN: the gate/up GEMMs store fp8 + 1x128 scales
+        # and the activation dequantizes them on load; the FFN performs
+        # exactly one standalone quantization (qx)
+        y = grouped_linear_ffn(xs, params["w_gate"], params["w_up"],
+                               params["w_down"], gs, act="silu_mul",
+                               config=kcfg, plan=tile_plan, quantized=qx)
+    elif fp8:
+        g = grouped_linear(xs, params["w_gate"], gs, precision="fp8",
+                           config=kcfg, plan=tile_plan, quantized=qx)
+        u = grouped_linear(xs, params["w_up"], gs, precision="fp8",
+                           config=kcfg, plan=tile_plan, quantized=qx)
+        y = grouped_linear_fused(g, u, params["w_down"], gs, act="silu_mul",
+                                 config=kcfg, plan=tile_plan)  # [cap, d]
+    else:
+        g = grouped_linear(xs, params["w_gate"], gs, precision="bf16",
+                           config=kcfg, plan=tile_plan)
+        u = grouped_linear(xs, params["w_up"], gs, precision="bf16",
+                           config=kcfg, plan=tile_plan)
+        y = grouped_linear(_silu_mul_bf16(g, u), params["w_down"], gs,
+                           precision="bf16", config=kcfg, plan=tile_plan)
 
     # ---- combine: gather each token's k slots back through the inverse
     # permutation and add them in packed order, the order of the
@@ -186,21 +211,32 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
     # ---- shared experts ---------------------------------------------------
     if cfg.num_shared_experts:
         fs = params["shared_gate"].shape[1]
-        if d % 128 or fs % 128:
-            raise NotImplementedError(
-                "fp8 shared experts need d_model and the shared width to be "
-                "multiples of 128; the bf16 fallback is ROADMAP A8")
-        splan = make_tile_plan(
-            torch.full((1,), t, dtype=torch.int32, device=x.device), t,
-            block_m=kcfg.block_m, num_groups=1)
-        qs = quantize_activation(x)
-        sg = dense_linear_fp8(x, params["shared_gate"], config=kcfg,
-                              plan=splan, quantized=qs)
-        su = dense_linear_fp8(x, params["shared_up"], config=kcfg,
-                              plan=splan, quantized=qs)
-        out = out + dense_linear_fp8_fused(
-            sg, su, params["shared_down"], act="silu_mul", config=kcfg,
-            out_dtype=torch.float32, plan=splan)
+        if fp8 and d % 128 == 0 and fs % 128 == 0:
+            # plan-once + quantize-once, like the routed path: one G=1
+            # plan and one quantization of x serve all three GEMMs
+            splan = make_tile_plan(
+                torch.full((1,), t, dtype=torch.int32, device=x.device), t,
+                block_m=kcfg.block_m, num_groups=1)
+            qs = quantize_activation(x)
+            if kcfg.fuse_producer:
+                out = out + dense_ffn_fp8(
+                    x, params["shared_gate"], params["shared_up"],
+                    params["shared_down"], act="silu_mul", config=kcfg,
+                    out_dtype=torch.float32, plan=splan, quantized=qs)
+            else:
+                sg = dense_linear_fp8(x, params["shared_gate"], config=kcfg,
+                                      plan=splan, quantized=qs)
+                su = dense_linear_fp8(x, params["shared_up"], config=kcfg,
+                                      plan=splan, quantized=qs)
+                out = out + dense_linear_fp8_fused(
+                    sg, su, params["shared_down"], act="silu_mul",
+                    config=kcfg, out_dtype=torch.float32, plan=splan)
+        else:
+            # bf16 shared experts: plain matmuls, as the reference leaves
+            # them to XLA
+            sh = _silu_mul_bf16(x @ params["shared_gate"],
+                                x @ params["shared_up"])
+            out = out + (sh @ params["shared_down"]).float()
 
     # ---- aux: load-balance loss + drop stats --------------------------------
     me = probs.mean(dim=0)

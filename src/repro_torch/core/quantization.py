@@ -66,6 +66,17 @@ def fused_act_quantize(g, u=None, *, act="silu_mul") -> QuantizedActivation:
     return QuantizedActivation(q8, s)
 
 
+def fused_act_quantize_fp8(g8, s_g, u8=None, s_u=None, *,
+                           act="silu_mul") -> QuantizedActivation:
+    """Fused producer epilogue on fp8 operands: the gate/up GEMMs' fp8
+    payloads and 1x128 scales (from the quantizing grouped GEMM) are
+    dequantized on load, so the bf16 g/u never exist.  They come out of a
+    non-differentiable producer; gradients reach the FFN's inputs through
+    its backward's activation recompute."""
+    q8, s = epilogue_kernel.act_quantize(g8, u8, s_g=s_g, s_u=s_u, act=act)
+    return QuantizedActivation(q8, s)
+
+
 def quantize_blockwise(w: torch.Tensor):
     """[K, N] -> (e4m3 [K, N], f32 [K/128, N/128])."""
     return kref.quantize_blockwise_ref(w)

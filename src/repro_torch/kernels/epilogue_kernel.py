@@ -10,8 +10,10 @@ Supported activations:
   - ``silu_mul``: ``silu(g) * u`` (the SwiGLU expert FFN epilogue)
   - ``gelu``: unary tanh ``gelu(g)`` (``u`` must be None)
 
-The fp8-input mode (dequantize g/u on load) belongs to the fused-producer
-path and is not ported yet.
+Two input modes: bf16 or f32 operands, or (the fused-producer path) e4m3
+operands with their 1x128 scales ``s_g``/``s_u``, dequantized on load as
+``float(q) * s``, so the activation runs on exactly the values the
+quantizing GEMM kept.
 """
 from __future__ import annotations
 
@@ -21,18 +23,15 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ACTIVATIONS, FP8, QUANT_BLOCK, \
-    act_quantize_ref
+    act_quantize_ref, dequantize_tilewise_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _check(g, u, act, s_g, s_u) -> None:
+    """The reference's argument checks."""
     if act not in ACTIVATIONS:
         raise ValueError(f"unknown activation {act!r}; expected {ACTIVATIONS}")
-    if s_g is not None or s_u is not None:
-        raise NotImplementedError(
-            "fp8-input (dequantize-on-load) act_quantize belongs to the "
-            "fused-producer path, which is not ported yet (ROADMAP A8)")
     if act == "silu_mul":
         if u is None:
             raise ValueError("act='silu_mul' needs both g and u")
@@ -40,52 +39,88 @@ def _check(g, u, act, s_g, s_u) -> None:
             raise ValueError(f"g {tuple(g.shape)} and u {tuple(u.shape)} must match")
     elif u is not None:
         raise ValueError(f"act={act!r} is unary; got a second operand")
+    if s_g is not None and u is not None and s_u is None:
+        raise ValueError("fp8 inputs need scales for both operands "
+                         "(got s_g but not s_u)")
+    if s_g is None and s_u is not None:
+        raise ValueError("got s_u without s_g")
     if g.dim() != 2 or g.shape[1] % QUANT_BLOCK != 0:
         raise ValueError(f"g must be [M, K] with K % {QUANT_BLOCK} == 0, "
                          f"got {tuple(g.shape)}")
+    m, k = g.shape
+    for name, sc in (("s_g", s_g), ("s_u", s_u)):
+        if sc is not None and tuple(sc.shape) != (m, k // QUANT_BLOCK):
+            raise ValueError(
+                f"{name} has shape {tuple(sc.shape)}; fp8 operands of shape "
+                f"{(m, k)} need 1x128 scales of shape {(m, k // QUANT_BLOCK)}")
 
 
-def act_quantize_plain(g, u=None, *, act: str = "silu_mul"):
-    """The activation in f32 (``ref.act_f32``: silu as ``g * sigmoid(g)``,
-    gelu in its tanh form), then the 1x128 quantizer's arithmetic: the
-    oracle ``ref.act_quantize_ref``."""
+def act_quantize_plain(g, u=None, *, s_g=None, s_u=None,
+                       act: str = "silu_mul"):
+    """fp8 operands dequantized (``ref.dequantize_tilewise_ref``), the
+    activation in f32 (``ref.act_f32``: silu as ``g * sigmoid(g)``, gelu
+    in its tanh form), then the 1x128 quantizer's arithmetic: the oracle
+    ``ref.act_quantize_ref``."""
+    if s_g is not None:
+        g = dequantize_tilewise_ref(g, s_g)
+        u = None if u is None else dequantize_tilewise_ref(u, s_u)
     return act_quantize_ref(g, u, act)
 
 
-def act_quantize_cuda(g, u=None, *, act: str = "silu_mul"):
-    """Launch the fused CUDA epilogue on bf16 or f32 CUDA tensors."""
-    _check(g, u, act, None, None)
-    ops = (g,) if u is None else (g, u)
-    for t in ops:
+def act_quantize_cuda(g, u=None, *, s_g=None, s_u=None,
+                      act: str = "silu_mul"):
+    """Launch the fused CUDA epilogue on bf16 or f32 CUDA tensors, or on
+    e4m3 ones with their f32 scales.  Launches are counted per input
+    mode: ``launches`` (bf16/f32) and ``fp8_launches``."""
+    _check(g, u, act, s_g, s_u)
+    fp8 = s_g is not None
+    ops = [("g", g), ("u", u), ("s_g", s_g), ("s_u", s_u)]
+    for name, t in ops:
+        if t is None:
+            continue
         if not t.is_cuda or t.device != g.device:
             raise ValueError("act_quantize_cuda needs CUDA tensors on one device")
-        if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != g.dtype:
-            raise TypeError(f"g/u must both be bf16 or both f32, got {t.dtype}")
+        if name.startswith("s_"):
+            want = (torch.float32,)
+        elif fp8:
+            want = (FP8,)
+        else:
+            want = (torch.bfloat16, torch.float32)
+        if t.dtype not in want or (name == "u" and t.dtype != g.dtype):
+            raise TypeError(f"{name} must be one of {want} (g and u alike), "
+                            f"got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("g/u must be contiguous and 16-byte aligned")
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     m, k = g.shape
     q = torch.empty((m, k), dtype=FP8, device=g.device)
     s = torch.empty((m, k // QUANT_BLOCK), dtype=torch.float32, device=g.device)
     if m == 0:
         return q, s
-    fn = build.function("act_quant", "act_quantize", [_P] * 4 + [_I] * 4 + [_P])
-    status = fn(g.data_ptr(), None if u is None else u.data_ptr(),
-                q.data_ptr(), s.data_ptr(), m, k,
-                0 if act == "silu_mul" else 1,
-                1 if g.dtype == torch.bfloat16 else 0,
+    fn = build.function("act_quant", "act_quantize", [_P] * 6 + [_I] * 4 + [_P])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    in_kind = 2 if fp8 else (1 if g.dtype == torch.bfloat16 else 0)
+    status = fn(g.data_ptr(), ptr(u), ptr(s_g), ptr(s_u), q.data_ptr(),
+                s.data_ptr(), m, k, 0 if act == "silu_mul" else 1, in_kind,
                 build.stream_ptr(g.device))
     build.check(status, "act_quantize")
-    act_quantize_cuda.launches += 1
+    # one count per input mode: bf16/f32 operands, fp8 operands
+    if fp8:
+        act_quantize_cuda.fp8_launches += 1
+    else:
+        act_quantize_cuda.launches += 1
     return q, s
 
 
 act_quantize_cuda.launches = 0
+act_quantize_cuda.fp8_launches = 0
 
 
 def act_quantize(g, u=None, *, s_g=None, s_u=None, act: str = "silu_mul"):
-    """g (and u for silu_mul): [M, K], K % 128 == 0, bf16 or f32.
+    """g (and u for silu_mul): [M, K], K % 128 == 0: bf16 or f32, or e4m3
+    with 1x128 scales ``s_g`` (and ``s_u``) of shape [M, K/128] f32.
     Returns ``(q[M, K] e4m3, s[M, K/128] f32)``."""
     _check(g, u, act, s_g, s_u)
-    if g.is_cuda:
-        return act_quantize_cuda(g, u, act=act)
-    return act_quantize_plain(g, u, act=act)
+    fn = act_quantize_cuda if g.is_cuda else act_quantize_plain
+    return fn(g, u, s_g=s_g, s_u=s_u, act=act)

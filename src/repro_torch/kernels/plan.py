@@ -2,8 +2,9 @@
 
 ``KernelConfig``
     One frozen record of the tile-shape decisions (``block_m/n/k``), the
-    output dtype of a grouped GEMM and the operand precision of the
-    training step's wgrad.  Static alignment constraints are checked at
+    output dtype of a grouped GEMM, the operand precision of the training
+    step's wgrad and whether the fp8 FFN's gate/up GEMMs quantize in
+    their store (``fuse_producer``).  Static alignment constraints are checked at
     construction, the shape-dependent ones by :meth:`KernelConfig.validate`.
     ``config=None`` call sites resolve to :func:`get_default_config`,
     which the trainer scopes with :func:`default_config`.
@@ -32,7 +33,9 @@ QUANT_BLOCK = 128  # the paper's 1x128 / 128x128 quantization granularity
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """Frozen tile-shape + out-dtype descriptor for one grouped GEMM."""
+    """Frozen tile-shape + out-dtype descriptor for one grouped GEMM,
+    with the recipe switches the layers read (``wgrad_precision``,
+    ``fuse_producer``)."""
 
     block_m: int = 128
     block_n: int = 128
@@ -46,6 +49,13 @@ class KernelConfig:
     # tile scales, the forward's and the dgrad's, and are dequantized in
     # the kernel)
     wgrad_precision: str = "bf16"
+    # route the fp8 FFN's gate/up GEMMs through the quantizing-epilogue
+    # producer (``op="gemm_quant"``): the GEMMs emit fp8 + 1x128 scales
+    # directly and the activation epilogue dequantizes on load, so the
+    # bf16 g/u intermediates never exist.  Off by default — the fused
+    # recipe quantizes g/u once more than the bf16-residual recipe, an
+    # e4m3-relative-error tolerance delta (see core.grouped_gemm)
+    fuse_producer: bool = False
 
     def __post_init__(self):
         if self.block_m % 8 != 0:

@@ -130,6 +130,53 @@ def grouped_gemm_blockscaled_ref(a_fp8, s_a, b_fp8, s_b, group_sizes,
     return torch.cat(out, dim=0).to(out_dtype)
 
 
+def gmm_quant_ref(a_fp8, s_a, b_fp8, s_b, group_sizes,
+                  block: int = QUANT_BLOCK, out_dtype=torch.bfloat16):
+    """Oracle of the quantizing-store grouped GEMM: the product of
+    :func:`grouped_gemm_blockscaled_ref` on the owned rows, zeros below,
+    rounded through ``out_dtype`` and quantized 1x128 (the rounding point
+    of the reference's unfused composition).  Rows >= sum(group_sizes)
+    come back as payload 0 and scale 1.
+
+    a_fp8 [M, K], group_sizes [G] with sum <= M -> (e4m3 [M, N],
+    f32 [M, N/128]).
+    """
+    sizes = [int(s) for s in torch.as_tensor(group_sizes).tolist()]
+    total = sum(sizes)
+    y = torch.zeros((a_fp8.shape[0], b_fp8.shape[2]), dtype=torch.float32,
+                    device=a_fp8.device)
+    if total:
+        y[:total] = grouped_gemm_blockscaled_ref(
+            a_fp8[:total], s_a[:total], b_fp8, s_b, sizes, block,
+            out_dtype=torch.float32)
+    return quantize_tilewise_ref(y.to(out_dtype).float(), block)
+
+
+def gmm_bf16_exact_ref(x, w, group_sizes, block: int = QUANT_BLOCK,
+                       out_dtype=torch.bfloat16):
+    """Oracle of the bf16 grouped GEMM with its reduction order, the
+    function of the JAX package's ``gmm_bf16_xla_exact``: operands rounded
+    to bf16 and upcast to f32, one f32 dot per (group, 128-K block) over
+    the group's rows, the blocks added in f32.  Rows >= sum(group_sizes)
+    are exactly zero.  Reads the group sizes back to the host.
+
+    x [M, K], w [G', K, N], group_sizes [G <= G'] with sum <= M ->
+    [M, N] ``out_dtype``.
+    """
+    sizes = [int(s) for s in torch.as_tensor(group_sizes).tolist()]
+    x16, w16 = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    k, n = x.shape[1], w.shape[2]
+    acc = torch.zeros((x.shape[0], n), dtype=torch.float32, device=x.device)
+    off = 0
+    for g, sz in enumerate(sizes):
+        for k0 in range(0, k, block) if sz else ():
+            part = x16[off:off + sz, k0:k0 + block].float() \
+                @ w16[g, k0:k0 + block].float()
+            acc[off:off + sz] = acc[off:off + sz] + part
+        off += sz
+    return acc.to(out_dtype)
+
+
 def wgrad_exact_ref(x, dy, group_sizes, *, num_groups=None,
                     out_dtype=torch.float32):
     """Oracle of the wgrad, ``dw[g] = x_g^T @ dy_g`` contracted in f32,

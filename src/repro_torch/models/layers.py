@@ -2,7 +2,8 @@
 
 Parameter names follow the JAX package's (``scale``, ``embedding``,
 ``lm_head``), so :mod:`repro_torch.convert` maps one tree onto the other.
-``mlp`` waits for a dense model family.
+``mlp`` is not ported: no ported model has a dense MLP.  It comes with the
+model zoo's dense families (ROADMAP A9), after flash attention.
 """
 from __future__ import annotations
 

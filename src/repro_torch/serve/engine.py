@@ -5,8 +5,10 @@ rows keep decoding into padding).
 ``kernel_config`` pins the prefill phase's tile shapes and
 ``decode_kernel_config`` the decode phase's; each phase runs a model
 rebuilt over its config, sharing one param tree.  With no decode config,
-decode reuses the prefill config (the JAX package selects one by
-autotuning, which is not ported yet).
+decode takes the prefill config with 16-row tiles, so the recipe
+switches (``fuse_producer``, ``wgrad_precision``) carry over and only the
+tile geometry is decode-specialized, as in the JAX package (which picks
+the tile by autotuning, not ported yet).
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a card
 it raises.  Everything runs under ``torch.inference_mode()``.
@@ -22,6 +24,10 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.plan import KernelConfig
 from repro_torch.models import model_zoo
 from repro_torch.models.model_zoo import Model
+
+
+#: the decode phase's M tile: a decode step routes batch x top_k rows
+DECODE_BLOCK_M = 16
 
 
 @dataclasses.dataclass
@@ -48,9 +54,10 @@ class Engine:
             model = model_zoo.with_kernel_config(model, kernel_config)
         self.model = model
         self.prefill_config = model.cfg.kernel_config
-        self.decode_config = (decode_kernel_config
-                              if decode_kernel_config is not None
-                              else self.prefill_config)
+        self.decode_config = (
+            decode_kernel_config if decode_kernel_config is not None
+            else (self.prefill_config or KernelConfig()).with_(
+                block_m=DECODE_BLOCK_M))
         self._decode_model = model_zoo.with_kernel_config(model,
                                                           self.decode_config)
         self.params = params

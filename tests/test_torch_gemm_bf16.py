@@ -1,0 +1,105 @@
+"""The port's plain bf16 grouped GEMM (B5) against the JAX package's Pallas
+kernel ``gmm_pallas_bf16`` (interpret mode on the CPU) and its
+reduction-order oracle ``gmm_bf16_xla_exact``.
+
+Both sum each 128-K block in f32, in another order inside the block: a
+bf16 output is held within one bf16 step (2^-7 of the value) plus 1e-4
+of the largest output, an f32 output within 1e-5 of the largest output.
+Rows >= sum(group_sizes) must be exactly zero.
+"""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels.dispatch import gmm_bf16_xla_exact
+from repro.kernels.grouped_gemm_kernel import gmm_pallas_bf16
+from repro_torch.convert import tensor_from_numpy
+from repro_torch.kernels import grouped_gemm_kernel as tgk
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.plan import make_tile_plan
+
+CASES = {
+    # name: (M, K, N, group sizes, block_m)
+    "ragged_tail": (100, 256, 256, [30, 0, 50, 7], 128),
+    "ragged_bm16": (70, 256, 256, [0, 16, 1, 33, 0, 20], 16),
+    "all_empty": (48, 128, 256, [0, 0, 0], 16),
+    "single_group": (40, 256, 128, [40], 128),
+}
+
+
+def operands(m, k, n, g, seed):
+    rng = np.random.default_rng(seed)
+    x = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((g, k, n)) * k ** -0.5, jnp.bfloat16)
+    return (x, w), (tensor_from_numpy(np.asarray(x)),
+                    tensor_from_numpy(np.asarray(w)))
+
+
+def max_rel(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = np.abs(want).max()
+    return float(np.abs(got - want).max() / scale) if scale else 0.0
+
+
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_gmm_bf16_matches_pallas(case, out):
+    m, k, n, sizes, bm = CASES[case]
+    (jx, jw), (tx, tw) = operands(m, k, n, len(sizes), 0)
+    jgs = jnp.array(sizes, jnp.int32)
+    want = gmm_pallas_bf16(jx, jw, jgs, block_m=bm, interpret=True,
+                           out_dtype=getattr(jnp, out))
+    want = np.asarray(want.astype(jnp.float32))
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    got = tgk.gmm_bf16(tx, tw, gs, block_m=bm, out_dtype=getattr(torch, out))
+    assert got.dtype == getattr(torch, out) and got.shape == (m, n)
+    total = sum(sizes)
+    assert (got[total:] == 0).all() and np.all(want[total:] == 0)
+    got = got.float().numpy()
+    if out == "bfloat16":
+        tol = np.abs(want) * 2.0 ** -7 + 1e-4 * np.abs(want).max() + 1e-30
+        assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
+    else:
+        assert max_rel(got, want) <= 1e-5
+    # the plain version is the port's copy of the reduction-order oracle
+    oracle = jax.jit(gmm_bf16_xla_exact, static_argnames="out_dtype")(
+        jx, jw, jgs, out_dtype=jnp.float32)
+    assert max_rel(tref.gmm_bf16_exact_ref(tx, tw, gs, out_dtype=torch.float32)
+                   .numpy(), np.asarray(oracle)) <= 1e-6
+
+
+def test_gmm_bf16_plan_out_and_empty_buffer():
+    m, k, n, sizes, bm = CASES["ragged_tail"]
+    _, (tx, tw) = operands(m, k, n, len(sizes), 1)
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    plan = make_tile_plan(gs, m, block_m=bm)
+    out = torch.full((m, n), float("nan"))
+    got = tgk.gmm_bf16(tx, tw, gs, block_m=bm, plan=plan,
+                       out_dtype=torch.float32, out=out)
+    assert got is out and not torch.isnan(out).any()
+    np.testing.assert_array_equal(
+        out.bfloat16().float().numpy(),
+        tgk.gmm_bf16(tx, tw, gs, block_m=bm).float().numpy())
+    # an empty buffer gives an empty result
+    z = tgk.gmm_bf16(tx[:0], tw, torch.zeros(4, dtype=torch.int32))
+    assert z.shape == (0, n) and z.dtype == torch.bfloat16
+
+
+def test_gmm_bf16_argument_checks():
+    _, (tx, tw) = operands(32, 256, 256, 2, 2)
+    gs = torch.tensor([16, 16], dtype=torch.int32)
+    with pytest.raises(ValueError, match="disagree on K"):
+        tgk.gmm_bf16(tx[:, :128].contiguous(), tw, gs)
+    with pytest.raises(ValueError, match="multiple of block_n"):
+        tgk.gmm_bf16(tx, tw[:, :, :100].contiguous(), gs)
+    plan = make_tile_plan(gs, 32, block_m=16)
+    with pytest.raises(ValueError, match="TilePlan built for"):
+        tgk.gmm_bf16(tx, tw, gs, block_m=128, plan=plan)
+    # a CPU tensor takes the plain version; the CUDA wrapper refuses it
+    with pytest.raises(ValueError, match="CUDA"):
+        tgk.gmm_bf16_cuda(tx, tw, gs)
+    before = tgk.gmm_bf16_cuda.launches
+    tgk.gmm_bf16(tx, tw, gs)
+    assert tgk.gmm_bf16_cuda.launches == before

@@ -155,8 +155,83 @@ def test_fp8_linear_layers_match_jax(layer):
         assert err <= 2e-2 * np.abs(want).max(), err
 
 
-def test_bf16_precision_not_ported():
+@pytest.mark.parametrize("layer", ["ffn", "ffn_gelu", "dense_ffn", "bf16",
+                                   "bf16_f32"])
+def test_ffn_and_bf16_layers_match_jax(layer):
+    """The producer-fused FFN (its gate/up GEMMs store fp8, the activation
+    dequantizes on load) and the bf16 grouped linear against the JAX
+    package's, forward.  The JAX bf16 layer runs XLA's ragged dot on the
+    CPU, the port the bf16 grouped GEMM's plain version: each output is
+    one f32 sum per element, so they agree to one bf16 step."""
+    rng = np.random.default_rng(6)
+    sizes = [20, 0, 37, 11]
+    m, k, f, n = 80, 256, 384, 256
+    x = jnp.asarray(rng.standard_normal((m, k)), jnp.bfloat16)
+    w1 = jnp.asarray(rng.standard_normal((4, k, f)) * k ** -0.5, jnp.bfloat16)
+    w2 = jnp.asarray(rng.standard_normal((4, k, f)) * k ** -0.5, jnp.bfloat16)
+    w3 = jnp.asarray(rng.standard_normal((4, f, n)) * f ** -0.5, jnp.bfloat16)
+    tx, tw1, tw2, tw3 = (tensor_from_numpy(np.asarray(v))
+                         for v in (x, w1, w2, w3))
+    jgs = jnp.array(sizes, jnp.int32)
+    tgs = torch.tensor(sizes, dtype=torch.int32)
+    cfg = KernelConfig(block_m=16)
+    with events.capture() as evs, torch.inference_mode():
+        if layer == "ffn":
+            want = jax.jit(lambda *a: jgg.grouped_linear_ffn(
+                *a, jgs, config=_jcfg(block_m=16)))(x, w1, w2, w3)
+            got = tgg.grouped_linear_ffn(tx, tw1, tw2, tw3, tgs, config=cfg)
+        elif layer == "ffn_gelu":
+            # unary: w_up is the single projection
+            want = jax.jit(lambda x, w, wd: jgg.grouped_linear_ffn(
+                x, None, w, wd, jgs, act="gelu",
+                config=_jcfg(block_m=16)))(x, w2, w3)
+            got = tgg.grouped_linear_ffn(tx, None, tw2, tw3, tgs, act="gelu",
+                                         config=cfg)
+        elif layer == "dense_ffn":
+            want = jax.jit(lambda *a: jgg.dense_ffn_fp8(
+                *a, config=_jcfg(), out_dtype=jnp.float32))(
+                    x, w1[0], w2[0], w3[0])
+            got = tgg.dense_ffn_fp8(tx, tw1[0], tw2[0], tw3[0],
+                                    out_dtype=torch.float32)
+        else:
+            out = jnp.float32 if layer == "bf16_f32" else None
+            want = jax.jit(lambda x, w: jgg.grouped_linear(
+                x, w, jgs, precision="bf16", out_dtype=out))(x, w1)
+            got = tgg.grouped_linear(
+                tx, tw1, tgs, precision="bf16", config=cfg,
+                out_dtype=None if out is None else torch.float32)
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == want.shape
+    assert got.dtype == (torch.float32 if layer in ("dense_ffn", "bf16_f32")
+                         else torch.bfloat16)
+    if layer != "dense_ffn":
+        assert (got[sum(sizes):] == 0).all()
+    if layer.startswith("bf16"):
+        assert_close_bf16(got.float().numpy(), want)
+        assert events.count(evs, "quantize_tilewise") == 0
+    else:
+        # the FFN quantizes x once; its fused epilogue may sit one e4m3
+        # step off on a few elements of h, as grouped_linear_fused's
+        err = np.abs(got.float().numpy() - want).max()
+        assert err <= 2e-2 * np.abs(want).max(), err
+        assert events.count(evs, "quantize_tilewise") == 1
+    assert events.count(evs, "plan_build") == 1
+
+
+def test_bf16_precision_argument_checks():
     x = torch.zeros((8, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgg.grouped_linear(x, torch.zeros((1, 128, 128)),
-                           torch.tensor([8], dtype=torch.int32))
+    w = torch.zeros((1, 128, 128))
+    gs = torch.tensor([8], dtype=torch.int32)
+    from repro_torch.core.quantization import quantize_activation
+    with pytest.raises(ValueError, match="never quantizes"):
+        tgg.grouped_linear(x, w, gs, precision="bf16",
+                           quantized=quantize_activation(x))
+    with pytest.raises(ValueError, match="wgrad_precision='fp8'"):
+        tgg.grouped_linear(x, w, gs, precision="bf16",
+                           config=KernelConfig(wgrad_precision="fp8"))
+    with pytest.raises(ValueError, match="unknown precision"):
+        tgg.grouped_linear(x, w, gs, precision="int4")
+    with pytest.raises(ValueError, match="needs both w_gate and w_up"):
+        tgg.grouped_linear_ffn(x, None, w, w, gs)
+    with pytest.raises(ValueError, match="unary"):
+        tgg.grouped_linear_ffn(x, w, w, w, gs, act="gelu")

@@ -25,9 +25,11 @@ DIMS = dict(num_experts=8, top_k=2, d_model=256, d_ff_expert=128,
             num_shared_experts=2)
 
 
-def _run(block_m, tokens, seed):
-    jcfg = jmoe.MoEConfig(**DIMS, precision="fp8", backend="pallas_interpret",
-                          kernel_config=JConfig(block_m=block_m))
+def _run(block_m, tokens, seed, precision="fp8", fuse_producer=False):
+    jcfg = jmoe.MoEConfig(**DIMS, precision=precision,
+                          backend="pallas_interpret",
+                          kernel_config=JConfig(block_m=block_m,
+                                                fuse_producer=fuse_producer))
     params = jmoe.init_moe_params(jax.random.PRNGKey(seed), jcfg,
                                   dtype=jnp.bfloat16)
     x = np.random.default_rng(seed).standard_normal(
@@ -37,8 +39,9 @@ def _run(block_m, tokens, seed):
     probs = jax.nn.softmax(jx.astype(jnp.float32) @ params["router"], -1)
     _, jids = jax.lax.top_k(probs, DIMS["top_k"])
 
-    tcfg = tmoe.MoEConfig(**DIMS, precision="fp8",
-                          kernel_config=KernelConfig(block_m=block_m))
+    tcfg = tmoe.MoEConfig(**DIMS, precision=precision,
+                          kernel_config=KernelConfig(
+                              block_m=block_m, fuse_producer=fuse_producer))
     tparams = tree_from_numpy(jax.tree.map(np.asarray, params))
     tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).bfloat16()
     with events.capture() as evs, torch.inference_mode():
@@ -66,13 +69,37 @@ def test_moe_apply_matches_jax(block_m, tokens):
         == [(tokens * DIMS["top_k"], 256), (tokens, 256)]
 
 
+@pytest.mark.parametrize("block_m,tokens", [(128, 32), (16, 8)])
+@pytest.mark.parametrize("variant", ["fp8_fused", "bf16"])
+def test_moe_apply_variants_match_jax(variant, block_m, tokens):
+    """The producer-fused fp8 recipe and the bf16 recipe against the JAX
+    package's.  Fused: the gate/up GEMMs emit fp8, so the FFN runs one
+    standalone quantization per expert FFN, xs and the shared x.  bf16:
+    no quantization at all; silu(g) * u in bf16 with one rounding per
+    operation, as the reference; the bf16 GEMMs agree to one bf16 step,
+    so the bound is the fp8 path's or tighter."""
+    fused = variant == "fp8_fused"
+    want, jaux, jids, got, taux, evs = _run(
+        block_m, tokens, seed=tokens + 1,
+        precision="fp8" if fused else "bf16", fuse_producer=fused)
+    np.testing.assert_array_equal(taux["expert_ids"].numpy(), jids)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    want = np.asarray(want.astype(jnp.float32))
+    err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    assert err <= (2e-2 if fused else 1e-2), err
+    shapes = [e.data["shape"] for e in events.of_kind(evs,
+                                                      "quantize_tilewise")]
+    assert shapes == ([(tokens * DIMS["top_k"], 256), (tokens, 256)]
+                      if fused else [])
+    # the routed experts' plan; the bf16 shared experts are plain matmuls
+    assert events.count(evs, "plan_build") == (2 if fused else 1)
+
+
 def test_unported_modes_raise():
     cfg = tmoe.MoEConfig(**DIMS)
     x = torch.zeros((4, 256))
-    for bad, item in ((dataclasses.replace(cfg, dispatch="dense"), "A6"),
-                      (dataclasses.replace(cfg, precision="bf16"), "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            tmoe.moe_apply({}, x, bad)
+    with pytest.raises(NotImplementedError, match="A6"):
+        tmoe.moe_apply({}, x, dataclasses.replace(cfg, dispatch="dense"))
     with pytest.raises(NotImplementedError, match="A15"):
         tmoe.moe_apply({}, x, cfg, ep_size=2)
     assert tmoe._capacity(96, 1, 2.0) == 96

@@ -120,9 +120,14 @@ def test_act_quantize_within_one_e4m3_step(act, dtype):
 
 def test_act_quantize_argument_checks():
     g = torch.zeros((8, 128))
-    with pytest.raises(NotImplementedError, match="fused-producer"):
-        epilogue_kernel.act_quantize(g, g, s_g=torch.ones((8, 1)),
-                                     s_u=torch.ones((8, 1)))
+    s = torch.ones((8, 1))
+    # the fp8-input mode's checks, the reference's ValueErrors
+    with pytest.raises(ValueError, match="scales for both operands"):
+        epilogue_kernel.act_quantize(g, g, s_g=s)
+    with pytest.raises(ValueError, match="s_u without s_g"):
+        epilogue_kernel.act_quantize(g, g, s_u=s)
+    with pytest.raises(ValueError, match="need 1x128 scales"):
+        epilogue_kernel.act_quantize(g, g, s_g=torch.ones((8, 2)), s_u=s)
     with pytest.raises(ValueError, match="needs both"):
         epilogue_kernel.act_quantize(g, None, act="silu_mul")
     with pytest.raises(ValueError, match="unary"):

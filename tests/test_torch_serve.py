@@ -11,7 +11,15 @@ such an ulp into whole e4m3 steps on some elements, in the JAX package
 as much as in the port (one e4m3 step is up to 2^-3 of a value).  So the
 logits are held within 10% of the largest logit and the greedy tokens
 must be equal at the seed; each module is held much tighter in its own
-test file.
+test file.  The bf16 configuration is held at the same bounds.  The
+producer-fused fp8 configuration rounds the gate/up outputs to e4m3 as
+well, so an ulp apart upstream flips whole e4m3 steps of g and u too:
+its MoE layer equals the JAX package's on equal inputs
+(``tests/test_torch_moe.py``), but through the model its logits sit up
+to 16.5% of the largest logit apart at this seed (fp8: under 5%), and a
+near-tie can flip a greedy choice.  It is held at 20%, and its greedy
+tokens are checked against the JAX package's logits on the same tokens:
+each is JAX's argmax or within that bound of it.
 """
 import dataclasses
 import functools
@@ -29,11 +37,13 @@ from repro.serve.engine import Engine as JEngine
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.plan import KernelConfig
+from repro_torch.models import model_zoo
 from repro_torch.models.model_zoo import make_model
 from repro_torch.serve.engine import Engine
 
 BATCH, PROMPT, NEW = 2, 16, 6
 TOL = 0.1
+TOL_FUSED = 0.2
 
 
 @pytest.fixture(scope="module")
@@ -51,11 +61,11 @@ def pair():
     return jmodel, jparams, model, params, tokens
 
 
-def check_logits(got, want):
+def check_logits(got, want, tol=TOL):
     got = got.float().numpy()
     want = np.asarray(jnp.asarray(want, jnp.float32))
     err = float(np.abs(got - want).max() / np.abs(want).max())
-    assert err <= TOL, err
+    assert err <= tol, err
 
 
 def test_prefill_and_teacher_forced_decode_logits(pair):
@@ -120,6 +130,117 @@ def test_entry_points_need_a_card_or_cpu(pair, monkeypatch):
     with pytest.raises(ValueError, match="params live on"):
         Engine(model, {"final_norm": {"scale": torch.ones(1, device="meta")}},
                device="cpu")
+
+
+@pytest.fixture(scope="module", params=["fp8_fused", "bf16"])
+def variant_pair(request):
+    """The smoke model in the producer-fused fp8 or the bf16 configuration,
+    in both packages, on the same params."""
+    fused = request.param == "fp8_fused"
+    prec = "fp8" if fused else "bf16"
+    jcfg = dataclasses.replace(
+        jax_smoke_config("qwen2-moe-a2.7b"), precision=prec,
+        gemm_backend="pallas_interpret",
+        kernel_config=JConfig(fuse_producer=True) if fused else None)
+    jmodel = jzoo.make_model(jcfg)
+    jparams = jmodel.init_params(jax.random.PRNGKey(0))
+    cfg = dataclasses.replace(
+        smoke_config("qwen2-moe-a2.7b"), precision=prec,
+        kernel_config=KernelConfig(fuse_producer=True) if fused else None)
+    model = make_model(cfg, "cpu")
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                               (BATCH, PROMPT))
+    return fused, jmodel, jparams, model, params, tokens
+
+
+def test_variant_prefill_and_decode_logits(variant_pair):
+    fused, jmodel, jparams, model, params, tokens = variant_pair
+    cap = PROMPT + NEW
+    jdec = jzoo.with_kernel_config(
+        jmodel, JConfig(block_m=16, backend="pallas_interpret",
+                        fuse_producer=fused))
+    jl, jcache = jax.jit(functools.partial(jmodel.prefill,
+                                           cache_capacity=cap))(
+        jparams, {"tokens": jnp.asarray(tokens, jnp.int32)})
+    jstep = jax.jit(jdec.decode_step)
+    # no tile configs: decode derives 16-row tiles from the model's config
+    engine = Engine(model, params, max_new_tokens=NEW, device="cpu")
+    assert engine.decode_config.block_m == 16
+    assert engine.decode_config.fuse_producer == fused
+    tol = TOL_FUSED if fused else TOL
+    with torch.inference_mode():
+        tl, tcache = engine.prefill({"tokens": torch.from_numpy(tokens)}, cap)
+        check_logits(tl, jl[:, -1], tol)
+        forced = np.random.default_rng(2).integers(0, 512, (NEW - 1, BATCH))
+        for tok in forced:
+            jl, jcache = jstep(jparams, jnp.asarray(tok[:, None], jnp.int32),
+                               jcache)
+            tl, tcache = engine.decode_step(torch.from_numpy(tok), tcache)
+            check_logits(tl, jl[:, 0], tol)
+
+
+def test_variant_greedy_generate_matches(variant_pair):
+    fused, jmodel, jparams, model, params, tokens = variant_pair
+    res = Engine(model, params, max_new_tokens=NEW, device="cpu").generate(
+        {"tokens": torch.from_numpy(tokens)})
+    got = res.tokens.numpy()
+    assert got.shape == (BATCH, NEW)
+    jdec = jzoo.with_kernel_config(
+        jmodel, JConfig(block_m=16, backend="pallas_interpret",
+                        fuse_producer=fused))
+    if not fused:
+        jengine = JEngine(jmodel, jparams, max_new_tokens=NEW,
+                          decode_kernel_config=jdec.cfg.kernel_config)
+        want = jengine.generate({"tokens": jnp.asarray(tokens, jnp.int32)},
+                                key=jax.random.PRNGKey(0)).tokens
+        np.testing.assert_array_equal(got, np.asarray(want))
+        return
+    # the JAX package's logits on the port's own tokens: each greedy
+    # choice is JAX's argmax, or within the fused bound of it
+    jl, jcache = jax.jit(functools.partial(
+        jmodel.prefill, cache_capacity=PROMPT + NEW))(
+            jparams, {"tokens": jnp.asarray(tokens, jnp.int32)})
+    jl = jl[:, -1]
+    jstep = jax.jit(jdec.decode_step)
+    for i in range(NEW):
+        lg = np.asarray(jnp.asarray(jl, jnp.float32))
+        chosen = lg[np.arange(BATCH), got[:, i]]
+        assert np.all(chosen >= lg.max(-1) - TOL_FUSED * np.abs(lg).max()), i
+        if i == 0:
+            np.testing.assert_array_equal(got[:, 0], lg.argmax(-1))
+        jl, jcache = jstep(jparams, jnp.asarray(got[:, i:i + 1], jnp.int32),
+                           jcache)
+        jl = jl[:, 0]
+
+
+def test_fused_engine_decodes_through_the_quantizing_gemm(pair, monkeypatch):
+    """A fused-producer Engine given no decode config decodes with 16-row
+    tiles through the quantizing GEMM (B7); an explicit decode config is
+    taken as it is."""
+    from repro_torch.kernels import grouped_gemm_kernel
+    _, _, model, params, tokens = pair
+    fused = model_zoo.with_kernel_config(model, KernelConfig(fuse_producer=True))
+    seen = []
+    real = grouped_gemm_kernel.gmm_quant
+
+    def spy(*args, **kw):
+        seen.append(kw["block_m"])
+        return real(*args, **kw)
+    monkeypatch.setattr(grouped_gemm_kernel, "gmm_quant", spy)
+    engine = Engine(fused, params, max_new_tokens=2, device="cpu")
+    assert engine.decode_config == KernelConfig(block_m=16,
+                                                fuse_producer=True)
+    with torch.inference_mode():
+        _, cache = engine.prefill({"tokens": torch.from_numpy(tokens)},
+                                  PROMPT + 2)
+        n_prefill = len(seen)
+        engine.decode_step(torch.zeros(BATCH, dtype=torch.int64), cache)
+    # routed + shared gate/up in each of the 2 layers, per forward
+    assert seen == [128] * n_prefill + [16] * 8 and n_prefill == 8
+    pinned = Engine(fused, params, device="cpu",
+                    decode_kernel_config=KernelConfig(block_m=16))
+    assert not pinned.decode_config.fuse_producer
 
 
 def test_configs():
