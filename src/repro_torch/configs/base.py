@@ -1,9 +1,12 @@
 """Model configuration dataclasses of the port, with torch dtypes.
 
 The fields carry the names of the JAX package's ``ModelConfig``; those
-this slice does not use (recurrent, encoder and vision fields, the
-attention and MoE-dispatch backends, distribution switches) are left out
-until a slice ports what reads them.
+the port does not read yet (recurrent, encoder and vision fields, the
+MoE-dispatch backend, remat and scan switches, distribution switches) are
+left out until a slice ports what reads them.  ``attn_backend`` picks the
+prefill and training attention: ``"chunked"`` (plain PyTorch) or
+``"flash"`` (the flash-attention kernel, taken where the layer has no
+window and S % 128 == 0, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -50,20 +53,29 @@ class ModelConfig:
     # tile shapes of every grouped GEMM; None = KernelConfig()
     kernel_config: Optional[KernelConfig] = None
     attn_chunk: int = 512
+    attn_backend: str = "chunked"      # "chunked" | "flash"
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
     def param_count(self) -> int:
-        """Parameter count of an attention + MoE decoder."""
+        """Parameter count of a decoder of attention blocks, each with MoE
+        (``moe``) or a dense SwiGLU MLP (``d_ff``): the number of elements
+        in the param tree."""
         d, hd = self.d_model, self.resolved_head_dim
         attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) \
             + hd * self.num_heads * d
         if self.qkv_bias:
             attn += hd * (self.num_heads + 2 * self.num_kv_heads)
+        if self.qk_norm:
+            attn += 2 * hd
         m = self.moe
-        ff = 3 * d * m.d_ff_expert * (m.num_experts + m.num_shared_experts) \
-            + d * m.num_experts
+        if m is not None:
+            ff = 3 * d * m.d_ff_expert * (m.num_experts
+                                          + m.num_shared_experts) \
+                + d * m.num_experts
+        else:
+            ff = 3 * d * self.d_ff
         emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return self.num_layers * (attn + ff + 2 * d) + emb + d

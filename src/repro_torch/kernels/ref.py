@@ -1,4 +1,5 @@
-"""Plain PyTorch oracles for the quantizers and the grouped GEMM.
+"""Plain PyTorch oracles for the quantizers, the grouped GEMM and
+attention.
 
 Quantization scheme follows the paper (= DeepSeek-V3):
   * ``A``  fp8 e4m3, one scale per 1x128 tile:   S_A[m, ceil(K/128)]  (f32)
@@ -209,3 +210,32 @@ def wgrad_fp8_exact_ref(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
                            dequantize_tilewise_ref(dy_fp8, s_dy),
                            group_sizes, num_groups=num_groups,
                            out_dtype=out_dtype)
+
+
+#: the score of a masked (q, k) pair: finite, so ``exp(s - m)`` underflows
+#: to 0 instead of making NaN from ``-inf - -inf``
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """Oracle of flash attention, the JAX package's
+    ``flash_attention_ref``: f32 scores ``q k^T * D**-0.5``, ``NEG_INF``
+    above the diagonal when ``causal``, softmax, ``p @ v``, cast to q's
+    dtype.
+
+    q [B, Hq, S, D], k/v [B, Hkv, Sk, D] with Hq % Hkv == 0: q-head ``h``
+    reads kv-head ``h // (Hq/Hkv)`` (``repeat_interleave``, as the JAX
+    package's ``jnp.repeat``; ``Tensor.repeat`` would map ``h`` to ``h %
+    Hkv``).
+    """
+    s, d = q.shape[2], q.shape[3]
+    g = q.shape[1] // k.shape[1]
+    kx = torch.repeat_interleave(k, g, dim=1).float()
+    vx = torch.repeat_interleave(v, g, dim=1).float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * d ** -0.5
+    if causal:
+        mask = torch.ones((s, k.shape[2]), dtype=torch.bool,
+                          device=q.device).tril()
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)

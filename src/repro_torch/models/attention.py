@@ -1,11 +1,14 @@
 """Attention: GQA with RoPE, optional qk-norm and QKV bias; chunked
-online-softmax attention for prefill and a single-step decode path
-against a KV cache.
+online-softmax attention or the flash-attention kernel for prefill and
+training, and a single-step decode path against a KV cache.
 
 ``chunked_attention`` repeats the JAX package's online-softmax math in
 plain tensor ops (not ``scaled_dot_product_attention``), so the two
-agree; the flash kernel comes in a later slice.  The sliding-window
-branches are not ported (no ported model has a window).
+agree.  With ``cfg.attn_backend == "flash"``, a layer without a window
+and S % 128 == 0 runs :func:`~repro_torch.kernels.flash_attention_kernel.
+flash_attention_trainable` instead, under the JAX package's condition;
+any other prefill, and every decode step, keeps the plain paths.  The
+sliding-window branches are not ported (no ported model has a window).
 """
 from __future__ import annotations
 
@@ -13,9 +16,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.flash_attention_kernel import \
+    flash_attention_trainable
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import init_rms_norm, ninit, rms_norm, rope
-
-NEG_INF = -1e30
 
 
 def init_attention(cfg, dtype, *, generator, device):
@@ -160,9 +164,17 @@ def attention_block(p, x, cfg, positions, *, cache=None, layer_window=None,
     hq, hd = cfg.num_heads, cfg.resolved_head_dim
     if cache is None:
         q, k, v = _project_qkv(p, x, cfg, positions)
-        out = chunked_attention(q, k, v, causal=causal, window=layer_window,
-                                chunk=cfg.attn_chunk, q_offset=pos_offset,
-                                k_offset=pos_offset)
+        if (cfg.attn_backend == "flash" and layer_window is None
+                and s % 128 == 0):
+            # the kernel takes [B, H, S, D], contiguous
+            out = flash_attention_trainable(
+                *(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+                causal).transpose(1, 2)
+        else:
+            out = chunked_attention(q, k, v, causal=causal,
+                                    window=layer_window,
+                                    chunk=cfg.attn_chunk,
+                                    q_offset=pos_offset, k_offset=pos_offset)
         new_cache = (_cache_from_prefill(k, v, layer_window, cache_capacity)
                      if mode == "prefill" else None)
     else:

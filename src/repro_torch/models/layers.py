@@ -1,13 +1,16 @@
 """Shared model building blocks on plain dicts of tensors.
 
 Parameter names follow the JAX package's (``scale``, ``embedding``,
-``lm_head``), so :mod:`repro_torch.convert` maps one tree onto the other.
-``mlp`` is not ported: no ported model has a dense MLP.  It comes with the
-model zoo's dense families (ROADMAP A9), after flash attention.
+``lm_head``, ``w_gate``/``w_up``/``w_down``), so :mod:`repro_torch.convert`
+maps one tree onto the other.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.core.grouped_gemm import (dense_ffn_fp8, dense_linear_fp8,
+                                           dense_linear_fp8_fused)
 
 
 def ninit(shape, scale, dtype, *, generator: torch.Generator, device):
@@ -39,6 +42,65 @@ def rope(x, positions, theta: float):
     xf1, xf2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def linear(x, w, *, precision: str = "bf16", config=None):
+    """2-D weight product, with the DeepSeek-style fp8 path (the G=1 case
+    of the grouped GEMM) where both widths are multiples of 128; otherwise
+    a plain ``torch.matmul`` in x's dtype, as the JAX package leaves it to
+    XLA.  ``config``: the :class:`~repro_torch.kernels.plan.KernelConfig`
+    of the tile shapes."""
+    if precision == "fp8" and x.shape[-1] % 128 == 0 \
+            and w.shape[-1] % 128 == 0:
+        lead = x.shape[:-1]
+        y = dense_linear_fp8(x.reshape(-1, x.shape[-1]), w, config=config)
+        return y.reshape(*lead, w.shape[-1]).to(x.dtype)
+    return x @ w.to(x.dtype)
+
+
+def init_mlp(d, f, act: str, dtype, *, generator, device):
+    kw = dict(generator=generator, device=device)
+    p = {"w_up": ninit((d, f), d ** -0.5, dtype, **kw),
+         "w_down": ninit((f, d), f ** -0.5, dtype, **kw)}
+    if act == "swiglu":
+        p["w_gate"] = ninit((d, f), d ** -0.5, dtype, **kw)
+    return p
+
+
+def mlp(p, x, act: str = "swiglu", *, precision="bf16", config=None):
+    """SwiGLU (``silu(x w_gate) * (x w_up)``) or tanh-GELU MLP, then
+    ``w_down``.  fp8 with 128-multiple widths: the activation and its
+    1x128 quantization run fused into the down GEMM's input; with
+    ``config.fuse_producer`` the gate/up GEMMs store fp8 themselves.
+    bf16: the activation in x's dtype, one rounding per operation, as the
+    reference's."""
+    f, d_out = p["w_down"].shape
+    if (precision == "fp8" and config is not None and config.fuse_producer
+            and x.shape[-1] % 128 == 0 and f % 128 == 0 and d_out % 128 == 0):
+        # producer-fused FFN: one quantization of x, nothing wider than
+        # fp8 between the three GEMMs
+        gate = p["w_gate"] if act == "swiglu" else None
+        y = dense_ffn_fp8(x, gate, p["w_up"], p["w_down"],
+                          act="silu_mul" if act == "swiglu" else "gelu",
+                          config=config)
+        return y.to(x.dtype)
+    up = linear(x, p["w_up"], precision=precision, config=config)
+    fused = precision == "fp8" and f % 128 == 0 and d_out % 128 == 0
+    if act == "swiglu":
+        gate = linear(x, p["w_gate"], precision=precision, config=config)
+        if fused:
+            # fused activation-quantize epilogue: h never materializes
+            y = dense_linear_fp8_fused(gate, up, p["w_down"], act="silu_mul",
+                                       config=config)
+            return y.to(x.dtype)
+        h = gate * torch.sigmoid(gate) * up
+    else:  # gelu
+        if fused:
+            y = dense_linear_fp8_fused(up, None, p["w_down"], act="gelu",
+                                       config=config)
+            return y.to(x.dtype)
+        h = F.gelu(up, approximate="tanh")
+    return linear(h, p["w_down"], precision=precision, config=config)
 
 
 def init_embedding(vocab, d, dtype, tie: bool, *, generator, device):

@@ -29,9 +29,11 @@ class Model:
 
 def make_model(cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
-    if cfg.moe is None or cfg.family != "moe":
-        raise NotImplementedError(f"{cfg.name}: only the MoE decoder family "
-                                  "is ported (ROADMAP A9, A14)")
+    if not ((cfg.family == "moe" and cfg.moe is not None)
+            or (cfg.family == "dense" and cfg.moe is None and cfg.d_ff)):
+        raise NotImplementedError(f"{cfg.name}: only the MoE and dense "
+                                  "decoder families are ported (ROADMAP A9, "
+                                  "A14)")
 
     def init_params(generator: torch.Generator):
         return tfm.init_decoder(cfg, generator=generator, device=dev)

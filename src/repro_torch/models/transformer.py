@@ -1,11 +1,13 @@
-"""Decoder LM of attention + MoE blocks.
+"""Decoder LM of attention blocks, each with MoE or a dense MLP.
 
 The JAX package scans over stacked layer params; here ``params["layers"]``
 is a list of per-layer dicts and the scan is a Python loop.  Modes:
 "train" (differentiable: :func:`lm_loss` trains through it), "prefill"
 (returns per-layer caches), "decode" (one token against the caches,
 updated in place).
-Only the ``("attn",)`` block pattern with MoE in every layer is ported.
+Only the ``("attn",)`` block pattern is ported, with MoE in every layer
+(``cfg.moe``) or a dense SwiGLU MLP in every layer (``cfg.d_ff``, the
+dense family).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import MoEConfig, init_moe_params, moe_apply
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
-                                       init_rms_norm, rms_norm, unembed)
+                                       init_mlp, init_rms_norm, mlp,
+                                       rms_norm, unembed)
 
 
 def moe_config(cfg: ModelConfig) -> MoEConfig:
@@ -30,21 +33,28 @@ def moe_config(cfg: ModelConfig) -> MoEConfig:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if tuple(cfg.block_pattern) != ("attn",) or cfg.moe is None \
-            or cfg.moe.first_dense_layers or cfg.d_ff:
+    moe_ok = cfg.moe is not None and not cfg.moe.first_dense_layers \
+        and not cfg.d_ff
+    dense_ok = cfg.moe is None and cfg.d_ff > 0
+    if tuple(cfg.block_pattern) != ("attn",) or not (moe_ok or dense_ok):
         raise NotImplementedError(
-            f"{cfg.name}: only decoders of attention + MoE blocks in every "
-            "layer are ported (dense MLPs and other blocks: ROADMAP A9, A14)")
+            f"{cfg.name}: only decoders of attention blocks, each with MoE "
+            "or a dense MLP, are ported (other blocks: ROADMAP A9, A14)")
 
 
 def init_block(cfg: ModelConfig, *, generator, device):
     d = cfg.d_model
-    return {"ln1": init_rms_norm(d, device=device),
-            "ln2": init_rms_norm(d, device=device),
-            "attn": attn.init_attention(cfg, cfg.dtype, generator=generator,
-                                        device=device),
-            "moe": init_moe_params(moe_config(cfg), generator=generator,
-                                   device=device, dtype=cfg.dtype)}
+    p = {"ln1": init_rms_norm(d, device=device),
+         "ln2": init_rms_norm(d, device=device),
+         "attn": attn.init_attention(cfg, cfg.dtype, generator=generator,
+                                     device=device)}
+    if cfg.moe is not None:
+        p["moe"] = init_moe_params(moe_config(cfg), generator=generator,
+                                   device=device, dtype=cfg.dtype)
+    else:
+        p["mlp"] = init_mlp(d, cfg.d_ff, "swiglu", cfg.dtype,
+                            generator=generator, device=device)
+    return p
 
 
 def block_apply(p, x, cfg: ModelConfig, positions, *, cache=None,
@@ -56,6 +66,11 @@ def block_apply(p, x, cfg: ModelConfig, positions, *, cache=None,
         cache_capacity=cache_capacity, pos_offset=pos_offset)
     x = x + h
     h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+    if "moe" not in p:
+        ff = mlp(p["mlp"], h2, "swiglu", precision=cfg.precision,
+                 config=cfg.kernel_config)
+        return x + ff, new_cache, torch.zeros((), dtype=torch.float32,
+                                              device=x.device)
     b, s, d = h2.shape
     ff, aux = moe_apply(p["moe"], h2.reshape(b * s, d), moe_config(cfg))
     return x + ff.reshape(b, s, d), new_cache, aux["load_balance_loss"]

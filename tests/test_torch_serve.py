@@ -248,6 +248,6 @@ def test_configs():
     assert cfg.precision == "fp8" and cfg.num_layers == 24
     assert abs(cfg.param_count() - 14.3e9) < 0.05e9
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("qwen3-1.7b")
+        get_config("yi-9b")
     with pytest.raises(KeyError):
         get_config("gpt-5")
