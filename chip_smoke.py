@@ -69,7 +69,8 @@ L2_BYTES = 50 * 2 ** 20         # H100 L2 cache
 # profiler kernel names -> category, first match wins
 KERNEL_CATEGORIES = (
     ("flash attention", ("flash_attention_kernel",)),
-    ("grouped GEMMs (gmm, gmm_quant, gmm_bf16)", ("gmm_kernel",)),
+    ("grouped GEMMs (gmm, gmm_quant, gmm_bf16)", ("gmm_kernel",
+                                                  "gmm_bf16_tma_kernel")),
     ("wgrad", ("wgrad_kernel",)),
     ("quantize + act_quantize", ("quantize_tilewise_kernel",
                                  "act_quantize_kernel")),
@@ -92,7 +93,7 @@ SOURCES = {
     "act_quantize_fp8": "src/repro_torch/kernels/csrc/act_quant.cu",
     "gmm": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
     "gmm_quant": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
-    "gmm_bf16": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+    "gmm_bf16": "src/repro_torch/kernels/csrc/gmm_bf16.cu",
     "wgrad": "src/repro_torch/kernels/csrc/wgrad.cu",
     "wgrad_fp8": "src/repro_torch/kernels/csrc/wgrad.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -375,6 +376,15 @@ def ragged_sizes(gen, m, g, total, empty):
     return sizes.to(torch.int32)
 
 
+def routed_sizes(gen, tokens, top_k, g):
+    """Group sizes as the router draws them: each of ``tokens`` tokens
+    sends its row to ``top_k`` distinct experts of ``g``."""
+    import torch
+    picks = torch.stack([torch.randperm(g, generator=gen)[:top_k]
+                         for _ in range(tokens)])
+    return torch.bincount(picks.flatten(), minlength=g).to(torch.int32)
+
+
 def gemm_case(gen, m, k, n, sizes, block_m, out_dtype):
     import torch
     from repro_torch.kernels import ref
@@ -610,13 +620,18 @@ def check_gemm_quant(gen, cases):
     return out
 
 
-def bf16_case(gen, m, k, n, sizes, block_m, out_dtype):
+def bf16_case(gen, m, k, n, sizes, block_m, out_dtype, k_major=False):
+    """Operands of one B5 call; ``k_major``: w is ``transpose(1, 2)`` of a
+    contiguous [G, N, K], as the bf16 dgrad hands it over."""
     import torch
     from repro_torch.kernels.plan import make_tile_plan
     g = sizes.numel()
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
-    w = (torch.randn((g, k, n), generator=gen, device="cuda")
+    shape = (g, n, k) if k_major else (g, k, n)
+    w = (torch.randn(shape, generator=gen, device="cuda")
          * k ** -0.5).bfloat16()
+    if k_major:
+        w = w.transpose(1, 2)
     gs = sizes.cuda()
     plan = make_tile_plan(gs, m, block_m=block_m, num_groups=g)
     kw = dict(num_groups=g, block_m=block_m, out_dtype=out_dtype, plan=plan)
@@ -657,9 +672,17 @@ def compare_gemm_bf16(name, args, kw, plan, *, nan_out=False):
     return {"case": name, "shape": [m, x.shape[1], n], "groups": w.shape[0],
             "total_rows": total, "block_m": kw["block_m"],
             "out_dtype": str(kw["out_dtype"]),
+            "w_layout": "K-contiguous" if gk.weight_layout(w) else
+            "N-contiguous",
             "max_abs_err": float(err.max()) if err.numel() else 0.0,
             "rel_to_max": float(err.max()) / scale if scale else 0.0,
             "mismatches": int((err > 0).sum())}
+
+
+# B5's timed cases (bf16_cases below) and their timing keys
+BF16_TIMED = (("prefill_gate", "gmm_bf16"), ("train_gate_up", "gmm_bf16_train"),
+              ("decode_gate", "gmm_bf16_decode"),
+              ("train_dgrad_gate_up_f32_wT", "gmm_bf16_dgrad"))
 
 
 # flash attention: the shapes checked (the MoE serve prefill, the qwen3
@@ -762,7 +785,7 @@ def time_flash(gen, worst):
         # max|v|
         vmax = float(ins[0][2].float().abs().max())
         lib_ms, note = library_call(
-            lambda: sdpa(0), fk.flash_attention_plain(*ins[0]),
+            sdpa, fk.flash_attention_plain(*ins[0]),
             lambda w: w.abs() * 2.0 ** -7 + 2.0 ** -8 * vmax)
         lib_eager = lib_ms
         if lib_ms is not None:
@@ -797,13 +820,14 @@ def time_flash(gen, worst):
 
 
 def library_call(fn, want, tol_fn):
-    """Time ``fn()``, the one PyTorch call computing a kernel's function,
-    after checking it against ``want`` (the plain version's output).
+    """Time ``fn(i)`` (call ``i``), the one PyTorch call computing a
+    kernel's function, after checking ``fn(0)`` against ``want`` (the
+    plain version's output).
     Returns ``(ms, note)``; ``ms`` is None with the reason where the call
     raises or computes something else."""
     import torch
     try:
-        got = fn()
+        got = fn(0)
         torch.cuda.synchronize()
     except Exception as exc:                   # noqa: BLE001 - recorded
         return None, f"{type(exc).__name__}: " + \
@@ -816,13 +840,18 @@ def library_call(fn, want, tol_fn):
     if bad:
         return None, (f"computes something else: {bad} elements beyond the "
                       f"kernel's tolerance (max err {float(err.max())})")
-    return cuda_ms(lambda i: fn(), iters=10), "matches the plain version"
+    return cuda_ms(fn, iters=10), "matches the plain version"
 
 
-def phase_library(gmm_setup, wgrad_setup, bf16_setup):
+def phase_library(gmm_setup, wgrad_setup, bf16_setups):
     """The library column: ``F.scaled_grouped_mm`` (1x128 A, 128x128 B,
     ``offs``) for the fp8 grouped GEMM, ``F.grouped_mm(x, w, offs=...)``
-    for the bf16 grouped GEMM (owned rows only: it has no tail),
+    for the bf16 grouped GEMM (owned rows only: it has no tail) at each
+    shape B5 is timed at (``bf16_setups``, by timing key: the routed
+    prefill, the training path's 16384 rows, decode with its weights
+    alternated between two copies as B5's time does, and the dgrad on
+    the K-contiguous ``w^T``, whose f32 output it may refuse; the training
+    path casts dx to bf16 at once, so bf16 output is what it consumes),
     ``F.grouped_mm(x.T, dy, offs=...)`` for the bf16 wgrad; no single
     PyTorch call computes the quantizers, the fused activation quantizer,
     the quantizing GEMM or the wgrad on fp8 operands whose scales run
@@ -843,7 +872,7 @@ def phase_library(gmm_setup, wgrad_setup, bf16_setup):
     if hasattr(F, "scaled_grouped_mm"):
         st = F.ScalingType
         out["gmm"] = library_call(
-            lambda: F.scaled_grouped_mm(
+            lambda i: F.scaled_grouped_mm(
                 a8[:total], b8_cm, sa[:total], st.BlockWise1x128, sb,
                 st.BlockWise128x128, offs=ends,
                 output_dtype=torch.bfloat16),
@@ -851,23 +880,39 @@ def phase_library(gmm_setup, wgrad_setup, bf16_setup):
             lambda w: w.abs() * 2.0 ** -7 + 1e-4 * w.abs().max())
     else:
         out["gmm"] = (None, "torch.nn.functional has no scaled_grouped_mm")
-    (x16, w16, bgs), bkw, bplan = bf16_setup
-    bends = torch.cumsum(bgs, 0).to(torch.int32)
-    btotal = int(bplan.total_rows())
-    if hasattr(F, "grouped_mm"):
-        out["gmm_bf16"] = library_call(
-            lambda: F.grouped_mm(x16[:btotal], w16, offs=bends),
-            gk.gmm_bf16_plain(x16, w16, bgs, **bkw)[:btotal],
-            lambda w: w.abs() * 2.0 ** -7 + 1e-4 * w.abs().max())
-    else:
-        out["gmm_bf16"] = (None, "torch.nn.functional has no grouped_mm")
+    for key, ((x16, w16, bgs), bkw, bplan) in bf16_setups.items():
+        if not hasattr(F, "grouped_mm"):
+            out[key] = (None, "torch.nn.functional has no grouped_mm")
+            continue
+        bends = torch.cumsum(bgs, 0).to(torch.int32)
+        xo = x16[:int(bplan.total_rows())]
+        bwant = gk.gmm_bf16_plain(x16, w16, bgs, **bkw)[:xo.shape[0]]
+        ws = [w16, w16.clone()] if key == "gmm_bf16_decode" else [w16]
+        bf16_tol = (lambda w: w.abs() * 2.0 ** -7 + 1e-4 * w.abs().max())
+        if bkw["out_dtype"] == torch.bfloat16:
+            out[key] = library_call(
+                lambda i: F.grouped_mm(xo, ws[i % len(ws)], offs=bends),
+                bwant, bf16_tol)
+            continue
+        ms, note = library_call(
+            lambda i: F.grouped_mm(xo, w16, offs=bends,
+                                   out_dtype=torch.float32),
+            bwant, lambda w: 1e-5 * w.abs().max() + 1e-30)
+        if ms is None:
+            f32_note = note
+            ms, note = library_call(
+                lambda i: F.grouped_mm(xo, w16, offs=bends), bwant, bf16_tol)
+            note = (f"bf16 output, the dtype the training path consumes "
+                    f"({note}); with out_dtype=f32: {f32_note}")
+        out[key] = (ms, note)
+        del ws
     (x, dy, wgs), wplan = wgrad_setup["wgrad"]
     wends = torch.cumsum(wgs, 0).to(torch.int32)
     wwant = wk.gmm_wgrad_plain(x, dy, wgs, plan=wplan)
     if hasattr(F, "grouped_mm"):
         ms, note = library_call(
-            lambda: F.grouped_mm(x.T, dy, offs=wends,
-                                 out_dtype=torch.float32),
+            lambda i: F.grouped_mm(x.T, dy, offs=wends,
+                                   out_dtype=torch.float32),
             wwant, lambda w: 1e-4 * w.abs().max() + 1e-6)
         if ms is None:
             # the training path casts dw to the weights' bf16 at once, as
@@ -875,7 +920,7 @@ def phase_library(gmm_setup, wgrad_setup, bf16_setup):
             # consumes (within half a bf16 step of the plain f32 dw)
             f32_note = note
             ms, note = library_call(
-                lambda: F.grouped_mm(x.T, dy, offs=wends), wwant,
+                lambda i: F.grouped_mm(x.T, dy, offs=wends), wwant,
                 lambda w: w.abs() * 2.0 ** -8 + 1e-4 * w.abs().max() + 1e-6)
             note = (f"bf16 output, the dtype the training path consumes "
                     f"({note}); with out_dtype=f32: {f32_note}")
@@ -889,7 +934,9 @@ def phase_library(gmm_setup, wgrad_setup, bf16_setup):
 
 
 def phase_kernels(full: bool):
+    import ctypes
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import epilogue_kernel as ek
     from repro_torch.kernels import grouped_gemm_kernel as gk
     from repro_torch.kernels import quant_kernel as qk
@@ -995,12 +1042,15 @@ def phase_kernels(full: bool):
                       False),
         "nan_tail": (1024, 2048, 1408, pre, 128, True),
     })
-    # B5 at the bf16 path's shapes: forward (bf16 out) and dgrad (f32 out)
+    # B5 at the bf16 path's shapes: forward (bf16 out) and dgrad (f32 out);
+    # decode's 16 rows grouped as the router groups them (batch 4, top-4
+    # of 60: ~14 visited experts), drawn apart so the sizes above stay
+    dec_routed = routed_sizes(torch.Generator().manual_seed(3), 4, 4, 60)
     bf16_cases = {
         "prefill_gate": (1024, 2048, 1408, pre, 128, torch.bfloat16),
         "prefill_down": (1024, 1408, 2048, pre, 128, torch.bfloat16),
-        "decode_gate": (16, 2048, 1408, dec, 16, torch.bfloat16),
-        "decode_down": (16, 1408, 2048, dec, 16, torch.bfloat16),
+        "decode_gate": (16, 2048, 1408, dec_routed, 16, torch.bfloat16),
+        "decode_down": (16, 1408, 2048, dec_routed, 16, torch.bfloat16),
         "all_empty": (256, 256, 256, torch.zeros(4, dtype=torch.int32), 128,
                       torch.bfloat16),
         "train_gate_up": (16384, 2048, 1408, routed, 128, torch.bfloat16),
@@ -1009,12 +1059,34 @@ def phase_kernels(full: bool):
                                     torch.float32),
         "train_dgrad_down_f32": (16384, 2048, 1408, routed, 128,
                                  torch.float32),
+        # "_wT": the dgrads as the training path hands them over, w^T read
+        # where it lies, K-contiguous (and decode's tile on that layout)
+        "train_dgrad_gate_up_f32_wT": (16384, 1408, 2048, routed, 128,
+                                       torch.float32),
+        "train_dgrad_down_f32_wT": (16384, 2048, 1408, routed, 128,
+                                    torch.float32),
+        "decode_gate_wT": (16, 2048, 1408, dec_routed, 16, torch.bfloat16),
     }
+    # "spans": every owned span 1..block_m of a tile, so every descriptor
+    # of the TMA store pool stores (tile i holds groups of i + 1 and
+    # block_m - 1 - i rows), then a partial tile of owned rows and zero
+    # rows, with M not a multiple of 64; into a NaN-prefilled out, at both
+    # output dtypes
+    for bm in (128, 16):
+        spans = [s for i in range(bm) for s in (i + 1, bm - 1 - i)]
+        sizes = torch.tensor(spans + [bm // 8 + 4], dtype=torch.int32)
+        m = bm * bm + bm // 4 + 5
+        for dt in (torch.bfloat16, torch.float32):
+            bf16_cases[f"spans_bm{bm}_{str(dt)[6:]}"] = (m, 256, 256, sizes,
+                                                         bm, dt)
     bf16_rows, bf16_setups = [], {}
+    keep = [case for case, _ in BF16_TIMED]
     for name, (m, k, n, sizes, bm, dt) in bf16_cases.items():
-        bargs, bkw, bplan = bf16_case(gen, m, k, n, sizes, bm, dt)
-        bf16_rows.append(compare_gemm_bf16(name, bargs, bkw, bplan))
-        if name in ("prefill_gate", "train_gate_up"):
+        bargs, bkw, bplan = bf16_case(gen, m, k, n, sizes, bm, dt,
+                                      k_major=name.endswith("_wT"))
+        bf16_rows.append(compare_gemm_bf16(name, bargs, bkw, bplan,
+                                           nan_out=name.startswith("spans")))
+        if name in keep:
             bf16_setups[name] = (bargs, bkw, bplan)
         del bargs
     bargs, bkw, bplan = bf16_setups["prefill_gate"]
@@ -1026,12 +1098,39 @@ def phase_kernels(full: bool):
             raise AssertionError(f"gmm_bf16 accepted block_m={bm}")
         except ValueError:
             pass
+    # deterministic: two launches bitwise equal, in either layout of w
+    for name in ("prefill_gate", "train_dgrad_gate_up_f32_wT"):
+        rargs, rkw, _ = bf16_setups[name]
+        y1 = gk.gmm_bf16_cuda(*rargs, **rkw)
+        y2 = gk.gmm_bf16_cuda(*rargs, **rkw)
+        if not torch.equal(y1, y2):
+            raise AssertionError(f"gmm_bf16 {name}: two launches differ")
+        del y1, y2
+    # a w in any other layout is refused, not copied
+    x16, w16, bgs = bargs
+    wide = torch.empty((w16.shape[0], w16.shape[1], 2 * w16.shape[2]),
+                       dtype=torch.bfloat16, device="cuda")
+    try:
+        gk.gmm_bf16_cuda(x16, wide[:, :, :w16.shape[2]], bgs, **bkw)
+        raise AssertionError("gmm_bf16 accepted a w with a row stride of 2N")
+    except ValueError:
+        pass
+    del wide
+    # so is an x whose start is not 16-byte aligned (TMA reads it)
+    xbuf = torch.empty(x16.numel() + 1, dtype=torch.bfloat16, device="cuda")
+    try:
+        gk.gmm_bf16_cuda(xbuf[1:].view(x16.shape), w16, bgs, **bkw)
+        raise AssertionError("gmm_bf16 accepted an x not 16-byte aligned")
+    except ValueError:
+        pass
+    del xbuf
     results["gmm_bf16"] = bf16_rows
     results["flash_attention"] = check_flash(gen)
     for name, rows in results.items():
         emit({"phase": "kernel", "kernel": name, "checks": rows})
     library = phase_library(setups["prefill_gate"], wsetups,
-                            bf16_setups["prefill_gate"])
+                            {key: bf16_setups[case]
+                             for case, key in BF16_TIMED})
 
     # the largest error over every case checked above
     worst = {name: max(r["max_abs_err"] for r in rows)
@@ -1124,27 +1223,37 @@ def phase_kernels(full: bool):
         bytes=nbytes, flops=0, max_abs_err=worst["act_quantize_fp8"])
     del g8us
     # B5 at the routed prefill (its visited bf16 weights, 300 MB, overflow
-    # the L2 alone) and at the training path's 16384 routed rows
-    for case, key in (("prefill_gate", "gmm_bf16"),
-                      ("train_gate_up", "gmm_bf16_train")):
+    # the L2 alone), at the training path's 16384 routed rows, at decode
+    # (~14 visited experts, ~80 MB) and on the K-contiguous w^T of the
+    # training dgrad (f32 out)
+    smem = build.function("gmm_bf16", "gmm_bf16_smem_bytes",
+                          [ctypes.c_int, ctypes.c_int])
+    for case, key in BF16_TIMED:
         (x16, w16, bgs), bkw, bplan = bf16_setups.pop(case)
         m, k = x16.shape
         n = w16.shape[2]
         rows = int(bplan.total_rows())
         visited = int((bgs > 0).sum())
+        out_f32 = bkw["out_dtype"] == torch.float32
+        # decode's visited weights would sit partly in the L2:
+        # alternate two copies so each call reads them from HBM
+        ws = [w16, w16.clone()] if key == "gmm_bf16_decode" else [w16]
         timing[key] = dict(
             shape=[m, k, n], groups=w16.shape[0], total_rows=rows,
-            ms=graph_ms(lambda i: gk.gmm_bf16_cuda(x16, w16, bgs, **bkw),
-                        iters=10),
-            eager_ms=cuda_ms(lambda i: gk.gmm_bf16_cuda(x16, w16, bgs, **bkw),
-                             iters=10),
+            block_m=bkw["block_m"], w_layout="K-contiguous"
+            if gk.weight_layout(w16) else "N-contiguous",
+            smem_bytes=smem(bkw["block_m"], int(out_f32)),
+            ms=graph_ms(lambda i: gk.gmm_bf16_cuda(x16, ws[i % len(ws)], bgs,
+                                                   **bkw), iters=10),
+            eager_ms=cuda_ms(lambda i: gk.gmm_bf16_cuda(
+                x16, ws[i % len(ws)], bgs, **bkw), iters=10),
             plain_ms=cuda_ms(lambda i: gk.gmm_bf16_plain(x16, w16, bgs,
                                                          **bkw),
                              iters=3, warmup=1),
-            bytes=2 * m * k + 2 * visited * k * n + 2 * m * n,
+            bytes=2 * m * k + 2 * visited * k * n + (4 if out_f32 else 2) * m * n,
             flops=2 * rows * k * n, peak_flop_per_s=BF16_FLOP_PER_S,
             max_abs_err=worst["gmm_bf16"])
-        del x16, w16
+        del x16, w16, ws
     # the wgrads at the routed gate/up shape: 16384 rows, 60 groups, K 2048,
     # N 1408; each call writes a 692 MB dw, so inputs and output overflow
     # the L2 on every call
@@ -1650,7 +1759,8 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "dir": os.path.relpath(str(build.build_all()), HERE),
           "ptxas": {src: [ln.strip() for ln in out.splitlines()
-                          if "registers" in ln or "spill" in ln]
+                          if "registers" in ln or "spill" in ln
+                          or "entry function" in ln]
                     for src, out in notes.items()}})
     with timed("kernel"):
         timing = phase_kernels(full=not args.quick)
@@ -1691,7 +1801,15 @@ def main(argv=None) -> int:
                 tr = timing["gmm_bf16_train"]
                 row.update(train_shape=tr["shape"], train_ms=tr["ms"],
                            train_bound_ms=tr["bound_ms"],
-                           train_bound_by=tr["bound_by"])
+                           train_bound_by=tr["bound_by"],
+                           train_library_ms=tr["library_ms"],
+                           eager_ms=t["eager_ms"])
+                for extra in ("decode", "dgrad"):
+                    te = timing[f"gmm_bf16_{extra}"]
+                    row[f"{extra}_shape"] = te["shape"]
+                    row[f"{extra}_ms"] = te["ms"]
+                    row[f"{extra}_bound_ms"] = te["bound_ms"]
+                    row[f"{extra}_library_ms"] = te["library_ms"]
             if name == "flash_attention":
                 row["shapes"] = t["shapes"]
             rows.append(row)

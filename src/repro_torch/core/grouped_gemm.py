@@ -72,9 +72,10 @@ def _gemm_quant(a8, sa, w, group_sizes, cfg: KernelConfig, plan: TilePlan,
 def _gemm_bf16(x, w, group_sizes, cfg: KernelConfig, plan: TilePlan,
                out_dtype):
     """``x @ w[g]`` per group on the bf16 grouped GEMM, operands cast to
-    contiguous bf16."""
+    bf16; x made contiguous, w passed as it lies (the kernel reads a
+    contiguous w and the dgrad's ``w.transpose(1, 2)`` alike)."""
     return grouped_gemm_kernel.gmm_bf16(
-        x.to(torch.bfloat16).contiguous(), w.to(torch.bfloat16).contiguous(),
+        x.to(torch.bfloat16).contiguous(), w.to(torch.bfloat16),
         group_sizes, num_groups=w.shape[0], block_m=cfg.block_m,
         block_n=cfg.block_n, block_k=cfg.block_k, out_dtype=out_dtype,
         plan=plan)
@@ -276,8 +277,8 @@ class _GroupedLinearBF16(torch.autograd.Function):
     def backward(ctx, dy):
         cfg, plan = ctx.cfg, ctx.plan
         x, w, group_sizes = ctx.saved_tensors
-        # dx = dy @ w^T on the same kernel, f32 out; w^T contiguous, the
-        # layout the kernel takes
+        # dx = dy @ w^T on the same kernel, f32 out; w^T is read where it
+        # lies (K-contiguous), with no transposed copy of the weight
         dx = _gemm_bf16(dy, w.transpose(1, 2), group_sizes, cfg, plan,
                         torch.float32)
         dw = _wgrad((x, dy), group_sizes, cfg, plan, w.shape[0])

@@ -1,31 +1,30 @@
-// Padding-free grouped GEMMs over the TilePlan, simple versions: the fp8
-// GEMM (the paper's kernel), its quantizing-store twin and its bf16 twin.
+// Padding-free fp8 grouped GEMMs over the TilePlan, simple versions: the
+// fp8 GEMM (the paper's kernel) and its quantizing-store twin.  (The bf16
+// twin, B5, is its own kernel on TMA and wgmma: gmm_bf16.cu.)
 //
 // Replaces, in src/repro/kernels/grouped_gemm_kernel.py:
 //   gmm_pallas        (B2)  fp8 A, B -> bf16/f32 out          gmm_fp8
 //   gmm_pallas_quant  (B7)  fp8 A, B -> e4m3 out + 1x128 s    gmm_fp8_quant
-//   gmm_pallas_bf16   (B5)  bf16 A, B -> bf16/f32 out         gmm_bf16
-// A [M, K] (e4m3 with 1x128 scales s_a [M, K/128], or bf16); B [G, K, N]
-// (e4m3 with 128x128 scales s_b [G, K/128, N/128], or bf16); rows
-// [offsets[g], offsets[g+1]) of A belong to group g.  The owned rows get
-// A_g @ B_g, rows >= sum(sizes) get zeros (B7: payload 0, scale 1).
+// A [M, K] e4m3 with 1x128 scales s_a [M, K/128]; B [G, K, N] e4m3 with
+// 128x128 scales s_b [G, K/128, N/128]; rows [offsets[g], offsets[g+1])
+// of A belong to group g.  The owned rows get A_g @ B_g, rows >=
+// sum(sizes) get zeros (B7: payload 0, scale 1).
 //
 // Bound on the card: at prefill shapes (1024 rows, K/N 2048/1408) the
-// work is ~6 GFLOP against ~155 MB (fp8) or ~300 MB (bf16), almost all of
-// it the visited experts' weights, so reading B bounds it (~46 / ~90 us
-// at 3.35 TB/s); at decode (16 rows) even more so.  This version stages
-// tiles through shared memory as bf16 (e4m3 -> bf16 is exact) and
-// multiplies with mma.sync m16n8k16 (bf16 in, f32 accumulate).  wgmma,
-// TMA and warp specialisation come in a later version.
+// work is ~6 GFLOP against ~155 MB, almost all of it the visited experts'
+// weights, so reading B bounds it (~46 us at 3.35 TB/s); at decode (16
+// rows) even more so.  This version stages tiles through shared memory as
+// bf16 (e4m3 -> bf16 is exact) and multiplies with mma.sync m16n8k16
+// (bf16 in, f32 accumulate).  wgmma takes an fp8 B only K-major, so its
+// redesign needs a transposed quantized weight (ROADMAP B2).
 //
 // Design.  One CTA per (N tile of 128 columns, visit t of the TilePlan);
 // the CTA reads its visit's group and M tile from the plan itself.  It
 // loops over K in 128-blocks: per block, the f32 dot of the 128 K
 // columns (tensor cores), then acc = acc + (part * s_a[row, kb]) *
-// s_b[g, kb, nb] (fp8, the order of the reference oracle) or acc = acc +
-// part (bf16).  The three kernels are one template: the operand type
-// picks the staging and the rescale, the epilogue picks the store, and
-// the main loop is shared, so B7's accumulator is bit for bit B2's.  The
+// s_b[g, kb, nb] (the order of the reference oracle).  The two kernels
+// are one template: the epilogue picks the store and the main loop is
+// shared, so B7's accumulator is bit for bit B2's.  The
 // Pallas kernels' masked read-modify-write relies on visits of one tile
 // running one after another; here those visits run in parallel CTAs, so
 // each CTA writes only the rows its group owns and zero-fills the rows >=
@@ -80,12 +79,12 @@ __device__ __forceinline__ float round_through(float x, __nv_bfloat16*) {
 }
 
 // Warps tile the CTA's BM x 128 output as WARPS_M x WARPS_N; a warp owns
-// a (BM / WARPS_M) x (128 / WARPS_N) block of m16n8 fragments.
-//   FP8: A and B are e4m3 with scales (else bf16, sa and sb unused);
+// a (BM / WARPS_M) x (128 / WARPS_N) block of m16n8 fragments.  A and B
+// are e4m3 with scales.
 //   EPI == kStore: out [M, N] of OutT receives the product;
 //   EPI == kQuant: q [M, N] e4m3 and s [M, N/128] receive the 1x128
 //   quantization of the product rounded through OutT (out unused).
-template <int BM, bool FP8, int EPI, typename OutT>
+template <int BM, int EPI, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 gmm_kernel(const void* __restrict__ a_, const float* __restrict__ sa,
            const void* __restrict__ b_, const float* __restrict__ sb,
@@ -142,44 +141,23 @@ gmm_kernel(const void* __restrict__ a_, const float* __restrict__ sa,
 
       for (int kc = 0; kc < 128; kc += kKC) {
         const int k0 = kb * 128 + kc;
-        if constexpr (FP8) {
-          const uint8_t* a = static_cast<const uint8_t*>(a_);
-          const uint8_t* bg = static_cast<const uint8_t*>(b_) + (size_t)g * K * N;
-          // A: BM rows x 64 bytes, as 4-byte words (16 a row)
-          for (int e = tid; e < BM * (kKC / 4); e += kThreads) {
-            const int r = e / (kKC / 4), w = e % (kKC / 4);
-            const int row = row0 + r;
-            uint32_t v = 0;
-            if (row < M)
-              v = *reinterpret_cast<const uint32_t*>(a + (size_t)row * K + k0 + 4 * w);
-            *reinterpret_cast<uint2*>(&As[r][4 * w]) = e4m3x4_to_bf16x4(v);
-          }
-          // B: 64 rows x 128 bytes, as 4-byte words (32 a row)
-          for (int e = tid; e < kKC * (kBN / 4); e += kThreads) {
-            const int kk = e / (kBN / 4), w = e % (kBN / 4);
-            const uint32_t v = *reinterpret_cast<const uint32_t*>(
-                bg + (size_t)(k0 + kk) * N + n0 + 4 * w);
-            *reinterpret_cast<uint2*>(&Bs[kk][4 * w]) = e4m3x4_to_bf16x4(v);
-          }
-        } else {
-          const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(a_);
-          const __nv_bfloat16* bg =
-              static_cast<const __nv_bfloat16*>(b_) + (size_t)g * K * N;
-          // A: BM rows x 64 bf16, as 16-byte words (8 a row)
-          for (int e = tid; e < BM * (kKC / 8); e += kThreads) {
-            const int r = e / (kKC / 8), w = e % (kKC / 8);
-            const int row = row0 + r;
-            uint4 v = make_uint4(0u, 0u, 0u, 0u);
-            if (row < M)
-              v = *reinterpret_cast<const uint4*>(a + (size_t)row * K + k0 + 8 * w);
-            *reinterpret_cast<uint4*>(&As[r][8 * w]) = v;
-          }
-          // B: 64 rows x 128 bf16, as 16-byte words (16 a row)
-          for (int e = tid; e < kKC * (kBN / 8); e += kThreads) {
-            const int kk = e / (kBN / 8), w = e % (kBN / 8);
-            *reinterpret_cast<uint4*>(&Bs[kk][8 * w]) =
-                *reinterpret_cast<const uint4*>(bg + (size_t)(k0 + kk) * N + n0 + 8 * w);
-          }
+        const uint8_t* a = static_cast<const uint8_t*>(a_);
+        const uint8_t* bg = static_cast<const uint8_t*>(b_) + (size_t)g * K * N;
+        // A: BM rows x 64 bytes, as 4-byte words (16 a row)
+        for (int e = tid; e < BM * (kKC / 4); e += kThreads) {
+          const int r = e / (kKC / 4), w = e % (kKC / 4);
+          const int row = row0 + r;
+          uint32_t v = 0;
+          if (row < M)
+            v = *reinterpret_cast<const uint32_t*>(a + (size_t)row * K + k0 + 4 * w);
+          *reinterpret_cast<uint2*>(&As[r][4 * w]) = e4m3x4_to_bf16x4(v);
+        }
+        // B: 64 rows x 128 bytes, as 4-byte words (32 a row)
+        for (int e = tid; e < kKC * (kBN / 4); e += kThreads) {
+          const int kk = e / (kBN / 4), w = e % (kBN / 4);
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(
+              bg + (size_t)(k0 + kk) * N + n0 + 4 * w);
+          *reinterpret_cast<uint2*>(&Bs[kk][4 * w]) = e4m3x4_to_bf16x4(v);
         }
         __syncthreads();
 #pragma unroll
@@ -208,33 +186,22 @@ gmm_kernel(const void* __restrict__ a_, const float* __restrict__ sa,
         }
         __syncthreads();
       }
-      if constexpr (FP8) {
-        // fine-grained rescale, in the oracle's order: (part * s_a) * s_b
-        const float sbv = sb[((size_t)g * KB + kb) * NB + nb];
+      // fine-grained rescale, in the oracle's order: (part * s_a) * s_b
+      const float sbv = sb[((size_t)g * KB + kb) * NB + nb];
 #pragma unroll
-        for (int i = 0; i < MI; ++i) {
+      for (int i = 0; i < MI; ++i) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = row0 + wm * WM + i * 16 + gq + 8 * h;
-            const float sav = row < M ? sa[(size_t)row * KB + kb] : 0.0f;
-#pragma unroll
-            for (int j = 0; j < NI; ++j)
-#pragma unroll
-              for (int c = 0; c < 2; ++c)
-                acc[i][j][2 * h + c] = __fadd_rn(
-                    acc[i][j][2 * h + c],
-                    __fmul_rn(__fmul_rn(part[i][j][2 * h + c], sav), sbv));
-          }
-        }
-      } else {
-        // one f32 sum per 128-K block, as the bf16 oracle adds them
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + wm * WM + i * 16 + gq + 8 * h;
+          const float sav = row < M ? sa[(size_t)row * KB + kb] : 0.0f;
 #pragma unroll
           for (int j = 0; j < NI; ++j)
 #pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[i][j][c] = __fadd_rn(acc[i][j][c], part[i][j][c]);
+            for (int c = 0; c < 2; ++c)
+              acc[i][j][2 * h + c] = __fadd_rn(
+                  acc[i][j][2 * h + c],
+                  __fmul_rn(__fmul_rn(part[i][j][2 * h + c], sav), sbv));
+        }
       }
     }
   }
@@ -302,7 +269,7 @@ gmm_kernel(const void* __restrict__ a_, const float* __restrict__ sa,
 }
 
 // block_m 16 (decode) and 128 (prefill) are instantiated; others are refused.
-template <bool FP8, int EPI, typename OutT>
+template <int EPI, typename OutT>
 int launch(int block_m, int N, int T, cudaStream_t stream, const void* a,
            const void* sa, const void* b, const void* sb, const void* go,
            const void* gi, const void* mi, void* out, void* q, void* s, int M,
@@ -313,10 +280,10 @@ int launch(int block_m, int N, int T, cudaStream_t stream, const void* a,
                  int, int, int, int);
   switch (block_m) {
     case 16:
-      kernel = gmm_kernel<16, FP8, EPI, OutT>;
+      kernel = gmm_kernel<16, EPI, OutT>;
       break;
     case 128:
-      kernel = gmm_kernel<128, FP8, EPI, OutT>;
+      kernel = gmm_kernel<128, EPI, OutT>;
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -340,13 +307,13 @@ extern "C" int gmm_fp8(const void* a, const void* sa, const void* b,
                        int out_f32, void* stream) {
   auto st = (cudaStream_t)stream;
   if (out_f32)
-    return launch<true, kStore, float>(block_m, N, T, st, a, sa, b, sb,
-                                       group_offsets, group_ids, m_tile_ids,
-                                       out, nullptr, nullptr, M, K, G);
-  return launch<true, kStore, __nv_bfloat16>(block_m, N, T, st, a, sa, b, sb,
-                                             group_offsets, group_ids,
-                                             m_tile_ids, out, nullptr,
-                                             nullptr, M, K, G);
+    return launch<kStore, float>(block_m, N, T, st, a, sa, b, sb,
+                                 group_offsets, group_ids, m_tile_ids,
+                                 out, nullptr, nullptr, M, K, G);
+  return launch<kStore, __nv_bfloat16>(block_m, N, T, st, a, sa, b, sb,
+                                       group_offsets, group_ids,
+                                       m_tile_ids, out, nullptr,
+                                       nullptr, M, K, G);
 }
 
 // B7.  q [M, N] e4m3, s [M, N/128] f32; round_f32: 1 to quantize the f32
@@ -358,29 +325,11 @@ extern "C" int gmm_fp8_quant(const void* a, const void* sa, const void* b,
                              int T, int block_m, int round_f32, void* stream) {
   auto st = (cudaStream_t)stream;
   if (round_f32)
-    return launch<true, kQuant, float>(block_m, N, T, st, a, sa, b, sb,
-                                       group_offsets, group_ids, m_tile_ids,
-                                       nullptr, q, s, M, K, G);
-  return launch<true, kQuant, __nv_bfloat16>(block_m, N, T, st, a, sa, b, sb,
-                                             group_offsets, group_ids,
-                                             m_tile_ids, nullptr, q, s, M, K,
-                                             G);
-}
-
-// B5.  a [M, K] and b [G, K, N] bf16; out_f32: 1 for an f32 output, 0 for
-// bf16.
-extern "C" int gmm_bf16(const void* a, const void* b,
-                        const void* group_offsets, const void* group_ids,
-                        const void* m_tile_ids, void* out, int M, int K, int N,
-                        int G, int T, int block_m, int out_f32, void* stream) {
-  auto st = (cudaStream_t)stream;
-  if (out_f32)
-    return launch<false, kStore, float>(block_m, N, T, st, a, nullptr, b,
-                                        nullptr, group_offsets, group_ids,
-                                        m_tile_ids, out, nullptr, nullptr, M,
-                                        K, G);
-  return launch<false, kStore, __nv_bfloat16>(block_m, N, T, st, a, nullptr,
-                                              b, nullptr, group_offsets,
-                                              group_ids, m_tile_ids, out,
-                                              nullptr, nullptr, M, K, G);
+    return launch<kQuant, float>(block_m, N, T, st, a, sa, b, sb,
+                                 group_offsets, group_ids, m_tile_ids,
+                                 nullptr, q, s, M, K, G);
+  return launch<kQuant, __nv_bfloat16>(block_m, N, T, st, a, sa, b, sb,
+                                       group_offsets, group_ids,
+                                       m_tile_ids, nullptr, q, s, M, K,
+                                       G);
 }

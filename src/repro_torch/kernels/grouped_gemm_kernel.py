@@ -1,8 +1,9 @@
 """Padding-free grouped GEMMs: the CUDA kernels
-(``csrc/grouped_gemm.cu``) and their plain PyTorch versions.
+(``csrc/grouped_gemm.cu``, ``csrc/gmm_bf16.cu``) and their plain PyTorch
+versions.
 
 ``y[rows of group g] = A[rows of g] @ B[g]`` over the unpadded,
-concatenated token buffer.  Three functions share one kernel template:
+concatenated token buffer.  Three functions:
 
 - :func:`gmm` (B2): A in e4m3 with 1x128 scales and B in e4m3 with
   128x128 scales (the DeepSeek-V3 recipe, as in the paper).  Per 128-K
@@ -14,11 +15,16 @@ concatenated token buffer.  Three functions share one kernel template:
   kernel: bitwise the quantizer applied to :func:`gmm`'s output.  Tail
   rows come back as payload 0 and scale 1.
 - :func:`gmm_bf16` (B5): bf16 operands, no scales, one f32 dot per 128-K
-  block added in f32; tail rows are zeros.
+  block added in f32; tail rows are zeros.  B is read in either layout:
+  contiguous ``[G, K, N]`` (the forward's weight) or ``transpose(1, 2)``
+  of a contiguous ``[G, N, K]`` (the dgrad's ``w^T``, read where it lies).
 
-The kernel walks the :class:`~repro_torch.kernels.plan.TilePlan`: one
-CTA per (visit, 128-column N tile), each writing only the rows its group
-owns (see the source for why the Pallas kernels' read-modify-write store
+B2 and B7 share one mma.sync kernel template (``grouped_gemm.cu``); B5 is
+its own kernel on Hopper's TMA and wgmma (``gmm_bf16.cu``), storing owned
+rows through a pool of power-of-two TMA store descriptors.  Every kernel
+walks the :class:`~repro_torch.kernels.plan.TilePlan`: one CTA per
+(visit, 128-column N tile), each writing only the rows its group owns
+(see the sources for why the Pallas kernels' read-modify-write store
 does not carry over).
 
 Each function chooses by the tensor's device: CPU -> its ``*_plain``
@@ -265,6 +271,26 @@ def gmm_quant(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
 # B5: the bf16 grouped GEMM
 # ---------------------------------------------------------------------------
 
+def weight_layout(w: torch.Tensor) -> int:
+    """How the CUDA bf16 grouped GEMM reads ``w`` [G, K, N]: 0 when it is
+    contiguous (N-contiguous, the forward's weight), 1 when it is
+    ``transpose(1, 2)`` of a contiguous [G, N, K] (K-contiguous, the
+    dgrad's ``w^T`` on the forward weight's own storage).  Raises on any
+    other strides and on storage not 16-byte aligned."""
+    if w.is_contiguous():
+        k_major = 0
+    elif w.transpose(1, 2).is_contiguous():
+        k_major = 1
+    else:
+        raise ValueError(
+            f"w of shape {tuple(w.shape)} has strides {w.stride()}: the CUDA "
+            f"bf16 grouped GEMM takes a contiguous [G, K, N] or transpose(1, "
+            f"2) of a contiguous [G, N, K]")
+    if w.data_ptr() % 16:
+        raise ValueError("w must be 16-byte aligned")
+    return k_major
+
+
 def gmm_bf16_plain(x, w, group_sizes, *, num_groups: Optional[int] = None,
                    block_m: int = 128, block_n: int = 128,
                    block_k: int = 128,
@@ -291,26 +317,35 @@ def gmm_bf16_cuda(x, w, group_sizes, *, num_groups: Optional[int] = None,
                   plan: Optional[TilePlan] = None,
                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA bf16 grouped GEMM (one launch for the whole plan)
-    on bf16 operands.  ``out`` (optional, [M, N] of ``out_dtype``)
-    receives the result; every one of its rows is written."""
+    on bf16 operands, ``w`` contiguous or ``transpose(1, 2)`` of a
+    contiguous tensor (:func:`weight_layout`).  ``out`` (optional, [M, N]
+    of ``out_dtype``) receives the result; every one of its rows is
+    written."""
     m, k, n, num_groups, plan = _prepare(
         x, None, w, None, group_sizes, num_groups, block_m, block_n, block_k,
         plan)
     _check_cuda(block_m, block_n, block_k, plan, out_dtype,
-                (("x", x, torch.bfloat16), ("w", w, torch.bfloat16)))
+                (("x", x, torch.bfloat16),))
     dev = x.device
+    if not w.is_cuda or w.device != dev:
+        raise ValueError(f"w must be a CUDA tensor on {dev}")
+    if w.dtype != torch.bfloat16:
+        raise TypeError(f"w must be {torch.bfloat16}, got {w.dtype}")
+    k_major = weight_layout(w)
     if out is None:
         out = torch.empty((m, n), dtype=out_dtype, device=dev)
     elif (tuple(out.shape) != (m, n) or out.dtype != out_dtype
-          or out.device != dev or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous [{m}, {n}] {out_dtype} "
-                         f"tensor on {dev}")
+          or out.device != dev or not out.is_contiguous()
+          or out.data_ptr() % 16):
+        raise ValueError(f"out must be a contiguous, 16-byte aligned "
+                         f"[{m}, {n}] {out_dtype} tensor on {dev}")
     if m == 0:
         return out
-    fn = build.function("grouped_gemm", "gmm_bf16", [_P] * 6 + [_I] * 7 + [_P])
+    fn = build.function("gmm_bf16", "gmm_bf16", [_P] * 6 + [_I] * 9 + [_P])
     status = fn(x.data_ptr(), w.data_ptr(), *_plan_args(plan), out.data_ptr(),
-                m, k, n, num_groups, plan.max_visits, block_m,
-                1 if out_dtype == torch.float32 else 0, build.stream_ptr(dev))
+                m, k, n, num_groups, w.shape[0], plan.max_visits, block_m,
+                1 if out_dtype == torch.float32 else 0, k_major,
+                build.stream_ptr(dev))
     build.check(status, "gmm_bf16")
     gmm_bf16_cuda.launches += 1
     return out
@@ -326,10 +361,11 @@ def gmm_bf16(x, w, group_sizes, *, num_groups: Optional[int] = None,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Padding-free bf16 grouped GEMM.
 
-    x [M, K] bf16, w [G, K, N] bf16, group_sizes [G] int with sum <= M;
-    ``plan`` as in :func:`gmm`.  Per 128-K block one f32 dot, added in
-    f32.  Returns [M, N] ``out_dtype``; rows >= sum(group_sizes) are
-    zeros.
+    x [M, K] bf16, w [G, K, N] bf16 (on a card: contiguous, or
+    ``transpose(1, 2)`` of a contiguous [G, N, K]), group_sizes [G] int
+    with sum <= M; ``plan`` as in :func:`gmm`.  Per 128-K block one f32
+    dot, added in f32.  Returns [M, N] ``out_dtype``; rows >=
+    sum(group_sizes) are zeros.
     """
     fn = gmm_bf16_cuda if x.is_cuda else gmm_bf16_plain
     return fn(x, w, group_sizes, num_groups=num_groups, block_m=block_m,

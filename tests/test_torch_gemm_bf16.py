@@ -103,3 +103,56 @@ def test_gmm_bf16_argument_checks():
     before = tgk.gmm_bf16_cuda.launches
     tgk.gmm_bf16(tx, tw, gs)
     assert tgk.gmm_bf16_cuda.launches == before
+
+
+@pytest.mark.parametrize("out", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", ["ragged_tail", "ragged_bm16"])
+def test_plain_gmm_bf16_on_transposed_weight_matches_pallas(case, out):
+    """The dgrad's operand: ``w^T`` handed over as ``transpose(1, 2)`` of
+    the weight's own [G, N, K] storage, never copied.  Same inputs and
+    tolerances as the N-contiguous case."""
+    m, k, n, sizes, bm = CASES[case]
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w_nk = (rng.standard_normal((len(sizes), n, k)) * k ** -0.5) \
+        .astype(np.float32)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    jw = jnp.asarray(w_nk.transpose(0, 2, 1), jnp.bfloat16)
+    jgs = jnp.array(sizes, jnp.int32)
+    want = gmm_pallas_bf16(jx, jw, jgs, block_m=bm, interpret=True,
+                           out_dtype=getattr(jnp, out))
+    want = np.asarray(want.astype(jnp.float32))
+    tx = tensor_from_numpy(np.asarray(jx))
+    storage = tensor_from_numpy(np.asarray(jnp.asarray(w_nk, jnp.bfloat16)))
+    tw = storage.transpose(1, 2)
+    assert tgk.weight_layout(tw) == 1 and tw.data_ptr() == storage.data_ptr()
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    got = tgk.gmm_bf16(tx, tw, gs, block_m=bm, out_dtype=getattr(torch, out))
+    assert got.dtype == getattr(torch, out) and got.shape == (m, n)
+    total = sum(sizes)
+    assert (got[total:] == 0).all()
+    got = got.float().numpy()
+    if out == "bfloat16":
+        tol = np.abs(want) * 2.0 ** -7 + 1e-4 * np.abs(want).max() + 1e-30
+        assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
+    else:
+        assert max_rel(got, want) <= 1e-5
+
+
+def test_weight_layout_accepts_two_layouts_and_refuses_others():
+    """The CUDA kernel reads B N-contiguous (0) or K-contiguous (1); the
+    wrapper raises on any other strides rather than copying."""
+    w = torch.zeros(3, 256, 384, dtype=torch.bfloat16)
+    assert tgk.weight_layout(w) == 0
+    assert tgk.weight_layout(
+        torch.zeros(3, 384, 256, dtype=torch.bfloat16).transpose(1, 2)) == 1
+    # a single group (the group stride is free), at an offset
+    assert tgk.weight_layout(w[1:2]) == 0
+    assert tgk.weight_layout(
+        torch.zeros(384, 256, dtype=torch.bfloat16)[None].transpose(1, 2)) == 1
+    wide = torch.zeros(3, 256, 768, dtype=torch.bfloat16)
+    for bad in (wide[:, :, :384], w.transpose(0, 1), wide[:, :, ::2],
+                torch.zeros(3, 384, 512, dtype=torch.bfloat16)
+                .transpose(1, 2)[:, :256]):
+        with pytest.raises(ValueError, match="strides"):
+            tgk.weight_layout(bad)

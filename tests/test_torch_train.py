@@ -201,6 +201,50 @@ def test_backward_hands_the_kernels_contiguous_operands(wgrad, monkeypatch):
     assert all(t.is_contiguous() for t in seen)
 
 
+def test_bf16_backward_reads_the_weight_where_it_lies(monkeypatch):
+    """The bf16 layer's dgrad ``dx = dy @ w^T`` hands the bf16 grouped
+    GEMM ``w.transpose(1, 2)`` of the weight's own storage (the layout the
+    CUDA kernel reads K-contiguous), no copy; the forward hands it w
+    itself.  dx and dw still match the JAX package within
+    ``test_grouped_linear_grads_match_jax``'s 2% of the largest
+    element."""
+    from repro_torch.kernels import grouped_gemm_kernel
+    seen = []
+    real = grouped_gemm_kernel.gmm_bf16
+
+    def spy(x, w, *args, **kw):
+        seen.append((w.data_ptr(), w.stride(), tuple(w.shape),
+                     grouped_gemm_kernel.weight_layout(w)))
+        return real(x, w, *args, **kw)
+    monkeypatch.setattr(grouped_gemm_kernel, "gmm_bf16", spy)
+    rng = np.random.default_rng(11)
+    x = jnp.asarray(rng.standard_normal((M, K)), jnp.bfloat16)
+    w = jnp.asarray(rng.standard_normal((len(SIZES), K, N)) * K ** -0.5,
+                    jnp.bfloat16)
+    dy = jnp.asarray(rng.standard_normal((M, N)), jnp.bfloat16)
+    jgs = jnp.asarray(SIZES, jnp.int32)
+
+    @jax.jit
+    def jax_vjp(x, w):
+        y, vjp = jax.vjp(lambda x, w: jgg.grouped_linear(
+            x, w, jgs, precision="bf16"), x, w)
+        return y, vjp(dy)
+    _, (want_dx, want_dw) = jax_vjp(x, w)
+
+    tx = tensor_from_numpy(np.asarray(x)).requires_grad_()
+    tw = tensor_from_numpy(np.asarray(w)).requires_grad_()
+    tgs = torch.tensor(SIZES, dtype=torch.int32)
+    y = tgg.grouped_linear(tx, tw, tgs, precision="bf16",
+                           config=KernelConfig(block_m=16))
+    y.backward(tensor_from_numpy(np.asarray(dy)))
+    g, k, n = tw.shape
+    assert seen == [(tw.data_ptr(), (k * n, n, 1), (g, k, n), 0),
+                    (tw.data_ptr(), (k * n, 1, n), (g, n, k), 1)]
+    assert rel_to_max(tx.grad, want_dx) <= 2e-2
+    assert rel_to_max(tw.grad, want_dw) <= 2e-2
+    assert (tx.grad[sum(SIZES):] == 0).all() and (tw.grad[1] == 0).all()
+
+
 def test_supplied_quantized_activation_gets_no_gradient():
     x = torch.randn(32, 128).bfloat16().requires_grad_()
     w = (torch.randn(2, 128, 128) * 0.1).bfloat16().requires_grad_()
