@@ -16,11 +16,13 @@ decode.  Phases, each printing JSON lines:
   1. probe   card name and power limit, torch/CUDA versions, nvcc;
   2. build   every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   3. kernel  each kernel against its plain PyTorch version on the card at
-             the serving and training paths' shapes: max error,
-             mismatches, times and the bound of the work; the one PyTorch
-             call computing a kernel's function, where there is one,
-             checked against the plain version and timed; the quantizing
-             GEMM bitwise against the quantizer applied to the GEMM;
+             the serving and training paths' shapes (the bf16 wgrad at
+             both output dtypes): max error, mismatches, times and the
+             bound of the work; the one PyTorch call computing a kernel's
+             function, where there is one, checked against the plain
+             version and timed; the quantizing GEMM bitwise against the
+             quantizer applied to the GEMM; flash attention also built
+             without its lo product, for timing only;
   4. forward each configuration cut to 2 layers: prefill logits through
              the kernels against the plain versions (prompt 64, and 128
              for the flash configurations);
@@ -71,7 +73,7 @@ KERNEL_CATEGORIES = (
     ("flash attention", ("flash_attention_kernel",)),
     ("grouped GEMMs (gmm, gmm_quant, gmm_bf16)", ("gmm_kernel",
                                                   "gmm_bf16_tma_kernel")),
-    ("wgrad", ("wgrad_kernel",)),
+    ("wgrad", ("wgrad_bf16_kernel", "wgrad_fp8_kernel")),
     ("quantize + act_quantize", ("quantize_tilewise_kernel",
                                  "act_quantize_kernel")),
     ("cuBLAS matmuls", ("gemm", "nvjet", "xmma", "cutlass")),
@@ -94,7 +96,7 @@ SOURCES = {
     "gmm": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
     "gmm_quant": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
     "gmm_bf16": "src/repro_torch/kernels/csrc/gmm_bf16.cu",
-    "wgrad": "src/repro_torch/kernels/csrc/wgrad.cu",
+    "wgrad": "src/repro_torch/kernels/csrc/wgrad_bf16.cu",
     "wgrad_fp8": "src/repro_torch/kernels/csrc/wgrad.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
@@ -462,20 +464,25 @@ def wgrad_case(gen, m, k, n, sizes, fp8, *, nan_tail=False):
     return (*args, gs), plan
 
 
-def compare_wgrad(name, fp8, args, plan):
+def compare_wgrad(name, fp8, args, plan, out_dtype=None):
     """Kernel against plain version: within 1e-4 of the largest |dw| plus
     1e-6 (both sum exact products in f32, in another order; the fp8
     kernel's scaled dy enters as a bf16 hi + lo pair, ~2^-16 relative);
-    two launches bitwise equal; empty groups exactly zero; no NaN."""
+    B4's bf16 output (its f32 sum rounded once) against the plain f32 dw
+    within that plus half a bf16 step (2^-8 of the value); two launches
+    bitwise equal; empty groups exactly zero; no NaN."""
     import torch
     from repro_torch.kernels import wgrad_kernel as wk
     cuda = wk.gmm_wgrad_fp8_cuda if fp8 else wk.gmm_wgrad_cuda
     plain = wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain
-    dw = cuda(*args, plan=plan)
-    dw2 = cuda(*args, plan=plan)
+    out_dtype = out_dtype or torch.float32
+    dw = cuda(*args, plan=plan, out_dtype=out_dtype)
+    dw2 = cuda(*args, plan=plan, out_dtype=out_dtype)
     want = plain(*args, plan=plan)
     torch.cuda.synchronize()
-    label = f"{'wgrad_fp8' if fp8 else 'wgrad'} {name}"
+    label = f"{'wgrad_fp8' if fp8 else 'wgrad'} {name} {str(out_dtype)[6:]}"
+    if dw.dtype != out_dtype:
+        raise AssertionError(f"{label}: dw is {dw.dtype}")
     if not torch.equal(dw, dw2):
         raise AssertionError(f"{label}: two launches differ")
     if not torch.isfinite(dw).all():
@@ -483,15 +490,18 @@ def compare_wgrad(name, fp8, args, plan):
     empty = (args[-1] == 0).nonzero().flatten()
     if (dw[empty] != 0).any():
         raise AssertionError(f"{label}: an empty group's dw is not zero")
-    err = (dw - want).abs()
+    err = (dw.float() - want).abs()
     scale = float(want.abs().max())
     tol = 1e-4 * scale + 1e-6
+    if out_dtype == torch.bfloat16:
+        tol = tol + want.abs() * 2.0 ** -8
     bad = int((err > tol).sum())
     if bad:
-        raise AssertionError(f"{label}: {bad} elements beyond {tol} "
+        raise AssertionError(f"{label}: {bad} elements beyond tolerance "
                              f"(max err {float(err.max())})")
     x, dy = args[0], args[2] if fp8 else args[1]
-    return {"case": name, "shape": [x.shape[0], x.shape[1], dy.shape[1]],
+    return {"case": name, "out_dtype": str(out_dtype)[6:],
+            "shape": [x.shape[0], x.shape[1], dy.shape[1]],
             "groups": int(args[-1].numel()), "empty_groups": int(empty.numel()),
             "total_rows": int(args[-1].sum()),
             "max_abs_err": float(err.max()), "rel_to_max":
@@ -499,10 +509,10 @@ def compare_wgrad(name, fp8, args, plan):
 
 
 def check_wgrad(gen, cpu_gen, routed):
-    """B4 and B6 at the training path's shapes (``routed``: 16384 slots
-    over 60 groups, 8 of them empty; the shared experts' G = 1 over 4096
-    rows) and the edge cases.  Returns the rows and the routed gate's
-    operands."""
+    """B4 (at both output dtypes) and B6 at the training path's shapes
+    (``routed``: 16384 slots over 60 groups, 8 of them empty; the shared
+    experts' G = 1 over 4096 rows) and the edge cases.  Returns the rows
+    and the routed gate's operands."""
     import torch
     shared = torch.tensor([4096], dtype=torch.int32)
     cases = {
@@ -523,7 +533,9 @@ def check_wgrad(gen, cpu_gen, routed):
     for fp8, key in ((False, "wgrad"), (True, "wgrad_fp8")):
         for name, (m, k, n, sizes, kw) in cases.items():
             args, plan = wgrad_case(gen, m, k, n, sizes, fp8, **kw)
-            rows[key].append(compare_wgrad(name, fp8, args, plan))
+            for dt in (torch.float32,) if fp8 else (torch.bfloat16,
+                                                    torch.float32):
+                rows[key].append(compare_wgrad(name, fp8, args, plan, dt))
             if name == "routed_gate_up":
                 keep[key] = (args, plan)
             del args
@@ -761,15 +773,62 @@ def check_flash(gen):
     return rows
 
 
+def flash_hi_only():
+    """B8 built without its lo product, so that p enters P.V in plain bf16
+    as SDPA's does: ``csrc/flash_attention.cu`` with the two lines marked
+    "the lo product" removed, compiled as ``build.py`` compiles the
+    kernels.  For timing only; the port never builds or calls it.
+    Returns a launcher ``(q, k, v) -> o``."""
+    import ctypes
+    import subprocess
+    import torch
+    from repro_torch.kernels import build
+    lines = (build.CSRC / "flash_attention.cu").read_text().splitlines()
+    kept = [ln for ln in lines if "// the lo product" not in ln]
+    if len(kept) != len(lines) - 2:
+        raise AssertionError("flash_attention.cu: the two lo products are "
+                             "not marked")
+    out_dir = build.build_all() / "hi_only"
+    out_dir.mkdir(exist_ok=True)
+    cu = out_dir / "flash_attention_hi_only.cu"
+    cu.write_text("\n".join(kept) + "\n")
+    so = out_dir / "libflash_attention_hi_only.so"
+    r = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-I",
+                        str(build.CSRC), "-o", str(so), str(cu)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"hi-only flash build failed:\n{r.stdout}{r.stderr}")
+    fn = ctypes.CDLL(str(so)).flash_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(q, k, v):
+        o = torch.empty_like(q)
+        b, hq, s, d = q.shape
+        build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), b, hq, k.shape[1], s, d, 1, d ** -0.5,
+                       build.stream_ptr(q.device)), "flash hi-only")
+        return o
+    return run
+
+
 def time_flash(gen, worst):
     """B8's times at FLASH_TIMED (causal): the kernel in a CUDA graph with
     inputs rotated through more than the L2, eager, the plain version
     eager; ``F.scaled_dot_product_attention`` (the one PyTorch call of the
     same function, which the port never calls) checked against the plain
-    version and timed the same two ways."""
+    version and timed the same two ways; and B8 built without its lo
+    product (:func:`flash_hi_only`), graph-timed, with its error against
+    the plain version (not gated)."""
+    import ctypes
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention_kernel as fk
+    hi_only = flash_hi_only()
+    smem = build.function("flash_attention", "flash_attention_smem_bytes",
+                          [ctypes.c_int])
     shapes = {}
     for label, (b, hq, hkv, s, d) in FLASH_TIMED.items():
         nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
@@ -791,10 +850,15 @@ def time_flash(gen, worst):
         if lib_ms is not None:
             lib_ms = graph_ms(sdpa, iters=2 * n)
             lib_eager = cuda_ms(sdpa, iters=2 * n)
+        hi_err = float((hi_only(*ins[0]).float()
+                        - fk.flash_attention_plain(*ins[0]).float())
+                       .abs().max())
         shapes[label] = dict(
-            shape=[b, hq, hkv, s, d], input_copies=n,
+            shape=[b, hq, hkv, s, d], input_copies=n, smem_bytes=smem(d),
             ms=graph_ms(lambda i: fk.flash_attention_cuda(*ins[i % n]),
                         iters=2 * n),
+            hi_only_ms=graph_ms(lambda i: hi_only(*ins[i % n]), iters=2 * n),
+            hi_only_max_abs_err=hi_err,
             eager_ms=cuda_ms(lambda i: fk.flash_attention_cuda(*ins[i % n]),
                              iters=2 * n),
             plain_ms=cuda_ms(lambda i: fk.flash_attention_plain(*ins[i % n]),
@@ -910,23 +974,18 @@ def phase_library(gmm_setup, wgrad_setup, bf16_setups):
     wends = torch.cumsum(wgs, 0).to(torch.int32)
     wwant = wk.gmm_wgrad_plain(x, dy, wgs, plan=wplan)
     if hasattr(F, "grouped_mm"):
-        ms, note = library_call(
+        # bf16 dw, the dtype the training path takes (within half a bf16
+        # step of the plain f32 dw, as B4's bf16 output is held), and f32
+        out["wgrad"] = library_call(
+            lambda i: F.grouped_mm(x.T, dy, offs=wends), wwant,
+            lambda w: w.abs() * 2.0 ** -8 + 1e-4 * w.abs().max() + 1e-6)
+        out["wgrad_f32"] = library_call(
             lambda i: F.grouped_mm(x.T, dy, offs=wends,
                                    out_dtype=torch.float32),
             wwant, lambda w: 1e-4 * w.abs().max() + 1e-6)
-        if ms is None:
-            # the training path casts dw to the weights' bf16 at once, as
-            # the reference does: the default bf16 output is what it
-            # consumes (within half a bf16 step of the plain f32 dw)
-            f32_note = note
-            ms, note = library_call(
-                lambda i: F.grouped_mm(x.T, dy, offs=wends), wwant,
-                lambda w: w.abs() * 2.0 ** -8 + 1e-4 * w.abs().max() + 1e-6)
-            note = (f"bf16 output, the dtype the training path consumes "
-                    f"({note}); with out_dtype=f32: {f32_note}")
-        out["wgrad"] = (ms, note)
     else:
-        out["wgrad"] = (None, "torch.nn.functional has no grouped_mm")
+        out["wgrad"] = out["wgrad_f32"] = (
+            None, "torch.nn.functional has no grouped_mm")
     for name, (ms, note) in out.items():
         emit({"phase": "library", "kernel": name, "library_ms": ms,
               "note": note})
@@ -1255,28 +1314,41 @@ def phase_kernels(full: bool):
             max_abs_err=worst["gmm_bf16"])
         del x16, w16, ws
     # the wgrads at the routed gate/up shape: 16384 rows, 60 groups, K 2048,
-    # N 1408; each call writes a 692 MB dw, so inputs and output overflow
-    # the L2 on every call
-    for key, fp8 in (("wgrad", False), ("wgrad_fp8", True)):
-        (wargs, wplan) = wsetups.pop(key)
+    # N 1408; each call writes a 346 MB (bf16) or 692 MB (f32) dw, so
+    # inputs and output overflow the L2 on every call.  "wgrad": B4 with
+    # dw in bf16, as the training path takes it; "wgrad_f32": B4 with f32
+    # dw; "wgrad_fp8": B6 (f32 dw)
+    for key, fp8, dt in (("wgrad", False, torch.bfloat16),
+                         ("wgrad_f32", False, torch.float32),
+                         ("wgrad_fp8", True, torch.float32)):
+        (wargs, wplan) = wsetups["wgrad_fp8" if fp8 else "wgrad"]
         x, dy = wargs[0], wargs[-3 if fp8 else 1]
         total = int(wplan.total_rows())
         g = int(wargs[-1].numel())
         k, n = x.shape[1], dy.shape[1]
-        cuda = counters()[key][0]
+        cuda = counters()["wgrad_fp8" if fp8 else "wgrad"][0]
         plain = (wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain)
         in_bytes = total * (k + n) * (1 if fp8 else 2) + \
             (4 * total * (k + n) // 128 if fp8 else 0)
+
+        def call(i, cuda=cuda, wargs=wargs, wplan=wplan, dt=dt):
+            return cuda(*wargs, plan=wplan, out_dtype=dt)
         timing[key] = dict(
             shape=[x.shape[0], k, n], groups=g, total_rows=total,
-            ms=graph_ms(lambda i: cuda(*wargs, plan=wplan), iters=4,
-                        replays=3),
-            eager_ms=cuda_ms(lambda i: cuda(*wargs, plan=wplan), iters=4),
-            plain_ms=cuda_ms(lambda i: plain(*wargs, plan=wplan), iters=3,
-                             warmup=1),
-            bytes=in_bytes + 4 * g * k * n, flops=2 * total * k * n,
-            peak_flop_per_s=BF16_FLOP_PER_S, max_abs_err=worst[key])
+            out_dtype=str(dt)[6:], smem_bytes=None if fp8 else build.function(
+                "wgrad_bf16", "wgrad_bf16_smem_bytes", [ctypes.c_int])(
+                    int(dt == torch.float32)),
+            ms=graph_ms(call, iters=4, replays=3),
+            eager_ms=cuda_ms(call, iters=4),
+            plain_ms=cuda_ms(lambda i: plain(*wargs, plan=wplan,
+                                             out_dtype=dt),
+                             iters=3, warmup=1),
+            bytes=in_bytes + dt.itemsize * g * k * n,
+            flops=2 * total * k * n,
+            peak_flop_per_s=BF16_FLOP_PER_S,
+            max_abs_err=worst["wgrad_fp8" if fp8 else "wgrad"])
         del wargs
+    wsetups.clear()
     timing["flash_attention"], library["flash_attention"] = time_flash(
         gen, worst["flash_attention"])
     for name, t in timing.items():
@@ -1794,6 +1866,7 @@ def main(argv=None) -> int:
                    "launches_by_path": {p: c.get(name, 0)
                                         for p, c in paths.items()},
                    "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                   "eager_ms": t["eager_ms"],
                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                    "library_note": t["library_note"]}
@@ -1802,14 +1875,20 @@ def main(argv=None) -> int:
                 row.update(train_shape=tr["shape"], train_ms=tr["ms"],
                            train_bound_ms=tr["bound_ms"],
                            train_bound_by=tr["bound_by"],
-                           train_library_ms=tr["library_ms"],
-                           eager_ms=t["eager_ms"])
+                           train_library_ms=tr["library_ms"])
                 for extra in ("decode", "dgrad"):
                     te = timing[f"gmm_bf16_{extra}"]
                     row[f"{extra}_shape"] = te["shape"]
                     row[f"{extra}_ms"] = te["ms"]
                     row[f"{extra}_bound_ms"] = te["bound_ms"]
                     row[f"{extra}_library_ms"] = te["library_ms"]
+            if name == "wgrad":
+                # B4 with dw in f32, beside the bf16 dw the path takes
+                tf = timing["wgrad_f32"]
+                row.update(out_dtype=t["out_dtype"],
+                           **{f"f32_out_{k}": tf[k] for k in (
+                               "ms", "eager_ms", "plain_ms", "bound_ms",
+                               "bound_by", "library_ms", "library_note")})
             if name == "flash_attention":
                 row["shapes"] = t["shapes"]
             rows.append(row)

@@ -91,11 +91,13 @@ def _dgrad(d8, sd, w, group_sizes, cfg: KernelConfig, plan: TilePlan):
 
 
 def _wgrad(operands, group_sizes, cfg: KernelConfig, plan: TilePlan,
-           num_groups: int):
-    """``dw[g] = a_g^T dy_g`` in f32.  ``operands``: ``(a, dy)``, cast to
-    bf16 here, or under fp8 wgrad ``(a8, s_a, d8, s_d)``."""
-    kw = dict(num_groups=num_groups, block_n=cfg.block_n,
-              block_k=cfg.block_k, out_dtype=torch.float32, plan=plan)
+           w: torch.Tensor):
+    """``dw[g] = a_g^T dy_g``, f32-accumulated, in ``w``'s dtype (the bf16
+    kernel rounds its f32 sum once; the fp8 one writes f32, cast here).
+    ``operands``: ``(a, dy)``, cast to bf16 here, or under fp8 wgrad
+    ``(a8, s_a, d8, s_d)``."""
+    kw = dict(num_groups=w.shape[0], block_n=cfg.block_n,
+              block_k=cfg.block_k, out_dtype=w.dtype, plan=plan)
     if cfg.wgrad_precision == "fp8":
         return wgrad_kernel.gmm_wgrad_fp8(*operands, group_sizes, **kw)
     a, dy = (t.to(torch.bfloat16).contiguous() for t in operands)
@@ -135,10 +137,10 @@ class _GroupedLinearFP8(torch.autograd.Function):
         # res: (a8, s_a) under fp8 wgrad, else (x,)
         operands = (*res, d8, sd) if cfg.wgrad_precision == "fp8" \
             else (res[0], dy)
-        dw = _wgrad(operands, group_sizes, cfg, plan, w.shape[0])
+        dw = _wgrad(operands, group_sizes, cfg, plan, w)
         # a supplied QuantizedActivation gets no gradient: x's reaches it
         # through dx, as the JAX package's zero cotangent for it says
-        return dx.to(ctx.x_dtype), dw.to(w.dtype), None, None, None, None
+        return dx.to(ctx.x_dtype), dw, None, None, None, None
 
 
 class _GroupedLinearFP8Fused(torch.autograd.Function):
@@ -173,10 +175,10 @@ class _GroupedLinearFP8Fused(torch.autograd.Function):
         # under bf16 wgrad the recomputed h (cast to bf16) is contracted
         operands = (*h_res, d8, sd) if cfg.wgrad_precision == "fp8" \
             else (h.detach(), dy)
-        dw = _wgrad(operands, group_sizes, cfg, plan, w.shape[0])
+        dw = _wgrad(operands, group_sizes, cfg, plan, w)
         dg = grads[0].to(g.dtype)
         du = grads[1].to(u.dtype) if u is not None else None
-        return dg, du, dw.to(w.dtype), None, None, None, None
+        return dg, du, dw, None, None, None, None
 
 
 class _GroupedLinearFFNFP8(torch.autograd.Function):
@@ -222,7 +224,6 @@ class _GroupedLinearFFNFP8(torch.autograd.Function):
         cfg, plan, act = ctx.cfg, ctx.plan, ctx.act
         (g8, sg, u8, su, w_gate, w_up, w_down, group_sizes,
          *res) = ctx.saved_tensors
-        num_groups = w_up.shape[0]
         # ONE quantization of dy serves the down dgrad AND its fp8 wgrad
         d8, sd = q.quantize_tilewise(dy.float().contiguous())
         dh = _dgrad(d8, sd, w_down, group_sizes, cfg, plan)
@@ -251,14 +252,14 @@ class _GroupedLinearFFNFP8(torch.autograd.Function):
             (x,) = res
             ops_down, ops_up = (h.detach(), dy), (x, du)
             ops_gate = None if w_gate is None else (x, dg)
-        dw_down = _wgrad(ops_down, group_sizes, cfg, plan, num_groups)
-        dw_up = _wgrad(ops_up, group_sizes, cfg, plan, num_groups)
+        dw_down = _wgrad(ops_down, group_sizes, cfg, plan, w_down)
+        dw_up = _wgrad(ops_up, group_sizes, cfg, plan, w_up)
         dw_gate = None if w_gate is None else \
-            _wgrad(ops_gate, group_sizes, cfg, plan, num_groups).to(w_gate.dtype)
+            _wgrad(ops_gate, group_sizes, cfg, plan, w_gate)
         # a supplied QuantizedActivation gets no gradient, as in
         # _GroupedLinearFP8
-        return (dx.to(ctx.x_dtype), dw_gate, dw_up.to(w_up.dtype),
-                dw_down.to(w_down.dtype), None, None, None, None, None)
+        return (dx.to(ctx.x_dtype), dw_gate, dw_up, dw_down, None, None,
+                None, None, None)
 
 
 class _GroupedLinearBF16(torch.autograd.Function):
@@ -281,8 +282,8 @@ class _GroupedLinearBF16(torch.autograd.Function):
         # lies (K-contiguous), with no transposed copy of the weight
         dx = _gemm_bf16(dy, w.transpose(1, 2), group_sizes, cfg, plan,
                         torch.float32)
-        dw = _wgrad((x, dy), group_sizes, cfg, plan, w.shape[0])
-        return dx.to(x.dtype), dw.to(w.dtype), None, None, None
+        dw = _wgrad((x, dy), group_sizes, cfg, plan, w)
+        return dx.to(x.dtype), dw, None, None, None
 
 
 def grouped_linear(x: torch.Tensor, w: torch.Tensor,

@@ -1,10 +1,12 @@
-// Ragged-contraction (wgrad) grouped GEMM: dw[g] = x[rows of g]^T @ dy[rows of g].
+// Ragged-contraction (wgrad) grouped GEMM on e4m3 operands:
+// dw[g] = x[rows of g]^T @ dy[rows of g], each row dequantized by its 1x128
+// scales.
 //
-// Replaces: src/repro/kernels/wgrad_kernel.py::gmm_pallas_wgrad (B4, bf16
-// operands) and ::gmm_pallas_wgrad_fp8 (B6, e4m3 operands with their 1x128
-// scales).  x [M, K], dy [M, N]; rows [offsets[g], offsets[g+1]) belong to
-// group g and are contracted into dw[g] [K, N] f32.  Rows at or beyond
-// offsets[G] never enter; a group with no rows gets zeros.
+// Replaces: src/repro/kernels/wgrad_kernel.py::gmm_pallas_wgrad_fp8 (B6:
+// e4m3 operands with their 1x128 scales; the bf16 B4 is wgrad_bf16.cu).
+// x [M, K], dy [M, N]; rows [offsets[g], offsets[g+1]) belong to group g
+// and are contracted into dw[g] [K, N] f32.  Rows at or beyond offsets[G]
+// never enter; a group with no rows gets zeros.
 //
 // Bound on the card: at the training path's shapes (16384 rows over 60
 // groups, K/N 2048/1408) the work is 94.5 GFLOP against ~760 MB, most of
@@ -25,7 +27,7 @@
 // are never read.  Both operands are staged row-major ([m][k], [m][n]) and
 // ldmatrix.trans hands the tensor cores their transposes.
 //
-// B6: the e4m3 payload of x is exact in bf16.  Each contracted row m has
+// The e4m3 payload of x is exact in bf16.  Each contracted row m has
 // one scale pair sx[m, kb] * sdy[m, nb] for the CTA's tile; it varies
 // along the contraction, so it is folded into the dy operand in f32,
 // which then enters the product as a bf16 hi + lo pair (two products):
@@ -56,28 +58,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const __nv_bfloat16
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Stage rows [m0, m0 + kMC) of the tile's 128 columns into Xs / Ds; rows
-// at or past `end` become zeros without being read.
-// bf16 operands: 512 16-byte vectors per operand, two per thread.
-__device__ __forceinline__ void stage_bf16(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
-    int m0, int end, int K, int N, int k0, int n0,
-    __nv_bfloat16 (*Xs)[kLd], __nv_bfloat16 (*Ds)[kLd]) {
-#pragma unroll
-  for (int it = 0; it < kMC * (kTile / 8) / kThreads; ++it) {
-    const int e = threadIdx.x + it * kThreads;
-    const int r = e >> 4, c = (e & 15) * 8;
-    const int row = m0 + r;
-    uint4 vx = make_uint4(0, 0, 0, 0), vd = make_uint4(0, 0, 0, 0);
-    if (row < end) {
-      vx = *reinterpret_cast<const uint4*>(x + (size_t)row * K + k0 + c);
-      vd = *reinterpret_cast<const uint4*>(dy + (size_t)row * N + n0 + c);
-    }
-    *reinterpret_cast<uint4*>(&Xs[r][c]) = vx;
-    *reinterpret_cast<uint4*>(&Ds[r][c]) = vd;
-  }
 }
 
 // e4m3 operands: one 16-byte vector (16 values) of x and of dy per thread.
@@ -135,13 +115,12 @@ __device__ __forceinline__ void stage_fp8(
 // grid (N / 128, K / 128, G).  A warp owns 64 rows of K x 32 columns of
 // N: 4 x 4 m16n8 accumulator fragments.  The MMA's A operand is x^T
 // (rows k, contraction m), its B operand dy (contraction m, columns n).
-template <bool kFp8>
 __global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const void* __restrict__ x, const float* __restrict__ sx,
-             const void* __restrict__ dy, const float* __restrict__ sdy,
-             const int* __restrict__ offsets, float* __restrict__ dw,
-             int M, int K, int N) {
-  constexpr int kParts = kFp8 ? 2 : 1;   // dy as one bf16, or as hi + lo
+wgrad_fp8_kernel(const uint8_t* __restrict__ x, const float* __restrict__ sx,
+                 const uint8_t* __restrict__ dy, const float* __restrict__ sdy,
+                 const int* __restrict__ offsets, float* __restrict__ dw,
+                 int M, int K, int N) {
+  constexpr int kParts = 2;              // dy as a bf16 hi + lo pair
   __shared__ __align__(16) __nv_bfloat16 Xs[kMC][kLd];
   __shared__ __align__(16) __nv_bfloat16 Ds[kParts][kMC][kLd];
 
@@ -161,13 +140,7 @@ wgrad_kernel(const void* __restrict__ x, const float* __restrict__ sx,
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
 
   for (int m0 = start; m0 < end; m0 += kMC) {
-    if constexpr (kFp8)
-      stage_fp8(static_cast<const uint8_t*>(x), sx, static_cast<const uint8_t*>(dy),
-                sdy, m0, end, K, N, k0, n0, Xs, Ds[0], Ds[1]);
-    else
-      stage_bf16(static_cast<const __nv_bfloat16*>(x),
-                 static_cast<const __nv_bfloat16*>(dy), m0, end, K, N, k0, n0,
-                 Xs, Ds[0]);
+    stage_fp8(x, sx, dy, sdy, m0, end, K, N, k0, n0, Xs, Ds[0], Ds[1]);
     __syncthreads();
 #pragma unroll
     for (int ks = 0; ks < kMC; ks += 16) {
@@ -217,20 +190,12 @@ wgrad_kernel(const void* __restrict__ x, const float* __restrict__ sx,
 
 // One launch covers every group: grid (N / 128, K / 128, G).  K and N
 // are multiples of 128; offsets [G + 1] int32; dw [G, K, N] f32.
-extern "C" int wgrad_bf16(const void* x, const void* dy, const void* offsets,
-                          void* dw, int M, int K, int N, int G, void* stream) {
-  const dim3 grid(N / kTile, K / kTile, G);
-  wgrad_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, nullptr, dy, nullptr, (const int*)offsets, (float*)dw, M, K, N);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int wgrad_fp8(const void* x, const void* sx, const void* dy,
                          const void* sdy, const void* offsets, void* dw, int M,
                          int K, int N, int G, void* stream) {
   const dim3 grid(N / kTile, K / kTile, G);
-  wgrad_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      x, (const float*)sx, dy, (const float*)sdy, (const int*)offsets,
-      (float*)dw, M, K, N);
+  wgrad_fp8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)x, (const float*)sx, (const uint8_t*)dy,
+      (const float*)sdy, (const int*)offsets, (float*)dw, M, K, N);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 """Ragged-contraction (wgrad) grouped GEMM: the CUDA kernels
-(``csrc/wgrad.cu``) and their plain PyTorch versions.
+(``csrc/wgrad_bf16.cu`` for bf16 operands, ``csrc/wgrad.cu`` for e4m3
+ones) and their plain PyTorch versions.
 
 ``dw[g] = x_g^T @ dy_g``, where the contracted axis is the ragged M axis:
 group g owns rows ``[offsets[g], offsets[g+1])`` of both the activation
@@ -11,7 +12,9 @@ groups with no rows come back exactly zero.
 
 Two operand precisions:
   * :func:`gmm_wgrad`: bf16 operands, f32 accumulation (the DeepSeek-V3
-    recipe keeps the wgrad at the highest precision); the default.
+    recipe keeps the wgrad at the highest precision); the default.  Its
+    kernel writes dw in f32 or bf16 (the f32 sum rounded once), so the
+    training path takes dw in the weights' dtype with no cast pass.
   * :func:`gmm_wgrad_fp8`: e4m3 operands with their 1x128 tile scales,
     the forward's ``(a8, s_a)`` and the dgrad's ``(d8, s_d)``, dequantized
     in the kernel (arXiv 2505.20524's all-fp8 step).
@@ -111,16 +114,23 @@ def _check_cuda(block_n, block_k, operands):
     return dev
 
 
-def _launch(symbol, argtypes, ptrs, m, k, n, num_groups, dev, out_dtype,
-            what):
-    dw = torch.empty((num_groups, k, n), dtype=torch.float32, device=dev)
+#: output dtypes the bf16 kernel writes
+WGRAD_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _launch(lib, symbol, argtypes, ptrs, m, k, n, num_groups, dev,
+            out_dtype, what, extra=()):
+    """Allocate dw [G, K, N] in ``out_dtype`` and launch ``symbol`` of
+    ``csrc/<lib>.cu`` with ``ptrs``, dw, the shapes and ``extra``;
+    returns ``(dw, launched)``."""
+    dw = torch.empty((num_groups, k, n), dtype=out_dtype, device=dev)
     if m == 0 or num_groups == 0:
-        return dw.zero_().to(out_dtype), False
-    fn = build.function("wgrad", symbol, argtypes)
-    status = fn(*ptrs, dw.data_ptr(), m, k, n, num_groups,
+        return dw.zero_(), False
+    fn = build.function(lib, symbol, argtypes)
+    status = fn(*ptrs, dw.data_ptr(), m, k, n, num_groups, *extra,
                 build.stream_ptr(dev))
     build.check(status, what)
-    return dw.to(out_dtype), True
+    return dw, True
 
 
 def gmm_wgrad_cuda(x, dy, group_sizes, *, num_groups: Optional[int] = None,
@@ -129,7 +139,11 @@ def gmm_wgrad_cuda(x, dy, group_sizes, *, num_groups: Optional[int] = None,
                    out_dtype: torch.dtype = torch.float32,
                    plan: Optional[TilePlan] = None) -> torch.Tensor:
     """Launch B4 (one launch for every group) on bf16 CUDA tensors.  The
-    kernel writes f32; another ``out_dtype`` is a cast of its output."""
+    kernel writes dw in ``out_dtype``, f32 or bf16: its f32 sum rounded
+    once to nearest."""
+    if out_dtype not in WGRAD_OUT_DTYPES:
+        raise TypeError(f"gmm_wgrad_cuda writes dw in {WGRAD_OUT_DTYPES}, "
+                        f"not {out_dtype}")
     (m, k), (m2, n) = x.shape, dy.shape
     num_groups, offsets = _prepare(m, k, m2, n, group_sizes, num_groups,
                                    block_m, block_n, block_k, plan)
@@ -137,9 +151,10 @@ def gmm_wgrad_cuda(x, dy, group_sizes, *, num_groups: Optional[int] = None,
         ("x", x, torch.bfloat16), ("dy", dy, torch.bfloat16),
         ("group offsets", offsets, torch.int32)))
     dw, launched = _launch(
-        "wgrad_bf16", [_P] * 4 + [_I] * 4 + [_P],
+        "wgrad_bf16", "wgrad_bf16", [_P] * 4 + [_I] * 5 + [_P],
         (x.data_ptr(), dy.data_ptr(), offsets.data_ptr()),
-        m, k, n, num_groups, dev, out_dtype, "gmm_wgrad")
+        m, k, n, num_groups, dev, out_dtype, "gmm_wgrad",
+        extra=(int(out_dtype == torch.float32),))
     gmm_wgrad_cuda.launches += launched
     return dw
 
@@ -153,7 +168,8 @@ def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
                        out_dtype: torch.dtype = torch.float32,
                        plan: Optional[TilePlan] = None) -> torch.Tensor:
     """Launch B6 (one launch for every group) on e4m3 CUDA tensors and
-    their f32 1x128 scales."""
+    their f32 1x128 scales.  The kernel writes f32; another ``out_dtype``
+    is a cast of its output."""
     (m, k), (m2, n) = x_fp8.shape, dy_fp8.shape
     num_groups, offsets = _prepare(m, k, m2, n, group_sizes, num_groups,
                                    block_m, block_n, block_k, plan)
@@ -163,12 +179,12 @@ def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
         ("dy_fp8", dy_fp8, FP8), ("s_dy", s_dy, torch.float32),
         ("group offsets", offsets, torch.int32)))
     dw, launched = _launch(
-        "wgrad_fp8", [_P] * 6 + [_I] * 4 + [_P],
+        "wgrad", "wgrad_fp8", [_P] * 6 + [_I] * 4 + [_P],
         (x_fp8.data_ptr(), s_x.data_ptr(), dy_fp8.data_ptr(),
          s_dy.data_ptr(), offsets.data_ptr()),
-        m, k, n, num_groups, dev, out_dtype, "gmm_wgrad_fp8")
+        m, k, n, num_groups, dev, torch.float32, "gmm_wgrad_fp8")
     gmm_wgrad_fp8_cuda.launches += launched
-    return dw
+    return dw.to(out_dtype)
 
 
 gmm_wgrad_fp8_cuda.launches = 0

@@ -174,13 +174,16 @@ def test_ffn_quantize_counts(wgrad):
 def test_backward_hands_the_kernels_contiguous_operands(wgrad, monkeypatch):
     """The CUDA wrappers take only contiguous operands; on the CPU the
     plain versions would accept strided ones, so check what the layers
-    hand them."""
+    hand them.  The wgrads are asked for dw in the weights' dtype, so the
+    bf16 kernel writes it with no cast pass after."""
     from repro_torch.kernels import grouped_gemm_kernel, wgrad_kernel
-    seen = []
+    seen, wgrad_dtypes = [], []
 
     def spy(fn):
         def call(*args, **kw):
             seen.extend(a for a in args if isinstance(a, torch.Tensor))
+            if fn.__name__.startswith("gmm_wgrad"):
+                wgrad_dtypes.append(kw["out_dtype"])
             return fn(*args, **kw)
         return call
     for mod, name in ((grouped_gemm_kernel, "gmm"),
@@ -199,6 +202,7 @@ def test_backward_hands_the_kernels_contiguous_operands(wgrad, monkeypatch):
     (y.float().sum() + y2.float().sum()).backward()
     assert len(seen) >= 16
     assert all(t.is_contiguous() for t in seen)
+    assert wgrad_dtypes == [torch.bfloat16] * 2
 
 
 def test_bf16_backward_reads_the_weight_where_it_lies(monkeypatch):

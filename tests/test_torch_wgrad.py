@@ -3,7 +3,10 @@ JAX package's Pallas kernels ``gmm_pallas_wgrad`` / ``gmm_pallas_wgrad_fp8``
 (interpret mode on the CPU) and its exact one-hot oracles.
 
 All of them accumulate exact f32 products of the same operands in f32, in
-different orders: the tolerance is 1e-5 of the largest |dw|.  Structural
+different orders: the tolerance is 1e-5 of the largest |dw|.  A bf16 dw is
+that f32 sum rounded once to nearest: bitwise the f32 dw cast to bf16, and
+within one bf16 step of the reference's bf16 dw (the two f32 sums may
+round to neighbouring bf16 values).  Structural
 zeros (empty groups, the all-empty call) must be exactly zero, and rows
 past ``sum(group_sizes)`` must not reach the result even when they hold
 NaN.
@@ -81,6 +84,25 @@ def test_plain_wgrad_matches_pallas_and_oracle(case):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_wgrad_bf16_out_matches_pallas(case):
+    sizes, m, k, n, bm = CASES[case]
+    (jx, jdy), (tx, tdy) = _bf16_operands(m, k, n, seed=m + k)
+    jgs = jnp.asarray(sizes, jnp.int32)
+    tgs = torch.tensor(sizes, dtype=torch.int32)
+    pallas = gmm_pallas_wgrad(jx, jdy, jgs, block_m=bm,
+                              out_dtype=jnp.bfloat16, interpret=True)
+    got = twk.gmm_wgrad_plain(tx, tdy, tgs, block_m=bm,
+                              out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (len(sizes), k, n)
+    f32 = twk.gmm_wgrad_plain(tx, tdy, tgs, block_m=bm)
+    assert torch.equal(got, f32.to(torch.bfloat16))
+    want = np.asarray(pallas.astype(jnp.float32))
+    step = np.abs(want) * 2.0 ** -7 + TOL * max(float(np.abs(want).max()),
+                                                 1e-30)
+    assert (np.abs(got.float().numpy() - want) <= step).all()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_wgrad_fp8_matches_pallas_and_oracle(case):
     sizes, m, k, n, bm = CASES[case]
     j, t = _fp8_operands(m, k, n, seed=m + n)
@@ -154,5 +176,9 @@ def test_empty_buffer_and_argument_checks():
             twk.gmm_wgrad_fp8_cuda.launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         twk.gmm_wgrad_cuda(x, dy, gs)
+    # the bf16 kernel writes f32 or bf16 only: checked before the device
+    with pytest.raises(TypeError, match="writes dw in"):
+        twk.gmm_wgrad_cuda(x, dy, gs, out_dtype=torch.float16)
+    assert twk.gmm_wgrad_cuda.launches == before[0]
     with pytest.raises(ValueError, match="CUDA"):
         twk.gmm_wgrad_fp8_cuda(q8, s, q8, s, gs)
