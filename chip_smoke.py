@@ -17,12 +17,15 @@ decode.  Phases, each printing JSON lines:
   2. build   every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   3. kernel  each kernel against its plain PyTorch version on the card at
              the serving and training paths' shapes (the bf16 wgrad at
-             both output dtypes): max error, mismatches, times and the
-             bound of the work; the one PyTorch call computing a kernel's
-             function, where there is one, checked against the plain
-             version and timed; the quantizing GEMM bitwise against the
-             quantizer applied to the GEMM; flash attention also built
-             without its lo product, for timing only;
+             both output dtypes; the grouped GEMMs also at every owned
+             span of a tile, into NaN-prefilled outputs): max error,
+             mismatches, times and the bound of the work (the grouped
+             GEMMs timed at prefill, decode, training and dgrad shapes);
+             the one PyTorch call computing a kernel's function, where
+             there is one, checked against the plain version and timed;
+             the quantizing GEMM bitwise against the quantizer applied to
+             the GEMM; flash attention also built without its lo product,
+             for timing only;
   4. forward each configuration cut to 2 layers: prefill logits through
              the kernels against the plain versions (prompt 64, and 128
              for the flash configurations);
@@ -71,7 +74,7 @@ L2_BYTES = 50 * 2 ** 20         # H100 L2 cache
 # profiler kernel names -> category, first match wins
 KERNEL_CATEGORIES = (
     ("flash attention", ("flash_attention_kernel",)),
-    ("grouped GEMMs (gmm, gmm_quant, gmm_bf16)", ("gmm_kernel",
+    ("grouped GEMMs (gmm, gmm_quant, gmm_bf16)", ("gmm_fp8_tma_kernel",
                                                   "gmm_bf16_tma_kernel")),
     ("wgrad", ("wgrad_bf16_kernel", "wgrad_fp8_kernel")),
     ("quantize + act_quantize", ("quantize_tilewise_kernel",
@@ -575,15 +578,22 @@ def check_act_quantize_fp8(gen, rows):
     return out
 
 
-def compare_gemm_quant(name, args, kw, plan):
+def compare_gemm_quant(name, args, kw, plan, *, nan_out=False):
     """B7 bitwise against B1 applied to B2's output (payload bytes and
     scales), and against its plain version within one e4m3 step plus the
-    GEMM's one-bf16-step tolerance; tail rows payload 0 and scale 1."""
+    GEMM's one-bf16-step tolerance; tail rows payload 0 and scale 1.
+    ``nan_out``: into a payload and scales prefilled with NaN, so a row
+    left unwritten shows."""
     import torch
     from repro_torch.kernels import grouped_gemm_kernel as gk
     from repro_torch.kernels import quant_kernel as qk
     m, n = args[0].shape[0], args[2].shape[2]
-    q, s = gk.gmm_quant_cuda(*args, **kw)
+    out = None
+    if nan_out:
+        out = (torch.full((m, n), 0x7F, dtype=torch.uint8,
+                          device="cuda").view(torch.float8_e4m3fn),
+               torch.full((m, n // 128), float("nan"), device="cuda"))
+    q, s = gk.gmm_quant_cuda(*args, out=out, **kw)
     q2, s2 = qk.quantize_tilewise_cuda(gk.gmm_cuda(*args, **kw).float())
     qp, sp = gk.gmm_quant_plain(*args, **kw)
     torch.cuda.synchronize()
@@ -618,6 +628,7 @@ def compare_gemm_quant(name, args, kw, plan):
 
 def check_gemm_quant(gen, cases):
     import torch
+    from repro_torch.kernels import grouped_gemm_kernel as gk
     out = []
     for name, (m, k, n, sizes, bm, nan_tail) in cases.items():
         args, kw, plan = gemm_case(gen, m, k, n, sizes, bm, torch.bfloat16)
@@ -627,9 +638,40 @@ def check_gemm_quant(gen, cases):
             total = int(sizes.sum())
             args[0].view(torch.uint8)[total:] = 0x7F
             args[1][total:] = float("nan")
-        out.append(compare_gemm_quant(name, args, kw, plan))
+        out.append(compare_gemm_quant(name, args, kw, plan,
+                                      nan_out=name.startswith("spans")))
+        if name in ("prefill_gate_up", "train_gate_up"):
+            repeat_bitwise("gmm_quant " + name, gk.gmm_quant_cuda, args, kw)
         del args
     return out
+
+
+def repeat_bitwise(label, fn, args, kw):
+    """Two launches of ``fn`` on the same operands give the same bits."""
+    import torch
+    y1, y2 = fn(*args, **kw), fn(*args, **kw)
+    if not isinstance(y1, tuple):
+        y1, y2 = (y1,), (y2,)
+    for a, b in zip(y1, y2):
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            raise AssertionError(f"{label}: two launches differ")
+
+
+def spans_cases(dtypes):
+    """"spans": every owned span 1..block_m of a tile, so every descriptor
+    of a TMA store pool stores (tile i holds groups of i + 1 and
+    block_m - 1 - i rows), then a partial tile of owned rows and zero
+    rows, with M not a multiple of 64; at block_m 128 and 16, for each
+    output dtype: name -> (m, k, n, sizes, block_m, dtype)."""
+    import torch
+    cases = {}
+    for bm in (128, 16):
+        spans = [s for i in range(bm) for s in (i + 1, bm - 1 - i)]
+        sizes = torch.tensor(spans + [bm // 8 + 4], dtype=torch.int32)
+        m = bm * bm + bm // 4 + 5
+        for dt in dtypes:
+            cases[f"spans_bm{bm}_{str(dt)[6:]}"] = (m, 256, 256, sizes, bm, dt)
+    return cases
 
 
 def bf16_case(gen, m, k, n, sizes, block_m, out_dtype, k_major=False):
@@ -883,6 +925,97 @@ def time_flash(gen, worst):
                 max_abs_err=worst), lib
 
 
+def gemm_sizes(cpu_gen) -> dict:
+    """The grouped GEMMs' group sizes (60 groups): "prefill" 1000 of 1024
+    rows, 8 groups empty; "decode_ragged" 16 rows over 12 groups;
+    "train" 16384 routed slots, 8 groups empty (drawn in that order from
+    ``cpu_gen``); "decode" decode's 16 rows grouped as the router groups
+    them (batch 4, top-4 of 60: ~14 visited experts), drawn apart."""
+    import torch
+    out = {"prefill": ragged_sizes(cpu_gen, 1024, 60, 1000, empty=8),
+           "decode_ragged": ragged_sizes(cpu_gen, 16, 60, 16, empty=48),
+           "train": ragged_sizes(cpu_gen, 16384, 60, 16384, empty=8)}
+    out["decode"] = routed_sizes(torch.Generator().manual_seed(3), 4, 4, 60)
+    return out
+
+
+# B2's and B7's timed shapes, where the serving and training paths run
+# them: timing key -> (group sizes, M, K, N, block_m, output dtype); the
+# routed gate at prefill, at decode and in training, the training
+# dgrad of the gate/up (dx = dy @ w^T, f32 out)
+GMM_FP8_TIMED = {
+    "gmm": ("prefill", 1024, 2048, 1408, 128, "bfloat16"),
+    "gmm_decode": ("decode", 16, 2048, 1408, 16, "bfloat16"),
+    "gmm_train": ("train", 16384, 2048, 1408, 128, "bfloat16"),
+    "gmm_dgrad": ("train", 16384, 1408, 2048, 128, "float32"),
+    "gmm_quant": ("prefill", 1024, 2048, 1408, 128, "bfloat16"),
+    "gmm_quant_decode": ("decode", 16, 2048, 1408, 16, "bfloat16"),
+    "gmm_quant_train": ("train", 16384, 2048, 1408, 128, "bfloat16"),
+}
+
+
+def time_gmm_fp8(gen, sizes) -> dict:
+    """Times of B2 (``gmm*``) and B7 (``gmm_quant*``) at GMM_FP8_TIMED's
+    shapes: CUDA-graph replays ("ms") and back-to-back eager calls, each
+    call on its own copy of A and B (with their scales), enough copies
+    that each call reads them from HBM; the plain version's eager time;
+    the bytes (each input read once, each output written once) and the
+    products' operations, which the caller turns into the bound at the
+    rate of the operands' type, fp8 (the kernels' f16 products on
+    widened operands are a choice of their design, not of the work).
+    B7 at prefill also times B2 then B1, the unfused pair it replaces."""
+    import torch
+    from repro_torch.kernels import grouped_gemm_kernel as gk
+    from repro_torch.kernels import quant_kernel as qk
+    out = {}
+    for key, (which, m, k, n, bm, dt) in GMM_FP8_TIMED.items():
+        quant = key.startswith("gmm_quant")
+        dt = getattr(torch, dt)
+        args, kw, plan = gemm_case(gen, m, k, n, sizes[which], bm, dt)
+        gs = args[4]
+        rows = int(plan.total_rows())
+        visited = int((gs > 0).sum())
+        kb, nb = k // 128, n // 128
+        in_bytes = m * k + 4 * m * kb + visited * (k * n + 4 * kb * nb)
+        copies = rotation(lambda: tuple(t.clone() for t in args[:4]),
+                          in_bytes)
+        iters = len(copies) * -(-10 // len(copies))
+        cuda = gk.gmm_quant_cuda if quant else gk.gmm_cuda
+        plain = gk.gmm_quant_plain if quant else gk.gmm_plain
+
+        def call(i, cuda=cuda, copies=copies, gs=gs, kw=kw):
+            return cuda(*copies[i % len(copies)], gs, **kw)
+        row = dict(
+            shape=[m, k, n], groups=int(gs.numel()), total_rows=rows,
+            visited_groups=visited, block_m=bm, out_dtype=str(dt)[6:],
+            input_copies=len(copies),
+            ms=graph_ms(call, iters=iters), eager_ms=cuda_ms(call, iters=iters),
+            # reads the group offsets back to the host, so no graph: eager
+            plain_ms=cuda_ms(lambda i, plain=plain, args=args, kw=kw:
+                             plain(*args, **kw), iters=3, warmup=1),
+            bytes=in_bytes + (m * n + 4 * m * nb if quant
+                              else dt.itemsize * m * n),
+            flops=2 * rows * k * n)
+        if key == "gmm_quant":
+            row["gmm_then_quantize_ms"] = graph_ms(
+                lambda i: qk.quantize_tilewise_cuda(
+                    gk.gmm_cuda(*copies[i % len(copies)], gs, **kw).float()),
+                iters=iters)
+        out[key] = row
+        del args, copies
+    return out
+
+
+def add_bound(t: dict) -> None:
+    """Set a timing row's ``bound_ms``, the least time the card could take
+    for its ``bytes`` and ``flops`` (at its ``peak_flop_per_s``, fp8's by
+    default), and ``bound_by``, the term that binds."""
+    t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = t["flops"] / t.pop("peak_flop_per_s", FP8_FLOP_PER_S) * 1e3
+    t["bound_ms"] = max(t_bytes, t_ops)
+    t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
 def library_call(fn, want, tol_fn):
     """Time ``fn(i)`` (call ``i``), the one PyTorch call computing a
     kernel's function, after checking ``fn(0)`` against ``want`` (the
@@ -1019,10 +1152,8 @@ def phase_kernels(full: bool):
               (16384, 1408, "silu_mul"), (4096, 5632, "silu_mul")])
 
     gemm = []
-    pre = ragged_sizes(cpu_gen, 1024, 60, 1000, empty=8)
-    dec = ragged_sizes(cpu_gen, 16, 60, 16, empty=48)
-    # training: 16384 routed slots over 60 groups, 8 of them empty
-    routed = ragged_sizes(cpu_gen, 16384, 60, 16384, empty=8)
+    drawn = gemm_sizes(cpu_gen)
+    pre, dec, routed = drawn["prefill"], drawn["decode_ragged"], drawn["train"]
     shared = torch.tensor([4096], dtype=torch.int32)
     cases = {
         "prefill_gate": (1024, 2048, 1408, pre, 128, torch.bfloat16),
@@ -1058,12 +1189,19 @@ def phase_kernels(full: bool):
                                            torch.float32),
         "train_shared_dgrad_down_f32": (4096, 2048, 5632, shared, 128,
                                         torch.float32),
+        # into NaN-prefilled outputs, at both output dtypes
+        **spans_cases((torch.bfloat16, torch.float32)),
     }
     setups = {}
     for name, (m, k, n, sizes, bm, dt) in cases.items():
         args, kw, plan = gemm_case(gen, m, k, n, sizes, bm, dt)
-        gemm.append(compare_gemm(name, args, kw, plan))
-        if not name.startswith("train"):       # keep what is used below
+        gemm.append(compare_gemm(name, args, kw, plan,
+                                 nan_out=name.startswith("spans")))
+        # deterministic: two launches bitwise equal
+        if name in ("prefill_gate", "decode_gate", "train_gate_up",
+                    "train_dgrad_gate_up_f32"):
+            repeat_bitwise("gmm " + name, gk.gmm_cuda, args, kw)
+        if not name.startswith(("train", "spans")):   # kept for below
             setups[name] = (args, kw, plan)
         del args
     args, kw, plan = setups["prefill_gate"]
@@ -1100,11 +1238,12 @@ def phase_kernels(full: bool):
         "all_empty": (256, 256, 256, torch.zeros(4, dtype=torch.int32), 128,
                       False),
         "nan_tail": (1024, 2048, 1408, pre, 128, True),
+        # into a NaN-prefilled payload and scales
+        **{name: (m, k, n, sizes, bm, False) for name, (m, k, n, sizes, bm, _)
+           in spans_cases((torch.bfloat16,)).items()},
     })
-    # B5 at the bf16 path's shapes: forward (bf16 out) and dgrad (f32 out);
-    # decode's 16 rows grouped as the router groups them (batch 4, top-4
-    # of 60: ~14 visited experts), drawn apart so the sizes above stay
-    dec_routed = routed_sizes(torch.Generator().manual_seed(3), 4, 4, 60)
+    # B5 at the bf16 path's shapes: forward (bf16 out) and dgrad (f32 out)
+    dec_routed = drawn["decode"]
     bf16_cases = {
         "prefill_gate": (1024, 2048, 1408, pre, 128, torch.bfloat16),
         "prefill_down": (1024, 1408, 2048, pre, 128, torch.bfloat16),
@@ -1126,18 +1265,8 @@ def phase_kernels(full: bool):
                                     torch.float32),
         "decode_gate_wT": (16, 2048, 1408, dec_routed, 16, torch.bfloat16),
     }
-    # "spans": every owned span 1..block_m of a tile, so every descriptor
-    # of the TMA store pool stores (tile i holds groups of i + 1 and
-    # block_m - 1 - i rows), then a partial tile of owned rows and zero
-    # rows, with M not a multiple of 64; into a NaN-prefilled out, at both
-    # output dtypes
-    for bm in (128, 16):
-        spans = [s for i in range(bm) for s in (i + 1, bm - 1 - i)]
-        sizes = torch.tensor(spans + [bm // 8 + 4], dtype=torch.int32)
-        m = bm * bm + bm // 4 + 5
-        for dt in (torch.bfloat16, torch.float32):
-            bf16_cases[f"spans_bm{bm}_{str(dt)[6:]}"] = (m, 256, 256, sizes,
-                                                         bm, dt)
+    # into a NaN-prefilled out, at both output dtypes
+    bf16_cases.update(spans_cases((torch.bfloat16, torch.float32)))
     bf16_rows, bf16_setups = [], {}
     keep = [case for case, _ in BF16_TIMED]
     for name, (m, k, n, sizes, bm, dt) in bf16_cases.items():
@@ -1160,11 +1289,7 @@ def phase_kernels(full: bool):
     # deterministic: two launches bitwise equal, in either layout of w
     for name in ("prefill_gate", "train_dgrad_gate_up_f32_wT"):
         rargs, rkw, _ = bf16_setups[name]
-        y1 = gk.gmm_bf16_cuda(*rargs, **rkw)
-        y2 = gk.gmm_bf16_cuda(*rargs, **rkw)
-        if not torch.equal(y1, y2):
-            raise AssertionError(f"gmm_bf16 {name}: two launches differ")
-        del y1, y2
+        repeat_bitwise("gmm_bf16 " + name, gk.gmm_bf16_cuda, rargs, rkw)
     # a w in any other layout is refused, not copied
     x16, w16, bgs = bargs
     wide = torch.empty((w16.shape[0], w16.shape[1], 2 * w16.shape[2]),
@@ -1231,34 +1356,12 @@ def phase_kernels(full: bool):
                           iters=2 * n_gu),
         bytes=nbytes, flops=0, max_abs_err=worst["act_quantize"])
     del gus
-    # the GEMM's visited weights (52 experts, 150 MB) overflow the L2 alone
-    args, kw, plan = setups["prefill_gate"]
-    a8, _, b8, _, gs = args
-    m, k = a8.shape
-    n = b8.shape[2]
-    rows = int(plan.total_rows())
-    visited = int((gs > 0).sum())
-    timing["gmm"] = dict(
-        shape=[m, k, n], groups=b8.shape[0],
-        ms=graph_ms(lambda i: gk.gmm_cuda(*args, **kw)),
-        eager_ms=cuda_ms(lambda i: gk.gmm_cuda(*args, **kw)),
-        # reads the group offsets back to the host, so no graph: eager
-        plain_ms=cuda_ms(lambda i: gk.gmm_plain(*args, **kw), iters=3),
-        bytes=m * k + visited * k * n + 2 * m * n, flops=2 * rows * k * n,
-        max_abs_err=worst["gmm"])
-    # B7 on the same operands: the output is 1 B an element plus 4 B per
-    # 128; beside it, B2 then B1 run one after the other (with the f32
-    # upcast between them that B1 takes)
-    timing["gmm_quant"] = dict(
-        shape=[m, k, n], groups=b8.shape[0],
-        ms=graph_ms(lambda i: gk.gmm_quant_cuda(*args, **kw)),
-        eager_ms=cuda_ms(lambda i: gk.gmm_quant_cuda(*args, **kw)),
-        plain_ms=cuda_ms(lambda i: gk.gmm_quant_plain(*args, **kw), iters=3),
-        gmm_then_quantize_ms=graph_ms(lambda i: qk.quantize_tilewise_cuda(
-            gk.gmm_cuda(*args, **kw).float())),
-        bytes=m * k + visited * k * n + m * n + 4 * m * n // 128,
-        flops=2 * rows * k * n, max_abs_err=worst["gmm_quant"])
-    del args, setups
+    # B2 and B7 where the paths run them, weights rotated through HBM
+    for key, row in time_gmm_fp8(gen, drawn).items():
+        timing[key] = {**row, "max_abs_err":
+                       worst["gmm_quant" if key.startswith("gmm_quant")
+                             else "gmm"]}
+    del setups
     # B3's fp8 mode at the routed prefill's g/u [1024, 1408]
     m, k = 1024, 1408
     nbytes = 2 * (m * k + 4 * m * k // 128) + m * k + 4 * m * k // 128
@@ -1345,17 +1448,14 @@ def phase_kernels(full: bool):
                              iters=3, warmup=1),
             bytes=in_bytes + dt.itemsize * g * k * n,
             flops=2 * total * k * n,
-            peak_flop_per_s=BF16_FLOP_PER_S,
+            peak_flop_per_s=FP8_FLOP_PER_S if fp8 else BF16_FLOP_PER_S,
             max_abs_err=worst["wgrad_fp8" if fp8 else "wgrad"])
         del wargs
     wsetups.clear()
     timing["flash_attention"], library["flash_attention"] = time_flash(
         gen, worst["flash_attention"])
     for name, t in timing.items():
-        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = t["flops"] / t.pop("peak_flop_per_s", FP8_FLOP_PER_S) * 1e3
-        t["bound_ms"] = max(t_bytes, t_ops)
-        t["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        add_bound(t)
         t["library_ms"], t["library_note"] = library.get(
             name, (None, "not timed at this shape"))
         emit({"phase": "kernel_time", "kernel": name, **t})
@@ -1870,18 +1970,13 @@ def main(argv=None) -> int:
                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                    "library_note": t["library_note"]}
-            if name == "gmm_bf16":
-                tr = timing["gmm_bf16_train"]
-                row.update(train_shape=tr["shape"], train_ms=tr["ms"],
-                           train_bound_ms=tr["bound_ms"],
-                           train_bound_by=tr["bound_by"],
-                           train_library_ms=tr["library_ms"])
-                for extra in ("decode", "dgrad"):
-                    te = timing[f"gmm_bf16_{extra}"]
-                    row[f"{extra}_shape"] = te["shape"]
-                    row[f"{extra}_ms"] = te["ms"]
-                    row[f"{extra}_bound_ms"] = te["bound_ms"]
-                    row[f"{extra}_library_ms"] = te["library_ms"]
+            # the grouped GEMMs' other timed shapes
+            for extra in ("decode", "train", "dgrad"):
+                te = timing.get(f"{name}_{extra}")
+                if name.startswith("gmm") and te is not None:
+                    row.update({f"{extra}_{k}": te[k] for k in (
+                        "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")})
             if name == "wgrad":
                 # B4 with dw in f32, beside the bf16 dw the path takes
                 tf = timing["wgrad_f32"]

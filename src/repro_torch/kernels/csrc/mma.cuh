@@ -1,4 +1,4 @@
-// Tensor-core and fp8 helpers shared by grouped_gemm.cu and wgrad.cu.
+// Tensor-core and fp8 helpers shared by wgrad.cu and act_quant.cu.
 #pragma once
 
 #include <cuda_bf16.h>

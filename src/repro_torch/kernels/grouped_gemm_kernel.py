@@ -19,13 +19,14 @@ concatenated token buffer.  Three functions:
   contiguous ``[G, K, N]`` (the forward's weight) or ``transpose(1, 2)``
   of a contiguous ``[G, N, K]`` (the dgrad's ``w^T``, read where it lies).
 
-B2 and B7 share one mma.sync kernel template (``grouped_gemm.cu``); B5 is
-its own kernel on Hopper's TMA and wgmma (``gmm_bf16.cu``), storing owned
-rows through a pool of power-of-two TMA store descriptors.  Every kernel
-walks the :class:`~repro_torch.kernels.plan.TilePlan`: one CTA per
-(visit, 128-column N tile), each writing only the rows its group owns
-(see the sources for why the Pallas kernels' read-modify-write store
-does not carry over).
+B2 and B7 share one kernel template (``grouped_gemm.cu``), B5 is its own
+(``gmm_bf16.cu``); all three run on Hopper's TMA and wgmma (B2 and B7
+widen their e4m3 tiles to f16 on the way into wgmma) and store owned rows
+through a pool of power-of-two TMA store descriptors.  Every kernel walks
+the :class:`~repro_torch.kernels.plan.TilePlan`: one CTA per (visit,
+128-column N tile), each writing only the rows its group owns (see the
+sources for why the Pallas kernels' read-modify-write store does not
+carry over).
 
 Each function chooses by the tensor's device: CPU -> its ``*_plain``
 version, CUDA -> its ``*_cuda`` wrapper, which launches the kernel or
@@ -107,6 +108,18 @@ def _check_cuda(block_m, block_n, block_k, plan: TilePlan, out_dtype,
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _output(out, shape, dtype, dev, name):
+    """``out``, checked as a kernel's TMA stores take it, or a new tensor
+    when it is None."""
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=dev)
+    if (tuple(out.shape) != shape or out.dtype != dtype or out.device != dev
+            or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                         f"{list(shape)} {dtype} tensor on {dev}")
+    return out
+
+
 def _plan_args(plan: TilePlan):
     return (plan.group_offsets.data_ptr(), plan.group_ids.data_ptr(),
             plan.m_tile_ids.data_ptr())
@@ -143,8 +156,9 @@ def gmm_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
              plan: Optional[TilePlan] = None,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the CUDA grouped GEMM (one launch for the whole plan).
-    ``out`` (optional, [M, N] of ``out_dtype``) receives the result; every
-    one of its rows is written."""
+    ``out`` (optional, a contiguous, 16-byte aligned [M, N] of
+    ``out_dtype``) receives the result; every one of its rows is
+    written."""
     m, k, n, num_groups, plan = _prepare(
         a_fp8, s_a, b_fp8, s_b, group_sizes, num_groups, block_m, block_n,
         block_k, plan)
@@ -152,12 +166,7 @@ def gmm_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
                 (("a_fp8", a_fp8, FP8), ("s_a", s_a, torch.float32),
                  ("b_fp8", b_fp8, FP8), ("s_b", s_b, torch.float32)))
     dev = a_fp8.device
-    if out is None:
-        out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    elif (tuple(out.shape) != (m, n) or out.dtype != out_dtype
-          or out.device != dev or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous [{m}, {n}] {out_dtype} "
-                         f"tensor on {dev}")
+    out = _output(out, (m, n), out_dtype, dev, "out")
     if m == 0:
         return out
     fn = build.function("grouped_gemm", "gmm_fp8", [_P] * 8 + [_I] * 7 + [_P])
@@ -219,10 +228,13 @@ def gmm_quant_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
                    num_groups: Optional[int] = None, block_m: int = 128,
                    block_n: int = 128, block_k: int = 128,
                    out_dtype: torch.dtype = torch.bfloat16,
-                   plan: Optional[TilePlan] = None):
+                   plan: Optional[TilePlan] = None,
+                   out: Optional[tuple] = None):
     """Launch the CUDA quantizing grouped GEMM (one launch for the whole
     plan, an all-empty one included: its visits sweep every tile and
-    write payload 0 and scale 1)."""
+    write payload 0 and scale 1).  ``out`` (optional, ``(q [M, N] e4m3,
+    s [M, N/128] f32)``, contiguous and 16-byte aligned) receives the
+    result; every one of their rows is written."""
     m, k, n, num_groups, plan = _prepare(
         a_fp8, s_a, b_fp8, s_b, group_sizes, num_groups, block_m, block_n,
         block_k, plan)
@@ -230,8 +242,9 @@ def gmm_quant_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
                 (("a_fp8", a_fp8, FP8), ("s_a", s_a, torch.float32),
                  ("b_fp8", b_fp8, FP8), ("s_b", s_b, torch.float32)))
     dev = a_fp8.device
-    q = torch.empty((m, n), dtype=FP8, device=dev)
-    s = torch.empty((m, n // QUANT_BLOCK), dtype=torch.float32, device=dev)
+    q, s = out if out is not None else (None, None)
+    q = _output(q, (m, n), FP8, dev, "q")
+    s = _output(s, (m, n // QUANT_BLOCK), torch.float32, dev, "s")
     if m == 0:
         return q, s
     fn = build.function("grouped_gemm", "gmm_fp8_quant",
@@ -332,13 +345,7 @@ def gmm_bf16_cuda(x, w, group_sizes, *, num_groups: Optional[int] = None,
     if w.dtype != torch.bfloat16:
         raise TypeError(f"w must be {torch.bfloat16}, got {w.dtype}")
     k_major = weight_layout(w)
-    if out is None:
-        out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    elif (tuple(out.shape) != (m, n) or out.dtype != out_dtype
-          or out.device != dev or not out.is_contiguous()
-          or out.data_ptr() % 16):
-        raise ValueError(f"out must be a contiguous, 16-byte aligned "
-                         f"[{m}, {n}] {out_dtype} tensor on {dev}")
+    out = _output(out, (m, n), out_dtype, dev, "out")
     if m == 0:
         return out
     fn = build.function("gmm_bf16", "gmm_bf16", [_P] * 6 + [_I] * 9 + [_P])

@@ -50,6 +50,17 @@ CASES = {
     "ragged_bm16": (70, 256, 256, [0, 16, 1, 33, 0, 20], 16),
     "decode_bm16": (16, 384, 256, [0, 3, 0, 0, 9, 4, 0, 0], 16),
     "all_empty": (48, 128, 256, [0, 0, 0], 16),
+    # every owned span 1..16 of a 16-row tile (groups of i + 1 and 15 - i
+    # rows), then 8 tail rows
+    "spans_bm16": (264, 128, 256,
+                   [s for i in range(16) for s in (i + 1, 15 - i)], 16),
+    # an odd number of 128-K blocks
+    "odd_k_blocks": (90, 640, 256, [33, 0, 40], 128),
+    # owned runs crossing the 64-row slab (rows 40-89) and the 128-row tile
+    # (rows 90-149) at block_m 128
+    "slab_crossing": (160, 256, 256, [40, 50, 60], 128),
+    # fewer rows than the tile: decode's shared experts
+    "m_below_tile": (4, 256, 256, [4], 16),
     "single_group": (40, 256, 384, [40], 128),
 }
 
