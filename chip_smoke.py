@@ -16,13 +16,16 @@ decode.  Phases, each printing JSON lines:
   1. probe   card name and power limit, torch/CUDA versions, nvcc;
   2. build   every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   3. kernel  each kernel against its plain PyTorch version on the card at
-             the serving and training paths' shapes (the bf16 wgrad at
+             the serving and training paths' shapes (both wgrads at
              both output dtypes; the grouped GEMMs also at every owned
              span of a tile, into NaN-prefilled outputs): max error,
              mismatches, times and the bound of the work (the grouped
              GEMMs timed at prefill, decode, training and dgrad shapes);
              the one PyTorch call computing a kernel's function, where
              there is one, checked against the plain version and timed;
+             the fused activation quantizer also at the decode step's
+             and the training path's shapes, beside the graph-replayed
+             time of a one-element kernel (the launch floor);
              the quantizing GEMM bitwise against the quantizer applied to
              the GEMM; flash attention also built without its lo product,
              for timing only;
@@ -44,8 +47,9 @@ decode.  Phases, each printing JSON lines:
              ``launch/train.py``'s ``train`` (loss must fall, launch
              counts asserted; a profile of one step and its forward /
              backward / AdamW split), the same 8 steps through the plain
-             versions for comparison; for ``fp8`` then 2 steps with the
-             fp8 wgrad.
+             versions for comparison; for ``fp8`` then the same 8 steps
+             with the fp8 wgrad (launch counts asserted, a profile of one
+             step).
 Each phase's seconds are printed.  Then the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises and the script exits non-zero.
@@ -471,7 +475,7 @@ def compare_wgrad(name, fp8, args, plan, out_dtype=None):
     """Kernel against plain version: within 1e-4 of the largest |dw| plus
     1e-6 (both sum exact products in f32, in another order; the fp8
     kernel's scaled dy enters as a bf16 hi + lo pair, ~2^-16 relative);
-    B4's bf16 output (its f32 sum rounded once) against the plain f32 dw
+    a bf16 dw (the kernel's f32 sum rounded once) against the plain f32 dw
     within that plus half a bf16 step (2^-8 of the value); two launches
     bitwise equal; empty groups exactly zero; no NaN."""
     import torch
@@ -512,7 +516,7 @@ def compare_wgrad(name, fp8, args, plan, out_dtype=None):
 
 
 def check_wgrad(gen, cpu_gen, routed):
-    """B4 (at both output dtypes) and B6 at the training path's shapes
+    """B4 and B6, each at both output dtypes, at the training path's shapes
     (``routed``: 16384 slots over 60 groups, 8 of them empty; the shared
     experts' G = 1 over 4096 rows) and the edge cases.  Returns the rows
     and the routed gate's operands."""
@@ -536,13 +540,53 @@ def check_wgrad(gen, cpu_gen, routed):
     for fp8, key in ((False, "wgrad"), (True, "wgrad_fp8")):
         for name, (m, k, n, sizes, kw) in cases.items():
             args, plan = wgrad_case(gen, m, k, n, sizes, fp8, **kw)
-            for dt in (torch.float32,) if fp8 else (torch.bfloat16,
-                                                    torch.float32):
+            for dt in (torch.bfloat16, torch.float32):
                 rows[key].append(compare_wgrad(name, fp8, args, plan, dt))
             if name == "routed_gate_up":
                 keep[key] = (args, plan)
             del args
+        rows[key].append(check_wgrad_nan_owned(gen, fp8))
     return rows, keep
+
+
+def check_wgrad_nan_owned(gen, fp8):
+    """A NaN in an owned row of x reaches dw where the plain version puts
+    it (x[m, k] times every dy[m, n]: the whole row k of the group's dw),
+    at both output dtypes; the rest within compare_wgrad's tolerance."""
+    import torch
+    from repro_torch.kernels import wgrad_kernel as wk
+    sizes = torch.tensor([1, 37, 0, 200, 5, 57], dtype=torch.int32)
+    args, plan = wgrad_case(gen, 300, 256, 384, sizes, fp8)
+    x = args[0]
+    if fp8:
+        x.view(torch.uint8)[50, 130] = 0x7F            # e4m3 NaN, group 3
+    else:
+        x[50, 130] = float("nan")
+    cuda = wk.gmm_wgrad_fp8_cuda if fp8 else wk.gmm_wgrad_cuda
+    plain = wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain
+    want = plain(*args, plan=plan)
+    label = f"{'wgrad_fp8' if fp8 else 'wgrad'} nan_owned"
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        dw = cuda(*args, plan=plan, out_dtype=dt).float()
+        torch.cuda.synchronize()
+        nan = torch.isnan(dw)
+        if not torch.equal(nan, torch.isnan(want)) or not nan.any():
+            raise AssertionError(f"{label} {str(dt)[6:]}: NaN positions "
+                                 "differ from the plain version's")
+        ok = ~nan
+        err = (dw[ok] - want[ok]).abs()
+        tol = 1e-4 * float(want[ok].abs().max()) + 1e-6
+        if dt == torch.bfloat16:
+            tol = tol + want[ok].abs() * 2.0 ** -8
+        if (err > tol).any():
+            raise AssertionError(f"{label} {str(dt)[6:]}: finite elements "
+                                 f"beyond tolerance (max err "
+                                 f"{float(err.max())})")
+        worst = max(worst, float(err.max()))
+    return {"case": "nan_owned", "shape": [300, 256, 384],
+            "groups": int(sizes.numel()), "nan_elements":
+            int(torch.isnan(want).sum()), "max_abs_err": worst}
 
 
 def dequant(q, s):
@@ -863,14 +907,9 @@ def time_flash(gen, worst):
     version and timed the same two ways; and B8 built without its lo
     product (:func:`flash_hi_only`), graph-timed, with its error against
     the plain version (not gated)."""
-    import ctypes
-    import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention_kernel as fk
     hi_only = flash_hi_only()
-    smem = build.function("flash_attention", "flash_attention_smem_bytes",
-                          [ctypes.c_int])
     shapes = {}
     for label, (b, hq, hkv, s, d) in FLASH_TIMED.items():
         nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
@@ -896,7 +935,7 @@ def time_flash(gen, worst):
                         - fk.flash_attention_plain(*ins[0]).float())
                        .abs().max())
         shapes[label] = dict(
-            shape=[b, hq, hkv, s, d], input_copies=n, smem_bytes=smem(d),
+            shape=[b, hq, hkv, s, d], input_copies=n,
             ms=graph_ms(lambda i: fk.flash_attention_cuda(*ins[i % n]),
                         iters=2 * n),
             hi_only_ms=graph_ms(lambda i: hi_only(*ins[i % n]), iters=2 * n),
@@ -1006,6 +1045,54 @@ def time_gmm_fp8(gen, sizes) -> dict:
     return out
 
 
+def time_act_quantize(gen, m, k, fp8, copies=None) -> dict:
+    """B3 (silu_mul) at [m, k], bf16 g/u or e4m3 g/u with their scales:
+    CUDA-graph replays cycling through copies of the inputs (enough to be
+    read from HBM, or ``copies`` of them), back-to-back eager calls, the
+    plain version graph-replayed, and the bytes of the work."""
+    import torch
+    from repro_torch.kernels import epilogue_kernel as ek
+    from repro_torch.kernels import ref as kref
+    scales = 4 * m * k // 128
+    if fp8:
+        nbytes = 2 * (m * k + scales) + m * k + scales
+
+        def make():
+            return tuple(t for _ in range(2) for t in kref.quantize_tilewise_ref(
+                torch.randn((m, k), generator=gen, device="cuda")))
+    else:
+        nbytes = 2 * 2 * m * k + m * k + scales
+
+        def make():
+            return tuple(torch.randn((m, k), generator=gen,
+                                     device="cuda").bfloat16()
+                         for _ in range(2))
+    ins = [make() for _ in range(copies)] if copies else rotation(make,
+                                                                  nbytes)
+    n = len(ins)
+
+    def call(fn, i):
+        t = ins[i % n]
+        return fn(t[0], t[2], s_g=t[1], s_u=t[3]) if fp8 else fn(*t)
+    return dict(
+        shape=[m, k], input_copies=n,
+        ms=graph_ms(lambda i: call(ek.act_quantize_cuda, i), iters=2 * n),
+        eager_ms=cuda_ms(lambda i: call(ek.act_quantize_cuda, i),
+                         iters=2 * n),
+        plain_ms=graph_ms(lambda i: call(ek.act_quantize_plain, i),
+                          iters=2 * n),
+        bytes=nbytes, flops=0)
+
+
+def launch_floor_ms() -> float:
+    """Device time of a one-element ``zero_()``, CUDA-graph replayed as the
+    kernels are timed: a kernel with next to no work, the floor under a
+    small kernel's time."""
+    import torch
+    t = torch.ones(1, device="cuda")
+    return graph_ms(lambda i: t.zero_(), iters=128)
+
+
 def add_bound(t: dict) -> None:
     """Set a timing row's ``bound_ms``, the least time the card could take
     for its ``bytes`` and ``flops`` (at its ``peak_flop_per_s``, fp8's by
@@ -1058,7 +1145,8 @@ def phase_library(gmm_setup, wgrad_setup, bf16_setups):
     from repro_torch.kernels import grouped_gemm_kernel as gk
     from repro_torch.kernels import wgrad_kernel as wk
     out = {name: (None, "no single PyTorch call computes this function")
-           for name in SOURCES if name != "flash_attention"}
+           for name in (*SOURCES, "wgrad_fp8_f32")
+           if name != "flash_attention"}
     args, kw, plan = gmm_setup
     a8, sa, b8, sb, gs = args
     ends = torch.cumsum(gs, 0).to(torch.int32)
@@ -1126,10 +1214,7 @@ def phase_library(gmm_setup, wgrad_setup, bf16_setups):
 
 
 def phase_kernels(full: bool):
-    import ctypes
     import torch
-    from repro_torch.kernels import build
-    from repro_torch.kernels import epilogue_kernel as ek
     from repro_torch.kernels import grouped_gemm_kernel as gk
     from repro_torch.kernels import quant_kernel as qk
     from repro_torch.kernels import wgrad_kernel as wk
@@ -1340,56 +1425,31 @@ def phase_kernels(full: bool):
                           iters=2 * n_x),
         bytes=nbytes, flops=0, max_abs_err=worst["quantize_tilewise"])
     del xs
-    m, k = 1024, 1408
-    nbytes = 2 * 2 * m * k + m * k + 4 * m * k // 128
-    gus = rotation(lambda: tuple(
-        torch.randn((m, k), generator=gen, device="cuda").bfloat16()
-        for _ in range(2)), nbytes)
-    n_gu = len(gus)
-    timing["act_quantize"] = dict(
-        shape=[m, k], input_copies=n_gu,
-        ms=graph_ms(lambda i: ek.act_quantize_cuda(*gus[i % n_gu]),
-                    iters=2 * n_gu),
-        eager_ms=cuda_ms(lambda i: ek.act_quantize_cuda(*gus[i % n_gu]),
-                         iters=2 * n_gu),
-        plain_ms=graph_ms(lambda i: ek.act_quantize_plain(*gus[i % n_gu]),
-                          iters=2 * n_gu),
-        bytes=nbytes, flops=0, max_abs_err=worst["act_quantize"])
-    del gus
+    # B3 in both modes at the routed prefill's g/u [1024, 1408] and the
+    # training path's [16384, 1408], inputs rotated through HBM, and at
+    # the decode step's routed [16, 1408] and shared [4, 5632] g/u, where
+    # most of its launches are; there the inputs cycle through 64 copies,
+    # from L2, as the GEMM just wrote them on the path; beside them the
+    # launch floor
+    floor_ms = launch_floor_ms()
+    for suffix, m, k, copies in (("", 1024, 1408, None),
+                                 ("_decode", 16, 1408, 64),
+                                 ("_decode_shared", 4, 5632, 64),
+                                 ("_train", 16384, 1408, None)):
+        for mode in ("act_quantize", "act_quantize_fp8"):
+            timing[mode + suffix] = dict(
+                time_act_quantize(gen, m, k, mode.endswith("fp8"), copies),
+                launch_floor_ms=floor_ms, max_abs_err=worst[mode])
     # B2 and B7 where the paths run them, weights rotated through HBM
     for key, row in time_gmm_fp8(gen, drawn).items():
         timing[key] = {**row, "max_abs_err":
                        worst["gmm_quant" if key.startswith("gmm_quant")
                              else "gmm"]}
     del setups
-    # B3's fp8 mode at the routed prefill's g/u [1024, 1408]
-    m, k = 1024, 1408
-    nbytes = 2 * (m * k + 4 * m * k // 128) + m * k + 4 * m * k // 128
-    from repro_torch.kernels import ref as kref
-    g8us = rotation(lambda: tuple(
-        t for _ in range(2) for t in kref.quantize_tilewise_ref(
-            torch.randn((m, k), generator=gen, device="cuda"))), nbytes)
-    n_g8u = len(g8us)
-
-    def fp8_act(fn, i):
-        g8, sg, u8, su = g8us[i % n_g8u]
-        return fn(g8, u8, s_g=sg, s_u=su)
-    timing["act_quantize_fp8"] = dict(
-        shape=[m, k], input_copies=n_g8u,
-        ms=graph_ms(lambda i: fp8_act(ek.act_quantize_cuda, i),
-                    iters=2 * n_g8u),
-        eager_ms=cuda_ms(lambda i: fp8_act(ek.act_quantize_cuda, i),
-                         iters=2 * n_g8u),
-        plain_ms=graph_ms(lambda i: fp8_act(ek.act_quantize_plain, i),
-                          iters=2 * n_g8u),
-        bytes=nbytes, flops=0, max_abs_err=worst["act_quantize_fp8"])
-    del g8us
     # B5 at the routed prefill (its visited bf16 weights, 300 MB, overflow
     # the L2 alone), at the training path's 16384 routed rows, at decode
     # (~14 visited experts, ~80 MB) and on the K-contiguous w^T of the
     # training dgrad (f32 out)
-    smem = build.function("gmm_bf16", "gmm_bf16_smem_bytes",
-                          [ctypes.c_int, ctypes.c_int])
     for case, key in BF16_TIMED:
         (x16, w16, bgs), bkw, bplan = bf16_setups.pop(case)
         m, k = x16.shape
@@ -1404,7 +1464,6 @@ def phase_kernels(full: bool):
             shape=[m, k, n], groups=w16.shape[0], total_rows=rows,
             block_m=bkw["block_m"], w_layout="K-contiguous"
             if gk.weight_layout(w16) else "N-contiguous",
-            smem_bytes=smem(bkw["block_m"], int(out_f32)),
             ms=graph_ms(lambda i: gk.gmm_bf16_cuda(x16, ws[i % len(ws)], bgs,
                                                    **bkw), iters=10),
             eager_ms=cuda_ms(lambda i: gk.gmm_bf16_cuda(
@@ -1420,10 +1479,11 @@ def phase_kernels(full: bool):
     # N 1408; each call writes a 346 MB (bf16) or 692 MB (f32) dw, so
     # inputs and output overflow the L2 on every call.  "wgrad": B4 with
     # dw in bf16, as the training path takes it; "wgrad_f32": B4 with f32
-    # dw; "wgrad_fp8": B6 (f32 dw)
+    # dw; "wgrad_fp8" / "wgrad_fp8_f32": B6 alike
     for key, fp8, dt in (("wgrad", False, torch.bfloat16),
                          ("wgrad_f32", False, torch.float32),
-                         ("wgrad_fp8", True, torch.float32)):
+                         ("wgrad_fp8", True, torch.bfloat16),
+                         ("wgrad_fp8_f32", True, torch.float32)):
         (wargs, wplan) = wsetups["wgrad_fp8" if fp8 else "wgrad"]
         x, dy = wargs[0], wargs[-3 if fp8 else 1]
         total = int(wplan.total_rows())
@@ -1438,9 +1498,7 @@ def phase_kernels(full: bool):
             return cuda(*wargs, plan=wplan, out_dtype=dt)
         timing[key] = dict(
             shape=[x.shape[0], k, n], groups=g, total_rows=total,
-            out_dtype=str(dt)[6:], smem_bytes=None if fp8 else build.function(
-                "wgrad_bf16", "wgrad_bf16_smem_bytes", [ctypes.c_int])(
-                    int(dt == torch.float32)),
+            out_dtype=str(dt)[6:],
             ms=graph_ms(call, iters=4, replays=3),
             eager_ms=cuda_ms(call, iters=4),
             plain_ms=cuda_ms(lambda i: plain(*wargs, plan=wplan,
@@ -1450,6 +1508,10 @@ def phase_kernels(full: bool):
             flops=2 * total * k * n,
             peak_flop_per_s=FP8_FLOP_PER_S if fp8 else BF16_FLOP_PER_S,
             max_abs_err=worst["wgrad_fp8" if fp8 else "wgrad"])
+        if fp8:
+            # the design's own limit: the hi and the lo product, both bf16
+            timing[key]["hi_lo_ceiling_ms"] = \
+                2 * timing[key]["flops"] / BF16_FLOP_PER_S * 1e3
         del wargs
     wsetups.clear()
     timing["flash_attention"], library["flash_attention"] = time_flash(
@@ -1775,15 +1837,16 @@ def phase_train_parity(variant: str):
 def phase_train(variant: str):
     """The configuration at full width, the MoE model cut to 4 layers,
     qwen3-1.7b whole: 8 steps of ``launch/train.py``'s ``train`` (bf16
-    wgrad), and for ``fp8`` then 2 with the fp8 wgrad; loss falls, launch
-    counts exact; a profile of one step; the same 8 steps through the
-    plain versions.  Returns each run's launch counts by path name."""
+    wgrad), and for ``fp8`` then the same 8 with the fp8 wgrad; launch
+    counts exact, losses finite, and with the bf16 wgrad the loss falls; a
+    profile of one step of each run; the same 8 bf16-wgrad steps through
+    the plain versions.  Returns each run's launch counts by path name."""
     import torch
     from repro_torch.launch.train import train
     cfg = variant_config(variant, num_layers=TRAIN_LAYERS.get(variant, 4))
     batch, seq, steps = 8, 512, 8
     per_step = TRAIN_PER_LAYER[variant]
-    runs = (("bf16", steps), ("fp8", 2)) if variant == "fp8" \
+    runs = (("bf16", steps), ("fp8", steps)) if variant == "fp8" \
         else (("bf16", steps),)
     out = {}
     for wgrad, n in runs:
@@ -1823,16 +1886,16 @@ def phase_train(variant: str):
         if not finite:
             raise AssertionError(f"train {variant} ({wgrad} wgrad): "
                                  "non-finite loss or grad norm")
+        if wgrad == "bf16" and not hist[-1]["loss"] < hist[0]["loss"]:
+            raise AssertionError(f"train {variant}: loss did not fall "
+                                 f"({hist[0]['loss']} -> {hist[-1]['loss']})")
+        nxt = run.data.batch_at(n)
+        br = profile_breakdown(lambda: run.step_fn(run.params,
+                                                   run.opt_state, nxt),
+                               top=14)
+        emit({"phase": "profile", "config": variant, "of": "train_step",
+              "wgrad_precision": wgrad, **br})
         if wgrad == "bf16":
-            if not hist[-1]["loss"] < hist[0]["loss"]:
-                raise AssertionError(f"train {variant}: loss did not fall "
-                                     f"({hist[0]['loss']} -> {hist[-1]['loss']})")
-            nxt = run.data.batch_at(n)
-            br = profile_breakdown(lambda: run.step_fn(run.params,
-                                                       run.opt_state, nxt),
-                                   top=14)
-            emit({"phase": "profile", "config": variant, "of": "train_step",
-                  **br})
             emit({"phase": "train_split", "config": variant,
                   **split_step(cfg, run, nxt)})
         out[path_name("train_fp8_wgrad" if wgrad == "fp8" else "train",
@@ -1970,16 +2033,18 @@ def main(argv=None) -> int:
                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                    "library_note": t["library_note"]}
-            # the grouped GEMMs' other timed shapes
-            for extra in ("decode", "train", "dgrad"):
+            # the grouped GEMMs' and B3's other timed shapes
+            for extra in ("decode", "decode_shared", "train", "dgrad"):
                 te = timing.get(f"{name}_{extra}")
-                if name.startswith("gmm") and te is not None:
+                if te is not None:
                     row.update({f"{extra}_{k}": te[k] for k in (
                         "shape", "ms", "eager_ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")})
-            if name == "wgrad":
-                # B4 with dw in f32, beside the bf16 dw the path takes
-                tf = timing["wgrad_f32"]
+            if name.startswith("act_quantize"):
+                row["launch_floor_ms"] = t["launch_floor_ms"]
+            if name.startswith("wgrad"):
+                # B4 / B6 with dw in f32, beside the bf16 dw the path takes
+                tf = timing[f"{name}_f32"]
                 row.update(out_dtype=t["out_dtype"],
                            **{f"f32_out_{k}": tf[k] for k in (
                                "ms", "eager_ms", "plain_ms", "bound_ms",

@@ -401,7 +401,3 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   return launch<64>(maps, st, B * Hq, Hq, Hkv, S, causal, scale);
 }
 
-// Dynamic shared memory of one CTA, in bytes.
-extern "C" int flash_attention_smem_bytes(int D) {
-  return D == 128 ? Cfg<128>::kSmem : Cfg<64>::kSmem;
-}

@@ -348,9 +348,3 @@ extern "C" int gmm_bf16(const void* a, const void* b, const void* group_offsets,
                                               m_tile_ids, M, K, G);
 }
 
-// Dynamic shared memory of one CTA, in bytes.
-extern "C" int gmm_bf16_smem_bytes(int block_m, int out_f32) {
-  if (block_m == 16)
-    return out_f32 ? smem_bytes<16, 1, float>() : smem_bytes<16, 1, __nv_bfloat16>();
-  return out_f32 ? smem_bytes<128, 2, float>() : smem_bytes<128, 2, __nv_bfloat16>();
-}

@@ -102,6 +102,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "fp8.cuh"
 #include "hopper.cuh"
 #include "tile_quant.cuh"
 
@@ -182,12 +183,7 @@ __device__ __forceinline__ float round_through(float x, __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// two e4m3 (the low 16 bits of v, low byte first) -> f16x2, exact
-__device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t v) {
-  uint32_t r;
-  asm("cvt.rn.f16x2.e4m3x2 %0, %1;\n" : "=r"(r) : "h"((unsigned short)v));
-  return r;
-}
+using repro::e4m3x2_to_f16x2;
 
 // m64nWNk16 on f16, A from registers, B N-major from shared memory
 template <int WN>

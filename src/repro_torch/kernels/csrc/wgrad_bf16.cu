@@ -25,7 +25,8 @@
 //
 // Design.  Each output tile (N tile, K tile, group) is summed by one CTA
 // over the tile's whole contraction, in a fixed row order, with no
-// atomics, so two launches are bitwise equal and dw is written once.
+// atomics, so two launches are bitwise equal and dw is written once (the
+// walk, the epilogue and the launch are wgrad_tile.cuh's, shared with B6).
 // Persistent CTAs, one an SM, walk the tiles in a fixed stride (N tile
 // fastest, so the SMs work on one group's x and dy rows together, from
 // L2):
@@ -56,13 +57,15 @@
 #include <string.h>
 
 #include "hopper.cuh"
+#include "wgrad_tile.cuh"
 
 namespace {
 
 using namespace hopper;
+using wgrad::kRows;
+using wgrad::kTile;
+using wgrad::Tile;
 
-constexpr int kTile = 128;                   // the tile's K and N extent
-constexpr int kRows = 64;                    // contracted rows per stage
 constexpr int kStages = 4;
 constexpr int kBoxBytes = kRows * 128;       // 64 rows x 64 bf16: 8 KB
 constexpr int kStageBytes = 4 * kBoxBytes;   // x: 2 boxes, dy: 2 boxes
@@ -79,27 +82,6 @@ struct Maps {
   CUtensorMap x;     // [M, K] bf16: box 64 K x 64 rows, 128B swizzle
   CUtensorMap dy;    // [M, N] bf16: box 64 N x 64 rows, 128B swizzle
   CUtensorMap out;   // [G * K, N] f32 or bf16: box 128 bytes x 128 rows, 128B swizzle
-};
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// tile t of the (N tile, K tile, group) order: its group, rows and chunks
-struct Tile {
-  int n0, k0, g, start, end, chunks;
-  __device__ __forceinline__ Tile(int t, int n_tiles, int k_tiles,
-                                  const int* offsets, int M) {
-    n0 = (t % n_tiles) * kTile;
-    k0 = (t / n_tiles % k_tiles) * kTile;
-    g = t / (n_tiles * k_tiles);
-    start = min(offsets[g], M);
-    end = min(offsets[g + 1], M);
-    chunks = end > start ? (end - start + kRows - 1) / kRows : 0;
-  }
 };
 
 template <typename OutT>
@@ -153,7 +135,6 @@ wgrad_bf16_kernel(const __grid_constant__ Maps maps,
 
   // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of a K tile; a
   // thread holds rows r and r + 8 of it, columns 8j + 2(lane%4) + {0, 1}
-  constexpr int kCols = 128 / (int)sizeof(OutT);   // columns of a staged box
   const int r = wg * 64 + ((tid / 32) & 3) * 16 + (lane >> 2);
   float acc[64];
   int it = 0;
@@ -198,56 +179,10 @@ wgrad_bf16_kernel(const __grid_constant__ Maps maps,
     fence_regs(acc);
     if (tl.chunks > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
 
-    // the previous tile's store has read the staged tile; then stage this
-    // one: boxes of kCols columns (128 bytes) x 128 rows, 128B-swizzled
-    if (tid == 0)
-      tma_store_wait_read<0>();
-    bar_sync(1, 256);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = 8 * j + 2 * (lane & 3);
-      uint8_t* box = staged + (col / kCols) * (kTile * 128);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store2(reinterpret_cast<OutT*>(
-                   box + sw128_offset(r + 8 * h, (col % kCols) * sizeof(OutT))),
-               acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    }
-    fence_proxy_async();
-    bar_sync(1, 256);
-    if (tid == 0) {
-      for (int b = 0; b < kTile / kCols; ++b)
-        tma_store_2d(&maps.out, staged + b * (kTile * 128), tl.n0 + b * kCols,
-                     tl.g * K + tl.k0);
-      tma_store_commit();
-    }
+    wgrad::store_tile<OutT>(acc, r, tid, staged, &maps.out, tl.n0,
+                            tl.g * K + tl.k0);
   }
   if (tid == 0) tma_store_wait_all();
-}
-
-template <typename OutT>
-int launch(const Maps& maps, cudaStream_t stream, const int* offsets, int M,
-           int K, int N, int G) {
-  auto kernel = wgrad_bf16_kernel<OutT>;
-  constexpr int smem = smem_bytes<OutT>();
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) {
-      sms = 0;
-      return (int)e;
-    }
-  }
-  const int tiles = (N / kTile) * (K / kTile) * G;
-  kernel<<<min(tiles, sms), kThreads, smem, stream>>>(maps, offsets, M, K, N,
-                                                      G);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -263,24 +198,16 @@ extern "C" int wgrad_bf16(const void* x, const void* dy, const void* offsets,
   memset(&maps, 0, sizeof(maps));
   CUresult r = encode_rows_sw128(&maps.x, x, M, K, kRows);
   if (r == CUDA_SUCCESS) r = encode_rows_sw128(&maps.dy, dy, M, N, kRows);
-  if (r == CUDA_SUCCESS) {
-    const int esize = out_f32 ? 4 : 2;
-    const uint64_t dims[2] = {(uint64_t)N, (uint64_t)G * K};
-    const uint64_t strides[1] = {(uint64_t)N * esize};
-    const uint32_t box[2] = {(uint32_t)(128 / esize), kTile};
-    r = encode(&maps.out,
-               out_f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-               2, dw, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-  }
+  if (r == CUDA_SUCCESS) r = wgrad::encode_dw(&maps.out, dw, K, N, G, out_f32);
   if (r != CUDA_SUCCESS) return 1000 + (int)r;
+  const int tiles = (N / kTile) * (K / kTile) * G;
   auto st = (cudaStream_t)stream;
+  auto offs = (const int*)offsets;
   if (out_f32)
-    return launch<float>(maps, st, (const int*)offsets, M, K, N, G);
-  return launch<__nv_bfloat16>(maps, st, (const int*)offsets, M, K, N, G);
+    return wgrad::launch_persistent<wgrad_bf16_kernel<float>>(
+        kThreads, smem_bytes<float>(), tiles, st, maps, offs, M, K, N, G);
+  return wgrad::launch_persistent<wgrad_bf16_kernel<__nv_bfloat16>>(
+      kThreads, smem_bytes<__nv_bfloat16>(), tiles, st, maps, offs, M, K, N,
+      G);
 }
 
-// Dynamic shared memory of one CTA, in bytes.
-extern "C" int wgrad_bf16_smem_bytes(int out_f32) {
-  return out_f32 ? smem_bytes<float>() : smem_bytes<__nv_bfloat16>();
-}

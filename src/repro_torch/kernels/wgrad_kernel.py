@@ -17,7 +17,8 @@ Two operand precisions:
     training path takes dw in the weights' dtype with no cast pass.
   * :func:`gmm_wgrad_fp8`: e4m3 operands with their 1x128 tile scales,
     the forward's ``(a8, s_a)`` and the dgrad's ``(d8, s_d)``, dequantized
-    in the kernel (arXiv 2505.20524's all-fp8 step).
+    in the kernel (arXiv 2505.20524's all-fp8 step); its kernel too
+    writes dw in f32 or bf16.
 
 Each public function chooses by the tensor's device: a CPU tensor goes
 to the plain version, a CUDA tensor to the ``*_cuda`` wrapper, which
@@ -114,7 +115,7 @@ def _check_cuda(block_n, block_k, operands):
     return dev
 
 
-#: output dtypes the bf16 kernel writes
+#: output dtypes the wgrad kernels write
 WGRAD_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -168,8 +169,11 @@ def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
                        out_dtype: torch.dtype = torch.float32,
                        plan: Optional[TilePlan] = None) -> torch.Tensor:
     """Launch B6 (one launch for every group) on e4m3 CUDA tensors and
-    their f32 1x128 scales.  The kernel writes f32; another ``out_dtype``
-    is a cast of its output."""
+    their f32 1x128 scales.  The kernel writes dw in ``out_dtype``, f32 or
+    bf16: its f32 sum rounded once to nearest."""
+    if out_dtype not in WGRAD_OUT_DTYPES:
+        raise TypeError(f"gmm_wgrad_fp8_cuda writes dw in {WGRAD_OUT_DTYPES}, "
+                        f"not {out_dtype}")
     (m, k), (m2, n) = x_fp8.shape, dy_fp8.shape
     num_groups, offsets = _prepare(m, k, m2, n, group_sizes, num_groups,
                                    block_m, block_n, block_k, plan)
@@ -179,12 +183,13 @@ def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
         ("dy_fp8", dy_fp8, FP8), ("s_dy", s_dy, torch.float32),
         ("group offsets", offsets, torch.int32)))
     dw, launched = _launch(
-        "wgrad", "wgrad_fp8", [_P] * 6 + [_I] * 4 + [_P],
+        "wgrad", "wgrad_fp8", [_P] * 6 + [_I] * 5 + [_P],
         (x_fp8.data_ptr(), s_x.data_ptr(), dy_fp8.data_ptr(),
          s_dy.data_ptr(), offsets.data_ptr()),
-        m, k, n, num_groups, dev, torch.float32, "gmm_wgrad_fp8")
+        m, k, n, num_groups, dev, out_dtype, "gmm_wgrad_fp8",
+        extra=(int(out_dtype == torch.float32),))
     gmm_wgrad_fp8_cuda.launches += launched
-    return dw.to(out_dtype)
+    return dw
 
 
 gmm_wgrad_fp8_cuda.launches = 0

@@ -26,6 +26,7 @@ from repro_torch.kernels import wgrad_kernel as twk
 from repro_torch.kernels.plan import make_tile_plan
 
 TOL = 1e-5
+FP8_DTYPE = torch.float8_e4m3fn
 
 # name: (group sizes, M, K, N, block_m)
 CASES = {
@@ -118,6 +119,44 @@ def test_plain_wgrad_fp8_matches_pallas_and_oracle(case):
     for g, s in enumerate(sizes):
         if s == 0:
             assert (got[g] == 0).all()
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_wgrad_fp8_bf16_out_matches_pallas(case):
+    """The fp8 wgrad with dw in bf16, as the training path takes it: the
+    f32 sum rounded once, within one bf16 step of the reference's bf16 dw;
+    empty groups exactly zero."""
+    sizes, m, k, n, bm = CASES[case]
+    j, t = _fp8_operands(m, k, n, seed=m + n)
+    jgs = jnp.asarray(sizes, jnp.int32)
+    tgs = torch.tensor(sizes, dtype=torch.int32)
+    pallas = gmm_pallas_wgrad_fp8(*j, jgs, block_m=bm,
+                                  out_dtype=jnp.bfloat16, interpret=True)
+    got = twk.gmm_wgrad_fp8(*t, tgs, block_m=bm, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (len(sizes), k, n)
+    f32 = twk.gmm_wgrad_fp8(*t, tgs, block_m=bm)
+    assert torch.equal(got, f32.to(torch.bfloat16))
+    want = np.asarray(pallas.astype(jnp.float32))
+    step = np.abs(want) * 2.0 ** -7 + TOL * max(float(np.abs(want).max()),
+                                                 1e-30)
+    assert (np.abs(got.float().numpy() - want) <= step).all()
+    for g, s in enumerate(sizes):
+        if s == 0:
+            assert (got[g] == 0).all()
+
+
+def test_fp8_cuda_refuses_other_out_dtypes_before_the_device():
+    """The fp8 kernel writes dw in f32 or bf16 only: any other dtype is a
+    TypeError, raised before the operands' device is looked at."""
+    x = torch.randn(16, 128)
+    q8, s = tref.quantize_tilewise_ref(x)
+    gs = torch.tensor([16], dtype=torch.int32)
+    before = twk.gmm_wgrad_fp8_cuda.launches
+    for dt in (torch.float16, torch.float64, FP8_DTYPE):
+        with pytest.raises(TypeError, match="writes dw in"):
+            twk.gmm_wgrad_fp8_cuda(q8, s, q8, s, gs, out_dtype=dt)
+    assert twk.gmm_wgrad_fp8_cuda.launches == before
+    assert twk.WGRAD_OUT_DTYPES == (torch.float32, torch.bfloat16)
 
 
 def test_nan_tail_is_excluded():
