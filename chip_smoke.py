@@ -4,13 +4,17 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --quick    # probe, build and kernel checks only
 
-Five configurations at full width are driven, built with
+Seven configurations at full width are driven, built with
 ``dataclasses.replace`` on the registry's configs.  Of qwen2-moe-a2.7b:
 ``fp8`` (the fused activation epilogue), ``fp8_fused``
 (``KernelConfig(fuse_producer=True)``: the gate/up GEMMs store fp8
 directly), ``bf16`` (``precision="bf16"``, the bf16 grouped GEMM) and
-``fp8_flash`` (fp8 with ``attn_backend="flash"``); and ``qwen3_flash``,
-the dense GQA qwen3-1.7b (bf16) with ``attn_backend="flash"``.  Flash
+``fp8_flash`` (fp8 with ``attn_backend="flash"``); ``qwen3_flash``, the
+dense GQA qwen3-1.7b (bf16) with ``attn_backend="flash"``; and of
+deepseek-moe-16b (64 routed experts top-6, 2 shared, a dense first
+layer), ``ds_fp8`` and ``ds_fp8_padded`` (``gemm_backend=
+"padded_baseline"``: the paper's baseline, every fp8 GEMM padded per
+group to its tile, run on the same GEMM kernel, unpadded).  Flash
 attention runs where S % 128 == 0, in prefill and training, never in
 decode.  Phases, each printing JSON lines:
   1. probe   card name and power limit, torch/CUDA versions, nvcc;
@@ -29,15 +33,30 @@ decode.  Phases, each printing JSON lines:
              the quantizing GEMM bitwise against the quantizer applied to
              the GEMM; flash attention also built without its lo product,
              for timing only;
-  4. forward each configuration cut to 2 layers: prefill logits through
-             the kernels against the plain versions (prompt 64, and 128
-             for the flash configurations);
+             the padded baseline against the padding-free GEMM at
+             deepseek-moe-16b's routed shapes (prefill at batch 4 x
+             prompt 512 and 64, decode) and the paper's (M 8192 and
+             32768, K = N = 4096, G 8 and 32): every owned row bitwise
+             equal; the pad pass, the padded GEMM, the unpad pass, their
+             sum, the whole pipeline and the padding-free GEMM timed, the
+             GEMM also over exactly the padded groups' rows; the peak
+             memory of each pipeline beside the padding's own bytes
+             ("padded" lines; the gate runs with --quick too);
+  4. forward each configuration cut to 2 layers (deepseek-moe-16b: its
+             dense layer and one MoE layer): prefill logits through the
+             kernels against the plain versions (prompt 64, and 128 for
+             the flash configurations); ``ds_fp8_padded``'s logits
+             bitwise ``ds_fp8``'s;
   5. serve   batch 4, 16 new tokens, greedy, random weights: the 24-layer
              qwen2-moe-a2.7b on one param tree, at prompt 64 in ``fp8``,
              ``fp8_fused`` and ``bf16``, at prompt 512 in ``fp8`` and
              ``fp8_flash`` (attention the only difference); then the
-             28-layer qwen3-1.7b at prompt 512 in ``qwen3_flash``; the
-             launch counts of each run are asserted;
+             28-layer qwen3-1.7b at prompt 512 in ``qwen3_flash``; then
+             the 28-layer deepseek-moe-16b on one param tree at prompt 64
+             and 512, each in ``ds_fp8`` and ``ds_fp8_padded`` (tokens
+             equal between the two; one padded generate under
+             ``torch.cuda.set_sync_debug_mode("error")``); the launch
+             counts of each run are asserted;
   6. train-parity  each configuration cut to 2 layers, batch 2, seq 256:
              loss and gradients of one train step through the kernels
              against the plain versions;
@@ -108,15 +127,20 @@ SOURCES = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
 # the configurations driven: ModelConfig fields replaced on the registry's
-# qwen2-moe-a2.7b or qwen3-1.7b (the kernel configs are filled in by
-# variant_config)
+# qwen2-moe-a2.7b, qwen3-1.7b or deepseek-moe-16b (the kernel configs are
+# filled in by variant_config); deepseek-moe-16b is served, not trained
 VARIANTS = ("fp8", "fp8_fused", "bf16", "fp8_flash", "qwen3_flash")
-ARCH = {"qwen3_flash": "qwen3-1.7b"}          # the others: qwen2-moe-a2.7b
+DS_VARIANTS = ("ds_fp8", "ds_fp8_padded")
+ARCH = {"qwen3_flash": "qwen3-1.7b", "ds_fp8": "deepseek-moe-16b",
+        "ds_fp8_padded": "deepseek-moe-16b"}   # the others: qwen2-moe-a2.7b
 FLASH = {"attn_backend": "flash"}
-# launch counts per layer of one forward (serving) and of one train step;
-# flash attention runs once a layer in a forward at S % 128 == 0 (never
-# in decode), and once a layer in a train step: the backward recomputes
-# the plain oracle, as the reference does, and the port has no remat
+# launch counts per layer of one forward (serving) and of one train step
+# (deepseek-moe-16b: per MoE layer; its dense first layer's d_ff, 10944,
+# is no multiple of 128, so that layer launches none); flash attention
+# runs once a layer in a forward at S % 128 == 0 (never in decode), and
+# once a layer in a train step: the backward recomputes the plain oracle,
+# as the reference does, and the port has no remat.  The padded baseline
+# launches what the padding-free path does: one GEMM a padded GEMM
 SERVE_PER_LAYER = {
     "fp8": {"quantize_tilewise": 2, "act_quantize": 2, "gmm": 6},
     "fp8_fused": {"quantize_tilewise": 2, "gmm_quant": 4,
@@ -125,6 +149,8 @@ SERVE_PER_LAYER = {
     "fp8_flash": {"quantize_tilewise": 2, "act_quantize": 2, "gmm": 6,
                   "flash_attention": 1},
     "qwen3_flash": {"flash_attention": 1},
+    "ds_fp8": {"quantize_tilewise": 2, "act_quantize": 2, "gmm": 6},
+    "ds_fp8_padded": {"quantize_tilewise": 2, "act_quantize": 2, "gmm": 6},
 }
 TRAIN_PER_LAYER = {
     "fp8": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
@@ -148,10 +174,17 @@ def variant_config(variant: str, **kw):
     repl = {"fp8": {}, "fp8_fused": {"kernel_config":
                                      KernelConfig(fuse_producer=True)},
             "bf16": {"precision": "bf16"}, "fp8_flash": FLASH,
-            "qwen3_flash": FLASH}[variant]
+            "qwen3_flash": FLASH, "ds_fp8": {},
+            "ds_fp8_padded": {"gemm_backend": "padded_baseline"}}[variant]
     return dataclasses.replace(get_config(ARCH.get(variant,
                                                    "qwen2-moe-a2.7b")),
                                **repl, **kw)
+
+
+def kernel_layers(cfg) -> int:
+    """The layers whose kernels SERVE_PER_LAYER counts: all but an MoE
+    model's dense first layers."""
+    return cfg.num_layers - (cfg.moe.first_dense_layers if cfg.moe else 0)
 
 
 def expected(per_layer: dict, times: int) -> dict:
@@ -1299,6 +1332,36 @@ def phase_kernels(full: bool):
             raise AssertionError(f"gmm accepted block_m={bm}")
         except ValueError:
             pass
+    # deepseek-moe-16b (64 experts, top-6) where its serving path runs the
+    # GEMM: the routed gate and down at batch 4 x prompt 64 (1536 rows)
+    # and 512 (12288 rows) and at decode (24 rows, 16-row tiles), the
+    # shared experts' gate/up (N 2 x 1408) and down (f32 out); drawn from
+    # generators of their own
+    ds_gen = torch.Generator(device="cuda").manual_seed(11)
+    ds_cpu = torch.Generator().manual_seed(12)
+    ds64, ds512, dsdec = (routed_sizes(ds_cpu, t, 6, 64)
+                          for t in (256, 2048, 4))
+    for name, (m, k, n, sizes, bm, dt) in {
+            "ds_prefill_gate": (1536, 2048, 1408, ds64, 128, torch.bfloat16),
+            "ds_prefill_down": (1536, 1408, 2048, ds64, 128, torch.bfloat16),
+            "ds_p512_gate": (12288, 2048, 1408, ds512, 128, torch.bfloat16),
+            "ds_decode_gate": (24, 2048, 1408, dsdec, 16, torch.bfloat16),
+            "ds_decode_down": (24, 1408, 2048, dsdec, 16, torch.bfloat16),
+            "ds_shared_gate": (256, 2048, 2816,
+                               torch.tensor([256], dtype=torch.int32), 128,
+                               torch.bfloat16),
+            "ds_shared_down_f32": (256, 2816, 2048,
+                                   torch.tensor([256], dtype=torch.int32),
+                                   128, torch.float32)}.items():
+        args, kw, plan = gemm_case(ds_gen, m, k, n, sizes, bm, dt)
+        gemm.append(compare_gemm(name, args, kw, plan))
+        del args
+    results["quantize_tilewise"] += check_quantize(
+        ds_gen, [(1536, 2048), (12288, 2048), (24, 2048), (2048, 2048)])
+    results["act_quantize"] += check_act_quantize(
+        ds_gen, [(1536, 1408, "silu_mul"), (12288, 1408, "silu_mul"),
+                 (24, 1408, "silu_mul"), (256, 2816, "silu_mul"),
+                 (2048, 2816, "silu_mul"), (4, 2816, "silu_mul")])
     results["gmm"] = gemm
     wrows, wsetups = check_wgrad(gen, cpu_gen, routed)
     results.update(wrows)
@@ -1525,6 +1588,165 @@ def phase_kernels(full: bool):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: the padded baseline against the padding-free GEMM
+# ---------------------------------------------------------------------------
+
+def paper_sizes(m, g, seed):
+    """The paper's group sizes (its appendix C.1, as the JAX package's
+    ``benchmarks/common.py`` draws them): ``g`` random sizes summing to
+    ``m``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, 2 * (m // g) + 1, g).astype(np.float64)
+    if v.sum() == 0:
+        v[:] = 1.0
+    v = np.floor(v * (m / v.sum())).astype(np.int64)
+    v[-1] += m - v.sum()
+    return torch.from_numpy(v.astype(np.int32))
+
+
+def padded_cases() -> dict:
+    """name -> (group sizes, M, K, N, block_m): deepseek-moe-16b's routed
+    gate GEMM (64 experts, top-6, K 2048, N 1408) at batch 4 x prompt 512
+    and 64 and at a decode step (16-row tiles, most groups empty), and
+    the paper's scale (``benchmarks/bench_grouped_gemm.py``: "M 8k-64k,
+    N/K 3-8k") at M 8192 and 32768, K = N = 4096, G 8 and 32."""
+    import torch
+    cpu_gen = torch.Generator().manual_seed(6)
+    cases = {}
+    for name, tokens, bm in (("ds_prefill_p512", 2048, 128),
+                             ("ds_prefill_p64", 256, 128),
+                             ("ds_decode", 4, 16)):
+        cases[name] = (routed_sizes(cpu_gen, tokens, 6, 64), 6 * tokens,
+                       2048, 1408, bm)
+    for m in (8192, 32768):
+        for g in (8, 32):
+            cases[f"paper_M{m}_G{g}"] = (paper_sizes(m, g, seed=g), m, 4096,
+                                         4096, 128)
+    return cases
+
+
+def peak_bytes(fn) -> int:
+    """Device memory that one call of ``fn`` allocates at its peak, over
+    what was allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def phase_padded(full: bool) -> None:
+    """The paper's baseline (pad -> B2 -> unpad,
+    ``core/padding_baseline.py``) against the padding-free B2 at
+    :func:`padded_cases`' shapes.  Gate: every owned row bitwise equal
+    (the paper's equivalence claim).  With ``full``: CUDA-graph times,
+    inputs rotated through HBM as the kernel table's, of the pad pass,
+    the padded plan, the padded GEMM, the unpad pass, their sum, the
+    whole pipeline in one call, the padding-free plan and GEMM, and the
+    GEMM over exactly the padded groups' rows (without the static bound's
+    zero-filled tail); the peak memory of one call of each pipeline
+    beside the padding's own bytes."""
+    import torch
+    from repro_torch.core import padding_baseline as pb
+    from repro_torch.kernels import grouped_gemm_kernel as gk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import KernelConfig, make_tile_plan
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, (sizes, m, k, n, bm) in padded_cases().items():
+        g = sizes.numel()
+        gs = sizes.cuda()
+        cfg = KernelConfig(block_m=bm)
+        kw = dict(num_groups=g, block_m=bm)
+        a8, sa = ref.quantize_tilewise_ref(
+            torch.randn((m, k), generator=gen, device="cuda"))
+        b8, sb = ref.quantize_blockwise_ref(
+            torch.randn((g, k, n), generator=gen, device="cuda") * k ** -0.5)
+        free_plan = make_tile_plan(gs, m, block_m=bm, num_groups=g)
+        y_free = gk.gmm_cuda(a8, sa, b8, sb, gs, plan=free_plan, **kw)
+        y_pad = pb.grouped_gemm_fp8_padded(a8, sa, b8, sb, gs, config=cfg)
+        torch.cuda.synchronize()
+        total = int(sizes.sum())
+        differ = int((y_free[:total] != y_pad[:total]).any(dim=1).sum())
+        finite = bool(torch.isfinite(y_free[:total].float()).all())
+        del y_free, y_pad
+        psz = (sizes + bm - 1) // bm * bm
+        owned = int(psz.sum())
+        padded_m = pb.default_padded_m(m, g, bm)
+        # tile visits that run a product: padding-free, one for each group
+        # owning rows in a tile; padded, one a padded tile (the static
+        # bound's tail tiles are only zero-filled)
+        ends = torch.cumsum(sizes.long(), 0)
+        spans = (ends + bm - 1) // bm - (ends - sizes) // bm
+        row = {"phase": "padded", "case": name, "shape": [m, k, n],
+               "groups": g, "empty_groups": int((sizes == 0).sum()),
+               "block_m": bm, "rows": total, "padded_m": padded_m,
+               "padded_group_rows": owned, "rows_differing": differ,
+               "product_visits": {
+                   "padding_free": int(spans[sizes > 0].sum()),
+                   "padded": owned // bm,
+                   "padded_tail_tiles": (padded_m - owned) // bm},
+               "overhead": pb.padding_overhead_bytes(sizes, k, k // 128,
+                                                     block_m=bm),
+               "c_pad_bytes": (owned - total) * n * 2}
+        if full:
+            row["peak_bytes"] = {
+                "padded": peak_bytes(lambda: pb.grouped_gemm_fp8_padded(
+                    a8, sa, b8, sb, gs, config=cfg)),
+                "padding_free": peak_bytes(lambda: gk.gmm_cuda(
+                    a8, sa, b8, sb, gs, **kw))}
+            nbytes = m * k + 4 * m * (k // 128) + \
+                g * (k * n + 4 * (k // 128) * (n // 128))
+            cps = rotation(lambda: (a8.clone(), sa.clone(), b8.clone(),
+                                    sb.clone()), nbytes)
+            nc = len(cps)
+            iters = nc * -(-10 // nc)
+            pads = [pb.pad_groups(c[0], c[1], gs, block_m=bm) for c in cps]
+            p_sz = pads[0][2]
+            pplan = make_tile_plan(p_sz, padded_m, block_m=bm, num_groups=g)
+            exact = make_tile_plan(p_sz, owned, block_m=bm, num_groups=g)
+            outs = [gk.gmm_cuda(p[0], p[1], c[2], c[3], p_sz, plan=pplan,
+                                **kw) for p, c in zip(pads, cps)]
+            ms = {
+                "pad": graph_ms(lambda i: pb.pad_groups(
+                    cps[i % nc][0], cps[i % nc][1], gs, block_m=bm),
+                    iters=iters),
+                "padded_plan": graph_ms(lambda i: make_tile_plan(
+                    p_sz, padded_m, block_m=bm, num_groups=g), iters=iters),
+                "gemm_padded": graph_ms(lambda i: gk.gmm_cuda(
+                    pads[i % nc][0], pads[i % nc][1], cps[i % nc][2],
+                    cps[i % nc][3], p_sz, plan=pplan, **kw), iters=iters),
+                "unpad": graph_ms(lambda i: pb.unpad_groups(
+                    outs[i % nc], pads[i % nc][3]), iters=iters),
+                "pipeline": graph_ms(lambda i: pb.grouped_gemm_fp8_padded(
+                    *cps[i % nc], gs, config=cfg), iters=iters),
+                "padding_free_plan": graph_ms(lambda i: make_tile_plan(
+                    gs, m, block_m=bm, num_groups=g), iters=iters),
+                "gemm_padding_free": graph_ms(lambda i: gk.gmm_cuda(
+                    *cps[i % nc], gs, plan=free_plan, **kw), iters=iters),
+                "gemm_padded_group_rows": graph_ms(lambda i: gk.gmm_cuda(
+                    pads[i % nc][0][:owned], pads[i % nc][1][:owned],
+                    cps[i % nc][2], cps[i % nc][3], p_sz, plan=exact, **kw),
+                    iters=iters)}
+            ms["pad_plan_gemm_unpad_sum"] = (ms["pad"] + ms["padded_plan"]
+                                             + ms["gemm_padded"] + ms["unpad"])
+            row.update(input_copies=nc, ms=ms)
+            del cps, pads, outs
+        emit(row)
+        del a8, sa, b8, sb
+        if differ or not finite:
+            raise AssertionError(f"padded {name}: {differ} owned rows differ "
+                                 "from the padding-free GEMM's, or the "
+                                 "output is not finite")
+        free_memory()
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the model
 # ---------------------------------------------------------------------------
 
@@ -1533,7 +1755,9 @@ def phase_forward(variant: str):
     the same forward through the plain versions, on the card.  Prompt 64,
     or 128 for the flash configurations (flash needs S % 128 == 0); these
     also hold layer 0's attention output (whose input no kernel has
-    touched yet) through B8 against its plain version."""
+    touched yet) through B8 against its plain version.  The weights and
+    tokens come from fixed seeds, so configurations of one model share
+    them.  Returns the logits through the kernels."""
     import torch
     from repro_torch.models.model_zoo import make_model, synthetic_batch
     cfg = variant_config(variant, num_layers=2)
@@ -1567,7 +1791,7 @@ def phase_forward(variant: str):
         lck, lcp, _ = kernels_vs_plain(make_model(dataclasses.replace(
             cfg, attn_backend="chunked"), "cuda"))
         chunked_rel = float((lck - lcp).abs().max() / lcp.abs().max())
-    expect = serve_expected(variant, cfg.num_layers, prompt, 1)
+    expect = serve_expected(variant, kernel_layers(cfg), prompt, 1)
     if not torch.isfinite(lk).all():
         raise AssertionError("non-finite logits through the kernels")
     rel = float((lk - lp).abs().max() / lp.abs().max())
@@ -1607,6 +1831,7 @@ def phase_forward(variant: str):
         raise AssertionError(f"{variant}: layer 0's flash attention is "
                              "beyond one bf16 step of its plain version")
     del params, model
+    return lk
 
 
 def profile_breakdown(fn, top=8):
@@ -1646,11 +1871,15 @@ def path_name(base: str, variant: str) -> str:
     return base if variant == "fp8" else f"{base}_{variant}"
 
 
-def serve_run(variant: str, params, batch, new: int, path: str) -> dict:
+def serve_run(variant: str, params, batch, new: int, path: str, *,
+              sync_check: bool = False):
     """One configuration serving ``batch`` on ``params``: a warm-up
     generate, a timed one with its launch counts asserted, a timed
-    prefill, a profile of a prefill and of a decode step.  Returns the
-    launch counts."""
+    prefill, a profile of a prefill and of a decode step; with
+    ``sync_check`` one more generate under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any call
+    that waits for the device.  Returns the launch counts and the
+    generated tokens."""
     import torch
     from repro_torch.core import quantization as q
     from repro_torch.models.model_zoo import make_model
@@ -1660,10 +1889,11 @@ def serve_run(variant: str, params, batch, new: int, path: str) -> dict:
     cfg = variant_config(variant)
     model = make_model(cfg, "cuda")
     # no tile configs given: prefill runs the model's config, decode the
-    # same with 16-row tiles (fuse_producer carried over)
+    # same with 16-row tiles (fuse_producer and the backend carried over)
     engine = Engine(model, params, max_new_tokens=new)
     if engine.decode_config.block_m != 16 or (
-            engine.decode_config.fuse_producer != (variant == "fp8_fused")):
+            engine.decode_config.fuse_producer != (variant == "fp8_fused")
+            or engine.decode_config.backend != cfg.gemm_backend):
         raise AssertionError(f"serve {variant}: decode config "
                              f"{engine.decode_config}")
     engine.generate(batch)                   # warm-up
@@ -1676,6 +1906,13 @@ def serve_run(variant: str, params, batch, new: int, path: str) -> dict:
     gen_s = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    if sync_check:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            engine.generate(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
     wq_layer_ms = None
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -1684,7 +1921,7 @@ def serve_run(variant: str, params, batch, new: int, path: str) -> dict:
         prefill_s = time.perf_counter() - t0
         if cfg.precision == "fp8":
             # the per-call blockwise weight quantization of one forward
-            lp = params["layers"][0]["moe"]
+            lp = next(lay["moe"] for lay in params["layers"] if "moe" in lay)
 
             def quant_weights():
                 for key in ("w_gate", "w_up", "w_down", "shared_gate",
@@ -1700,7 +1937,7 @@ def serve_run(variant: str, params, batch, new: int, path: str) -> dict:
                     lambda: engine.prefill(batch, prompt + new)),
                 "decode_step": profile_breakdown(
                     lambda: engine.decode_step(tok, cache))}
-    expect = serve_expected(variant, cfg.num_layers, prompt, new)
+    expect = serve_expected(variant, kernel_layers(cfg), prompt, new)
     toks = res.tokens
     ok_tokens = (tuple(toks.shape) == (batch_size, new)
                  and int(toks.min()) >= 0
@@ -1715,11 +1952,14 @@ def serve_run(variant: str, params, batch, new: int, path: str) -> dict:
           "prefill_ms": prefill_s * 1e3,
           "decode_ms_per_step": (gen_s - prefill_s) * 1e3 / (new - 1),
           "tok_per_s": batch_size * new / gen_s,
+          "gemm_backend": cfg.gemm_backend,
+          "decode_block_m": engine.decode_config.block_m,
           "weight_quant_ms_per_forward": None if wq_layer_ms is None
-          else wq_layer_ms * cfg.num_layers,
+          else wq_layer_ms * kernel_layers(cfg),
           "max_memory_allocated_gb": peak / 1e9,
           "launches": counts, "expected_launches": expect,
           "tokens_ok": ok_tokens, "sample": toks[0].tolist(),
+          "sync_debug_generate_ok": True if sync_check else None,
           "seconds": time.perf_counter() - t_variant})
     for name, br in prof.items():
         emit({"phase": "profile", "config": variant, "path": path,
@@ -1731,15 +1971,18 @@ def serve_run(variant: str, params, batch, new: int, path: str) -> dict:
         raise AssertionError(f"serve {path} produced malformed tokens "
                              "or logits")
     del engine, model, cache
-    return counts
+    return counts, toks
 
 
 def phase_serve():
     """Batch 4, 16 new tokens, greedy.  The full 24-layer qwen2-moe-a2.7b,
     one param tree: each MoE configuration at prompt 64, then ``fp8`` and
     ``fp8_flash`` at prompt 512 (attention the only difference); then the
-    full 28-layer qwen3-1.7b in ``qwen3_flash`` at prompt 512.  Returns
-    each run's launch counts by path name."""
+    full 28-layer qwen3-1.7b in ``qwen3_flash`` at prompt 512; then the
+    full 28-layer deepseek-moe-16b, one param tree, at prompt 64 and 512
+    in ``ds_fp8`` and ``ds_fp8_padded``, whose tokens must be equal (the
+    baseline is bitwise the padding-free GEMM).  Returns each run's launch
+    counts by path name."""
     import torch
     from repro_torch.models.model_zoo import make_model, synthetic_batch
     batch_size, new = 4, 16
@@ -1747,7 +1990,8 @@ def phase_serve():
     for arch_variant, runs in (
             ("fp8", ((64, ("fp8", "fp8_fused", "bf16")),
                      (512, ("fp8", "fp8_flash")))),
-            ("qwen3_flash", ((512, ("qwen3_flash",)),))):
+            ("qwen3_flash", ((512, ("qwen3_flash",)),)),
+            ("ds_fp8", ((64, DS_VARIANTS), (512, DS_VARIANTS)))):
         free_memory()
         cfg = variant_config(arch_variant)
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1759,11 +2003,21 @@ def phase_serve():
               "init_s": time.perf_counter() - t0})
         for prompt, variants in runs:
             batch = synthetic_batch(gen, cfg, prompt, batch_size)
+            tokens = {}
             for variant in variants:
                 path = path_name("serve", variant)
-                if prompt != 64 and variant == "fp8":
-                    path = f"serve_p{prompt}"
-                paths[path] = serve_run(variant, params, batch, new, path)
+                if prompt != 64 and variant in ("fp8", *DS_VARIANTS):
+                    path = path_name(f"serve_p{prompt}", variant)
+                paths[path], tokens[variant] = serve_run(
+                    variant, params, batch, new, path,
+                    sync_check=variant == "ds_fp8_padded" and prompt == 64)
+            if set(DS_VARIANTS) <= set(tokens):
+                same = torch.equal(*(tokens[v] for v in DS_VARIANTS))
+                emit({"phase": "serve_padded_vs_padding_free",
+                      "prompt": prompt, "tokens_equal": same})
+                if not same:
+                    raise AssertionError(f"serve p{prompt}: the padded "
+                                         "baseline's tokens differ")
         del params
     return paths
 
@@ -1999,12 +2253,29 @@ def main(argv=None) -> int:
                     for src, out in notes.items()}})
     with timed("kernel"):
         timing = phase_kernels(full=not args.quick)
+    free_memory()
+    with timed("padded"):
+        phase_padded(full=not args.quick)
     if not args.quick:
         paths = {}
         for variant in VARIANTS:
             free_memory()
             with timed(f"forward {variant}"):
                 phase_forward(variant)
+        logits = {}
+        for variant in DS_VARIANTS:
+            free_memory()
+            with timed(f"forward {variant}"):
+                logits[variant] = phase_forward(variant)
+        # the baseline pads each group and runs the same GEMM: the same
+        # logits bit for bit
+        same = torch.equal(*(logits[v] for v in DS_VARIANTS))
+        emit({"phase": "forward_padded_vs_padding_free",
+              "configs": list(DS_VARIANTS), "logits_bitwise_equal": same})
+        if not same:
+            raise AssertionError("ds_fp8_padded's logits are not bitwise "
+                                 "ds_fp8's")
+        del logits
         free_memory()
         with timed("serve"):
             paths.update(phase_serve())

@@ -17,7 +17,7 @@ ARCHS = (
     "recurrentgemma-2b",
 )
 #: those the port runs
-PORTED = ("qwen2-moe-a2.7b", "qwen3-1.7b")
+PORTED = ("qwen2-moe-a2.7b", "qwen3-1.7b", "deepseek-moe-16b")
 
 
 def _mod(name: str):

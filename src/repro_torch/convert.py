@@ -3,9 +3,11 @@
 The JAX package's param tree comes in as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), so the two packages compute the
 same function on the same weights.  bf16 arrays cross through f32, which
-is exact; fp8 arrays cross as a ``uint8`` view.  The stacked
-``params["layers"]`` (a leading layer axis, one ``"b0"`` block per layer
-for the ``("attn",)`` pattern) becomes a list of per-layer dicts.
+is exact; fp8 arrays cross as a ``uint8`` view.  The unstacked
+``pre{i}`` blocks (the dense first layers of an MoE model), then the
+stacked ``params["layers"]`` (a leading layer axis, one ``"b0"`` block
+per layer for the ``("attn",)`` pattern), become one list of per-layer
+dicts.
 """
 from __future__ import annotations
 
@@ -46,12 +48,16 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cpu"):
         raise NotImplementedError("only the ('attn',) block pattern is ported")
     out = {"embed": tree_from_numpy(np_tree["embed"], device),
            "final_norm": tree_from_numpy(np_tree["final_norm"], device)}
+    n_pre = cfg.moe.first_dense_layers if cfg.moe is not None else 0
     stacked = np_tree["layers"]["b0"]
     n = np.asarray(stacked["ln1"]["scale"]).shape[0]
-    if n != cfg.num_layers:
-        raise ValueError(f"the tree holds {n} layers, the config {cfg.num_layers}")
-    out["layers"] = [tree_from_numpy(_index(stacked, i), device)
-                     for i in range(n)]
+    if n_pre + n != cfg.num_layers:
+        raise ValueError(f"the tree holds {n_pre} + {n} layers, the config "
+                         f"{cfg.num_layers}")
+    out["layers"] = [tree_from_numpy(np_tree[f"pre{i}"], device)
+                     for i in range(n_pre)]
+    out["layers"] += [tree_from_numpy(_index(stacked, i), device)
+                      for i in range(n)]
     return out
 
 

@@ -23,25 +23,42 @@ the dgrad already hold.  All GEMMs of a layer reuse one
 :class:`TilePlan`.  The kernels are reached through the kernel modules'
 attributes (``grouped_gemm_kernel.gmm``, ``wgrad_kernel.gmm_wgrad*``),
 which choose by the tensor's device.  The config (tile shapes,
-``wgrad_precision``) is read in the forward and kept for the backward.
+``backend``, ``wgrad_precision``) is read in the forward and kept for the
+backward.
+
+``KernelConfig.backend="padded_baseline"`` runs every fp8 GEMM of these
+layers, forward and dgrad, through the paper's baseline
+(:mod:`repro_torch.core.padding_baseline`: pad, the same fp8 grouped
+GEMM, unpad) and builds no layer plan: each padded GEMM plans over its
+padded sizes.  The quantizing GEMM becomes that GEMM, then the tilewise
+quantizer, the JAX package's unfused composition.  The quantizers and
+the wgrad keep their kernels, as the JAX package resolves a gemm-only
+backend in those families; the bf16 path ignores the backend with a
+warning, as the JAX package's does.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
 
+from repro_torch.core import padding_baseline
 from repro_torch.core import quantization as q
-from repro_torch.kernels import grouped_gemm_kernel, wgrad_kernel
+from repro_torch.kernels import grouped_gemm_kernel, quant_kernel, \
+    wgrad_kernel
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.epilogue_kernel import ACTIVATIONS
-from repro_torch.kernels.plan import KernelConfig, TilePlan, make_tile_plan, \
-    resolve_config
+from repro_torch.kernels.plan import PADDED_BASELINE, KernelConfig, \
+    TilePlan, make_tile_plan, resolve_config
 
 
 def _plan(plan: Optional[TilePlan], group_sizes, m: int, cfg: KernelConfig,
-          num_groups: int) -> TilePlan:
-    if plan is None:
+          num_groups: int) -> Optional[TilePlan]:
+    """The fp8 layer's plan, built here when absent; None under the padded
+    baseline, whose GEMMs plan over their padded sizes and whose wgrads
+    take the group offsets from the sizes."""
+    if plan is None and cfg.backend != PADDED_BASELINE:
         plan = make_tile_plan(group_sizes, m, block_m=cfg.block_m,
                               num_groups=num_groups)
     return plan
@@ -49,8 +66,12 @@ def _plan(plan: Optional[TilePlan], group_sizes, m: int, cfg: KernelConfig,
 
 def _gemm(a8, sa, w, group_sizes, cfg: KernelConfig, plan: TilePlan,
           out_dtype):
-    """``a @ w[g]`` per group on the fp8 grouped GEMM, w quantized here."""
+    """``a @ w[g]`` per group on the fp8 grouped GEMM, w quantized here;
+    under the padded baseline, pad -> the same GEMM -> unpad."""
     b8, sb = q.quantize_blockwise_batched(w)
+    if cfg.backend == PADDED_BASELINE:
+        return padding_baseline.grouped_gemm_fp8_padded(
+            a8, sa, b8, sb, group_sizes, config=cfg, out_dtype=out_dtype)
     return grouped_gemm_kernel.gmm(
         a8, sa, b8, sb, group_sizes, num_groups=w.shape[0],
         block_m=cfg.block_m, block_n=cfg.block_n, block_k=cfg.block_k,
@@ -61,7 +82,11 @@ def _gemm_quant(a8, sa, w, group_sizes, cfg: KernelConfig, plan: TilePlan,
                 round_dtype):
     """``a @ w[g]`` per group on the quantizing fp8 grouped GEMM: e4m3
     payload and 1x128 scales of the product rounded through
-    ``round_dtype``."""
+    ``round_dtype``.  Under the padded baseline: the padded GEMM, then
+    the tilewise quantizer (bitwise what the quantizing GEMM stores)."""
+    if cfg.backend == PADDED_BASELINE:
+        y = _gemm(a8, sa, w, group_sizes, cfg, plan, round_dtype)
+        return quant_kernel.quantize_tilewise(y.float())
     b8, sb = q.quantize_blockwise_batched(w)
     return grouped_gemm_kernel.gmm_quant(
         a8, sa, b8, sb, group_sizes, num_groups=w.shape[0],
@@ -92,10 +117,10 @@ def _dgrad(d8, sd, w, group_sizes, cfg: KernelConfig, plan: TilePlan):
 
 def _wgrad(operands, group_sizes, cfg: KernelConfig, plan: TilePlan,
            w: torch.Tensor):
-    """``dw[g] = a_g^T dy_g``, f32-accumulated, in ``w``'s dtype (the bf16
-    kernel rounds its f32 sum once; the fp8 one writes f32, cast here).
-    ``operands``: ``(a, dy)``, cast to bf16 here, or under fp8 wgrad
-    ``(a8, s_a, d8, s_d)``."""
+    """``dw[g] = a_g^T dy_g``, f32-accumulated, written in ``w``'s dtype
+    by either kernel (each rounds its f32 sum once).  ``operands``:
+    ``(a, dy)``, cast to bf16 here, or under fp8 wgrad ``(a8, s_a, d8,
+    s_d)``."""
     kw = dict(num_groups=w.shape[0], block_n=cfg.block_n,
               block_k=cfg.block_k, out_dtype=w.dtype, plan=plan)
     if cfg.wgrad_precision == "fp8":
@@ -268,7 +293,9 @@ class _GroupedLinearBF16(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, group_sizes, plan, cfg):
-        plan = _plan(plan, group_sizes, x.shape[0], cfg, w.shape[0])
+        if plan is None:     # the bf16 GEMM takes no backend
+            plan = make_tile_plan(group_sizes, x.shape[0],
+                                  block_m=cfg.block_m, num_groups=w.shape[0])
         y = _gemm_bf16(x, w, group_sizes, cfg, plan, cfg.out_dtype)
         ctx.cfg, ctx.plan = cfg, plan
         ctx.save_for_backward(x, w, group_sizes)
@@ -324,6 +351,12 @@ def grouped_linear(x: torch.Tensor, w: torch.Tensor,
                 "grouped_linear(precision='bf16') takes no "
                 "wgrad_precision='fp8': the fp8-operand wgrad needs the fp8 "
                 "forward's quantized residual; use precision='fp8'")
+        if cfg.backend is not None:
+            warnings.warn(
+                f"grouped_linear(precision='bf16') ignores "
+                f"backend={cfg.backend!r}: the bf16 path always runs the "
+                "bf16 grouped GEMM; use precision='fp8' to select a "
+                "grouped-GEMM backend", stacklevel=2)
         return _GroupedLinearBF16.apply(x, w, group_sizes, plan, cfg)
     raise ValueError(f"unknown precision {precision!r}")
 

@@ -9,12 +9,15 @@ the aux outputs, forward and backward, in three recipes: fp8 (the fused
 activation epilogue feeds the down GEMM), fp8 with
 ``KernelConfig.fuse_producer`` (the gate/up GEMMs store fp8 directly, so
 g and u never exist wider) and ``precision="bf16"`` (the bf16 grouped
-GEMM, the numerics baseline).  Gradients reach the router through the
-top-k weights and the load-balance loss; the token dispatch and the
-combine are gathers both ways, so the backward, like the forward, sums
-each token's k slots in one fixed order without atomics.  Not yet ported,
-and raising ``NotImplementedError``: ``dispatch="dense"`` (ROADMAP A6)
-and expert parallelism (ROADMAP A15).
+GEMM, the numerics baseline).  ``backend="padded_baseline"`` runs the
+fp8 GEMMs through the paper's baseline (pad, the same GEMM, unpad), which
+plans over its padded sizes, so the layer builds no plan of its own.
+Gradients reach the router through the top-k weights and the
+load-balance loss; the token dispatch and the combine are gathers both
+ways, so the backward, like the forward, sums each token's k slots in
+one fixed order without atomics.  Not yet ported, and raising
+``NotImplementedError``: ``dispatch="dense"`` (ROADMAP A6) and expert
+parallelism (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ from repro_torch.core.grouped_gemm import (dense_ffn_fp8, dense_linear_fp8,
                                            grouped_linear, grouped_linear_ffn,
                                            grouped_linear_fused)
 from repro_torch.core.quantization import quantize_activation
-from repro_torch.kernels.plan import KernelConfig, make_tile_plan, \
-    resolve_config
+from repro_torch.kernels.plan import PADDED_BASELINE, KernelConfig, \
+    make_tile_plan, resolve_config
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +45,9 @@ class MoEConfig:
     norm_topk_prob: bool = False
     capacity_factor: float = 2.0
     precision: str = "fp8"
+    # the grouped GEMMs' backend ("padded_baseline"), set over the kernel
+    # config's; None keeps the config's, "auto" sets it back to None
+    backend: Optional[str] = None
     kernel_config: Optional[KernelConfig] = None
     router_dtype: torch.dtype = torch.float32
     dispatch: str = "ragged"
@@ -145,7 +151,7 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
         raise ValueError(f"unknown precision {cfg.precision!r}")
     t, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
-    kcfg = resolve_config(cfg.kernel_config)
+    kcfg = resolve_config(cfg.kernel_config, backend=cfg.backend)
 
     # ---- routing (real f32: TF32 is off for the whole port) -------------
     logits = x.to(cfg.router_dtype) @ params["router"].to(cfg.router_dtype)
@@ -174,10 +180,13 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
     xs = _Dispatch.apply(x, token_of, pos)                    # [cap, d]
 
     # ---- padding-free ragged expert FFN (the paper's kernel) ------------
-    # one plan per routing decision serves every GEMM of the layer; in
-    # fp8, one quantization of xs serves the gate and up GEMMs
+    # one plan per routing decision serves every GEMM of the layer (the
+    # padded baseline's GEMMs plan over their padded sizes: no layer
+    # plan); in fp8, one quantization of xs serves the gate and up GEMMs
     fp8 = cfg.precision == "fp8"
-    tile_plan = make_tile_plan(gs, cap, block_m=kcfg.block_m, num_groups=e)
+    planned = not (fp8 and kcfg.backend == PADDED_BASELINE)
+    tile_plan = make_tile_plan(gs, cap, block_m=kcfg.block_m,
+                               num_groups=e) if planned else None
     qx = quantize_activation(xs) if fp8 else None
     if fp8 and kcfg.fuse_producer:
         # producer-fused FFN: the gate/up GEMMs store fp8 + 1x128 scales
@@ -216,7 +225,7 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
             # plan and one quantization of x serve all three GEMMs
             splan = make_tile_plan(
                 torch.full((1,), t, dtype=torch.int32, device=x.device), t,
-                block_m=kcfg.block_m, num_groups=1)
+                block_m=kcfg.block_m, num_groups=1) if planned else None
             qs = quantize_activation(x)
             if kcfg.fuse_producer:
                 out = out + dense_ffn_fp8(

@@ -2,10 +2,11 @@
 
 ``KernelConfig``
     One frozen record of the tile-shape decisions (``block_m/n/k``), the
-    output dtype of a grouped GEMM, the operand precision of the training
-    step's wgrad and whether the fp8 FFN's gate/up GEMMs quantize in
-    their store (``fuse_producer``).  Static alignment constraints are checked at
-    construction, the shape-dependent ones by :meth:`KernelConfig.validate`.
+    grouped GEMM's backend, the output dtype of a grouped GEMM, the
+    operand precision of the training step's wgrad and whether the fp8
+    FFN's gate/up GEMMs quantize in their store (``fuse_producer``).
+    Static alignment constraints are checked at construction, the
+    shape-dependent ones by :meth:`KernelConfig.validate`.
     ``config=None`` call sites resolve to :func:`get_default_config`,
     which the trainer scopes with :func:`default_config`.
 
@@ -30,6 +31,32 @@ from repro_torch.analysis import events as _events
 
 QUANT_BLOCK = 128  # the paper's 1x128 / 128x128 quantization granularity
 
+#: the backend of the paper's baseline: pad every group to ``block_m``,
+#: run the same grouped GEMM over the padded buffer, unpad
+#: (:mod:`repro_torch.core.padding_baseline`)
+PADDED_BASELINE = "padded_baseline"
+#: the JAX package's other registry names (and the ``xla`` alias); the
+#: port has no operator registry yet, so these raise
+UNPORTED_BACKENDS = ("pallas", "pallas_interpret", "xla_ragged", "xla_exact",
+                     "xla", "ref")
+
+
+def check_backend(backend: Optional[str]) -> None:
+    """Pass the backends the port runs: ``None`` (its own kernels on the
+    card, their plain versions on the CPU) and ``"padded_baseline"``.  A
+    registry name of the JAX package (also spelled with ``_fp8``) raises
+    ``NotImplementedError``, any other name ``ValueError``."""
+    if backend is None or backend == PADDED_BASELINE:
+        return
+    base = backend[:-len("_fp8")] if backend.endswith("_fp8") else backend
+    if base in UNPORTED_BACKENDS:
+        raise NotImplementedError(
+            f"backend {backend!r}: the operator registry "
+            "(kernels/dispatch.py) is not ported to repro_torch yet "
+            f"(ROADMAP A12/A13); the port runs None and {PADDED_BASELINE!r}")
+    raise ValueError(f"unknown backend {backend!r}; the port runs None and "
+                     f"{PADDED_BASELINE!r}")
+
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
@@ -40,6 +67,10 @@ class KernelConfig:
     block_m: int = 128
     block_n: int = 128
     block_k: int = 128
+    # None: the padding-free kernels (their plain versions on the CPU);
+    # "padded_baseline": the paper's baseline (pad, the same GEMM, unpad)
+    # for every fp8 grouped and dense GEMM, forward and dgrad
+    backend: Optional[str] = None
     # None = the call site decides (grouped_linear uses x.dtype); pin a
     # dtype to override every consumer
     out_dtype: Optional[torch.dtype] = None
@@ -74,6 +105,7 @@ class KernelConfig:
         if self.wgrad_precision not in ("bf16", "fp8"):
             raise ValueError(f"wgrad_precision must be 'bf16' or 'fp8', "
                              f"got {self.wgrad_precision!r}")
+        check_backend(self.backend)
 
     def validate(self, m: int, k: int, n: int, *,
                  family: str = "gemm") -> "KernelConfig":
@@ -122,10 +154,14 @@ def default_config(config: Optional[KernelConfig]):
 
 
 def resolve_config(config: Optional[KernelConfig] = None, *,
+                   backend: Optional[str] = None,
                    out_dtype: Optional[torch.dtype] = None) -> KernelConfig:
     """Effective config for a call site: the explicit ``config`` or the
-    default one, with a per-call ``out_dtype`` override on top."""
+    default one, with per-call ``backend`` and ``out_dtype`` overrides on
+    top.  ``backend="auto"`` sets the config's backend back to None."""
     cfg = config if config is not None else get_default_config()
+    if backend is not None:
+        cfg = cfg.with_(backend=None if backend == "auto" else backend)
     if out_dtype is not None:
         cfg = cfg.with_(out_dtype=out_dtype)
     return cfg

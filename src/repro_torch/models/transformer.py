@@ -6,8 +6,12 @@ is a list of per-layer dicts and the scan is a Python loop.  Modes:
 (returns per-layer caches), "decode" (one token against the caches,
 updated in place).
 Only the ``("attn",)`` block pattern is ported, with MoE in every layer
-(``cfg.moe``) or a dense SwiGLU MLP in every layer (``cfg.d_ff``, the
-dense family).
+(``cfg.moe``), or a dense SwiGLU MLP of width ``cfg.d_ff`` in the first
+``cfg.moe.first_dense_layers`` and MoE in the rest (the JAX package's
+``pre{i}`` blocks, then its stacked layers), or a dense SwiGLU MLP in
+every layer (the dense family).  Every GEMM call site takes
+``cfg.resolved_kernel_config``, the kernel config with ``gemm_backend``
+folded in.
 """
 from __future__ import annotations
 
@@ -29,26 +33,35 @@ def moe_config(cfg: ModelConfig) -> MoEConfig:
         num_experts=m.num_experts, top_k=m.top_k, d_model=cfg.d_model,
         d_ff_expert=m.d_ff_expert, num_shared_experts=m.num_shared_experts,
         norm_topk_prob=m.norm_topk_prob, capacity_factor=m.capacity_factor,
-        precision=cfg.precision, kernel_config=cfg.kernel_config)
+        precision=cfg.precision, kernel_config=cfg.resolved_kernel_config)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    moe_ok = cfg.moe is not None and not cfg.moe.first_dense_layers \
-        and not cfg.d_ff
-    dense_ok = cfg.moe is None and cfg.d_ff > 0
+    moe = cfg.moe
+    moe_ok = moe is not None and (
+        (not moe.first_dense_layers and not cfg.d_ff)
+        or (0 < moe.first_dense_layers <= cfg.num_layers and cfg.d_ff > 0))
+    dense_ok = moe is None and cfg.d_ff > 0
     if tuple(cfg.block_pattern) != ("attn",) or not (moe_ok or dense_ok):
         raise NotImplementedError(
             f"{cfg.name}: only decoders of attention blocks, each with MoE "
-            "or a dense MLP, are ported (other blocks: ROADMAP A9, A14)")
+            "(the first moe.first_dense_layers with a dense MLP of width "
+            "d_ff) or a dense MLP, are ported (other blocks: ROADMAP A9, "
+            "A14)")
 
 
-def init_block(cfg: ModelConfig, *, generator, device):
+def is_moe_layer(cfg: ModelConfig, i: int) -> bool:
+    """Whether block ``i`` carries ``"moe"`` (else a dense ``"mlp"``)."""
+    return cfg.moe is not None and i >= cfg.moe.first_dense_layers
+
+
+def init_block(cfg: ModelConfig, *, generator, device, moe_layer: bool):
     d = cfg.d_model
     p = {"ln1": init_rms_norm(d, device=device),
          "ln2": init_rms_norm(d, device=device),
          "attn": attn.init_attention(cfg, cfg.dtype, generator=generator,
                                      device=device)}
-    if cfg.moe is not None:
+    if moe_layer:
         p["moe"] = init_moe_params(moe_config(cfg), generator=generator,
                                    device=device, dtype=cfg.dtype)
     else:
@@ -68,7 +81,7 @@ def block_apply(p, x, cfg: ModelConfig, positions, *, cache=None,
     h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
     if "moe" not in p:
         ff = mlp(p["mlp"], h2, "swiglu", precision=cfg.precision,
-                 config=cfg.kernel_config)
+                 config=cfg.resolved_kernel_config)
         return x + ff, new_cache, torch.zeros((), dtype=torch.float32,
                                               device=x.device)
     b, s, d = h2.shape
@@ -83,8 +96,9 @@ def init_decoder(cfg: ModelConfig, *, generator: torch.Generator, device):
                                 cfg.tie_embeddings, generator=generator,
                                 device=device),
         "final_norm": init_rms_norm(cfg.d_model, device=device),
-        "layers": [init_block(cfg, generator=generator, device=device)
-                   for _ in range(cfg.num_layers)],
+        "layers": [init_block(cfg, generator=generator, device=device,
+                              moe_layer=is_moe_layer(cfg, i))
+                   for i in range(cfg.num_layers)],
     }
 
 

@@ -5,10 +5,12 @@ rows keep decoding into padding).
 ``kernel_config`` pins the prefill phase's tile shapes and
 ``decode_kernel_config`` the decode phase's; each phase runs a model
 rebuilt over its config, sharing one param tree.  With no decode config,
-decode takes the prefill config with 16-row tiles, so the recipe
-switches (``fuse_producer``, ``wgrad_precision``) carry over and only the
-tile geometry is decode-specialized, as in the JAX package (which picks
-the tile by autotuning, not ported yet).
+decode takes the prefill config (the model's, ``gemm_backend`` folded in)
+with 16-row tiles, so the backend and the recipe switches
+(``fuse_producer``, ``wgrad_precision``) carry over and only the tile
+geometry is decode-specialized, as in the JAX package (which picks the
+tile by autotuning, not ported yet).  Under ``"padded_baseline"`` decode
+thus pads each group to 16 rows.
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a card
 it raises.  Everything runs under ``torch.inference_mode()``.
@@ -53,7 +55,7 @@ class Engine:
         if kernel_config is not None:
             model = model_zoo.with_kernel_config(model, kernel_config)
         self.model = model
-        self.prefill_config = model.cfg.kernel_config
+        self.prefill_config = model.cfg.resolved_kernel_config
         self.decode_config = (
             decode_kernel_config if decode_kernel_config is not None
             else (self.prefill_config or KernelConfig()).with_(
