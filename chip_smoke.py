@@ -4,12 +4,14 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --quick    # probe, build and kernel checks only
 
-Seven configurations at full width are driven, built with
+Eight configurations at full width are driven, built with
 ``dataclasses.replace`` on the registry's configs.  Of qwen2-moe-a2.7b:
 ``fp8`` (the fused activation epilogue), ``fp8_fused``
 (``KernelConfig(fuse_producer=True)``: the gate/up GEMMs store fp8
-directly), ``bf16`` (``precision="bf16"``, the bf16 grouped GEMM) and
-``fp8_flash`` (fp8 with ``attn_backend="flash"``); ``qwen3_flash``, the
+directly), ``bf16`` (``precision="bf16"``, the bf16 grouped GEMM),
+``fp8_flash`` (fp8 with ``attn_backend="flash"``) and ``fp8_dense``
+(fp8 with ``moe_dispatch="dense"``: GShard's capacity buckets as plain
+batched products, the shared experts on the fp8 kernels); ``qwen3_flash``, the
 dense GQA qwen3-1.7b (bf16) with ``attn_backend="flash"``; and of
 deepseek-moe-16b (64 routed experts top-6, 2 shared, a dense first
 layer), ``ds_fp8`` and ``ds_fp8_padded`` (``gemm_backend=
@@ -46,7 +48,7 @@ decode.  Phases, each printing JSON lines:
              dense layer and one MoE layer): prefill logits through the
              kernels against the plain versions (prompt 64, and 128 for
              the flash configurations); ``ds_fp8_padded``'s logits
-             bitwise ``ds_fp8``'s;
+             bitwise ``ds_fp8``'s; ``fp8_dense`` only here;
   5. serve   batch 4, 16 new tokens, greedy, random weights: the 24-layer
              qwen2-moe-a2.7b on one param tree, at prompt 64 in ``fp8``,
              ``fp8_fused`` and ``bf16``, at prompt 512 in ``fp8`` and
@@ -59,16 +61,26 @@ decode.  Phases, each printing JSON lines:
              counts of each run are asserted;
   6. train-parity  each configuration cut to 2 layers, batch 2, seq 256:
              loss and gradients of one train step through the kernels
-             against the plain versions;
+             against the plain versions; ``ds_fp8_padded``'s loss
+             bitwise ``ds_fp8``'s, and which gradients are bitwise;
   7. train   batch 8, seq 512: the MoE configurations cut to 4 layers (the
              depth one card's 80 GB holds with bf16 params and f32 AdamW
-             state), qwen3-1.7b at its full 28 layers: 8 steps through
+             state; deepseek-moe-16b's dense layer and 3 MoE layers),
+             qwen3-1.7b at its full 28 layers: 8 steps through
              ``launch/train.py``'s ``train`` (loss must fall, launch
              counts asserted; a profile of one step and its forward /
              backward / AdamW split), the same 8 steps through the plain
-             versions for comparison; for ``fp8`` then the same 8 steps
-             with the fp8 wgrad (launch counts asserted, a profile of one
-             step).
+             versions for comparison (not for ``ds_fp8_padded``, which is
+             held against ``ds_fp8``: step 0's loss bitwise, every loss
+             and grad norm within 1e-3); for ``fp8`` and ``ds_fp8`` then
+             the same 8 steps with the fp8 wgrad (launch counts asserted,
+             a profile of one step);
+  8. checkpoint  ``ds_fp8`` cut to 2 layers trained 4 steps through
+             ``train`` with a checkpoint after the last, under ``build/``:
+             restored into a fresh tree, every leaf equal to the live
+             state and the next batch's loss bitwise the live params';
+             then ``train`` resumes from it and runs one more step; the
+             bytes written and the save and restore seconds.
 Each phase's seconds are printed.  Then the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises and the script exits non-zero.
@@ -82,6 +94,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import sys
@@ -128,9 +141,10 @@ SOURCES = {
 }
 # the configurations driven: ModelConfig fields replaced on the registry's
 # qwen2-moe-a2.7b, qwen3-1.7b or deepseek-moe-16b (the kernel configs are
-# filled in by variant_config); deepseek-moe-16b is served, not trained
+# filled in by variant_config); fp8_dense runs the forward phase only
 VARIANTS = ("fp8", "fp8_fused", "bf16", "fp8_flash", "qwen3_flash")
 DS_VARIANTS = ("ds_fp8", "ds_fp8_padded")
+DENSE_VARIANT = "fp8_dense"
 ARCH = {"qwen3_flash": "qwen3-1.7b", "ds_fp8": "deepseek-moe-16b",
         "ds_fp8_padded": "deepseek-moe-16b"}   # the others: qwen2-moe-a2.7b
 FLASH = {"attn_backend": "flash"}
@@ -140,7 +154,10 @@ FLASH = {"attn_backend": "flash"}
 # runs once a layer in a forward at S % 128 == 0 (never in decode), and
 # once a layer in a train step: the backward recomputes the plain oracle,
 # as the reference does, and the port has no remat.  The padded baseline
-# launches what the padding-free path does: one GEMM a padded GEMM
+# launches what the padding-free path does: one GEMM a padded GEMM.  The
+# dense dispatch launches only the shared experts' kernels: one
+# quantization of x, the gate and up GEMMs, the fused activation and the
+# down GEMM
 SERVE_PER_LAYER = {
     "fp8": {"quantize_tilewise": 2, "act_quantize": 2, "gmm": 6},
     "fp8_fused": {"quantize_tilewise": 2, "gmm_quant": 4,
@@ -151,6 +168,7 @@ SERVE_PER_LAYER = {
     "qwen3_flash": {"flash_attention": 1},
     "ds_fp8": {"quantize_tilewise": 2, "act_quantize": 2, "gmm": 6},
     "ds_fp8_padded": {"quantize_tilewise": 2, "act_quantize": 2, "gmm": 6},
+    "fp8_dense": {"quantize_tilewise": 1, "act_quantize": 1, "gmm": 3},
 }
 TRAIN_PER_LAYER = {
     "fp8": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
@@ -161,8 +179,13 @@ TRAIN_PER_LAYER = {
     "fp8_flash": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
                   "wgrad": 6, "flash_attention": 1},
     "qwen3_flash": {"flash_attention": 1},
+    "ds_fp8": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
+               "wgrad": 6},
+    "ds_fp8_padded": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
+                      "wgrad": 6},
 }
-# training depth: the MoE model cut to 4 layers, qwen3-1.7b whole
+# training depth: the MoE models cut to 4 layers (deepseek-moe-16b: the
+# dense layer and 3 MoE layers), qwen3-1.7b whole
 TRAIN_LAYERS = {"qwen3_flash": 28}
 
 
@@ -175,15 +198,16 @@ def variant_config(variant: str, **kw):
                                      KernelConfig(fuse_producer=True)},
             "bf16": {"precision": "bf16"}, "fp8_flash": FLASH,
             "qwen3_flash": FLASH, "ds_fp8": {},
-            "ds_fp8_padded": {"gemm_backend": "padded_baseline"}}[variant]
+            "ds_fp8_padded": {"gemm_backend": "padded_baseline"},
+            "fp8_dense": {"moe_dispatch": "dense"}}[variant]
     return dataclasses.replace(get_config(ARCH.get(variant,
                                                    "qwen2-moe-a2.7b")),
                                **repl, **kw)
 
 
 def kernel_layers(cfg) -> int:
-    """The layers whose kernels SERVE_PER_LAYER counts: all but an MoE
-    model's dense first layers."""
+    """The layers whose kernels SERVE_PER_LAYER and TRAIN_PER_LAYER count:
+    all but an MoE model's dense first layers."""
     return cfg.num_layers - (cfg.moe.first_dense_layers if cfg.moe else 0)
 
 
@@ -2032,7 +2056,8 @@ def phase_train_parity(variant: str):
     """Full widths, 2 layers, batch 2, seq 256: the loss and gradients of
     one train step (what the optimizer would take, with the global norm it
     would clip by) through the kernels against the plain versions, on one
-    set of weights, on the card."""
+    set of weights, on the card.  Returns the loss and gradients through
+    the kernels."""
     import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model_zoo import make_model
@@ -2052,20 +2077,20 @@ def phase_train_parity(variant: str):
     torch.cuda.synchronize()
     if read_counts() != counts:
         raise AssertionError("the plain train step launched a kernel")
-    expect = expected(TRAIN_PER_LAYER[variant], cfg.num_layers)
+    expect = expected(TRAIN_PER_LAYER[variant], kernel_layers(cfg))
     norm_k, norm_p = float(global_norm(grads_k)), float(global_norm(grads_p))
     loss_err = abs(float(loss_k) - float(loss_p))
     norm_rel = abs(norm_k - norm_p) / norm_p
-    # the FFN weights (experts or dense MLP), and with flash attention the
-    # attention projections too
-    checked = [("moe", k) for k in ("w_gate", "w_up", "w_down",
-                                    "shared_gate", "shared_up",
-                                    "shared_down")] if cfg.moe else \
-        [("mlp", k) for k in ("w_gate", "w_up", "w_down")]
-    if cfg.attn_backend == "flash":
-        checked += [("attn", k) for k in ("wq", "wk", "wv", "wo")]
     weights = {}
     for li, (gk, gp) in enumerate(zip(grads_k["layers"], grads_p["layers"])):
+        # each layer's FFN weights (experts or dense MLP), and with flash
+        # attention its attention projections too
+        checked = [("moe", k) for k in ("w_gate", "w_up", "w_down",
+                                        "shared_gate", "shared_up",
+                                        "shared_down")] if "moe" in gk else \
+            [("mlp", k) for k in ("w_gate", "w_up", "w_down")]
+        if cfg.attn_backend == "flash":
+            checked += [("attn", k) for k in ("wq", "wk", "wv", "wo")]
         for mod, key in checked:
             a, b = gk[mod][key].float(), gp[mod][key].float()
             weights[f"layers.{li}.{mod}.{key}"] = float((a - b).abs().max()
@@ -2086,23 +2111,63 @@ def phase_train_parity(variant: str):
         raise AssertionError(f"{variant} train step kernels vs plain: loss err "
                              f"{loss_err}, grad norm rel {norm_rel}, worst "
                              f"weight grad {worst}")
+    del grads_p
+    return loss_k, grads_k
+
+
+def compare_padded_parity(free, padded) -> None:
+    """``ds_fp8_padded``'s train-parity step against ``ds_fp8``'s on the
+    same weights and batch: the loss (the forward) must be bitwise; which
+    gradients are bitwise is recorded.  An expert weight's gradient comes
+    from the wgrad alone; the gradients of everything upstream of an MoE
+    layer also pass through its dgrad, so the first of forward, dgrad and
+    wgrad that differs shows here."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    (loss_f, grads_f), (loss_p, grads_p) = free, padded
+    differ = [path for path, a, b in zip(leaf_paths(grads_f),
+                                         tree_leaves(grads_f),
+                                         tree_leaves(grads_p))
+              if not torch.equal(a, b)]
+    same = torch.equal(loss_f, loss_p)
+    emit({"phase": "train_parity_padded_vs_padding_free",
+          "configs": list(DS_VARIANTS), "loss_bitwise_equal": same,
+          "loss": float(loss_f), "loss_padded": float(loss_p),
+          "grad_leaves": len(tree_leaves(grads_f)),
+          "grad_leaves_not_bitwise": differ})
+    if not same:
+        raise AssertionError("ds_fp8_padded's train-step loss is not bitwise "
+                             "ds_fp8's")
+
+
+def leaf_paths(tree, prefix="") -> list:
+    """Dotted names of ``tree``'s leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in leaf_paths(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
 
 
 def phase_train(variant: str):
-    """The configuration at full width, the MoE model cut to 4 layers,
+    """The configuration at full width, the MoE models cut to 4 layers,
     qwen3-1.7b whole: 8 steps of ``launch/train.py``'s ``train`` (bf16
-    wgrad), and for ``fp8`` then the same 8 with the fp8 wgrad; launch
-    counts exact, losses finite, and with the bf16 wgrad the loss falls; a
-    profile of one step of each run; the same 8 bf16-wgrad steps through
-    the plain versions.  Returns each run's launch counts by path name."""
+    wgrad), and for ``fp8`` and ``ds_fp8`` then the same 8 with the fp8
+    wgrad; launch counts exact, losses finite, and with the bf16 wgrad the
+    loss falls; a profile of one step of each run; the same 8 bf16-wgrad
+    steps through the plain versions (but for ``ds_fp8_padded``, which
+    ``compare_padded_training`` holds against ``ds_fp8``).  Returns each
+    run's launch counts by path name, and the bf16-wgrad run's history."""
     import torch
     from repro_torch.launch.train import train
     cfg = variant_config(variant, num_layers=TRAIN_LAYERS.get(variant, 4))
     batch, seq, steps = 8, 512, 8
     per_step = TRAIN_PER_LAYER[variant]
-    runs = (("bf16", steps), ("fp8", steps)) if variant == "fp8" \
-        else (("bf16", steps),)
-    out = {}
+    runs = (("bf16", steps), ("fp8", steps)) \
+        if variant in ("fp8", "ds_fp8") else (("bf16", steps),)
+    out, history = {}, None
     for wgrad, n in runs:
         free_memory()
         torch.cuda.reset_peak_memory_stats()
@@ -2114,7 +2179,7 @@ def phase_train(variant: str):
         torch.cuda.synchronize()
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
-        expect = expected(per_step, cfg.num_layers * n)
+        expect = expected(per_step, kernel_layers(cfg) * n)
         if wgrad == "fp8":
             expect["wgrad_fp8"], expect["wgrad"] = expect["wgrad"], 0
         hist = run.history
@@ -2156,6 +2221,8 @@ def phase_train(variant: str):
                       variant)] = counts
         del run
         if wgrad == "bf16":
+            history = hist
+        if wgrad == "bf16" and variant != "ds_fp8_padded":
             # the same 8 steps through the plain versions: does the
             # trajectory (its spikes included) belong to the kernels?
             free_memory()
@@ -2180,7 +2247,30 @@ def phase_train(variant: str):
                 raise AssertionError(f"train {variant}: kernel and plain loss "
                                      f"trajectories differ by {rel} > 5e-2")
     free_memory()
-    return out
+    return out, history
+
+
+def compare_padded_training(free: list, padded: list) -> None:
+    """The 8 bf16-wgrad steps of ``ds_fp8_padded`` beside ``ds_fp8``'s,
+    from the same weights and batches: step 0's loss bitwise (the forward
+    is), every loss and grad norm within 1e-3 of the padding-free one."""
+    steps = [{"step": a["step"], "loss": a["loss"], "loss_padded": b["loss"],
+              "loss_bitwise": a["loss"] == b["loss"],
+              "grad_norm": a["grad_norm"], "grad_norm_padded": b["grad_norm"],
+              "grad_norm_bitwise": a["grad_norm"] == b["grad_norm"],
+              "rel_diff": max(abs(a[k] - b[k]) / abs(a[k])
+                              for k in ("loss", "grad_norm"))}
+             for a, b in zip(free, padded, strict=True)]
+    worst = max(s["rel_diff"] for s in steps)
+    emit({"phase": "train_padded_vs_padding_free",
+          "configs": list(DS_VARIANTS), "steps": steps,
+          "max_rel_diff": worst, "bound": 1e-3})
+    if not steps[0]["loss_bitwise"]:
+        raise AssertionError("ds_fp8_padded's step-0 loss is not bitwise "
+                             "ds_fp8's")
+    if not worst <= 1e-3:
+        raise AssertionError(f"ds_fp8_padded's training differs from "
+                             f"ds_fp8's by {worst} > 1e-3")
 
 
 def split_step(cfg, run, batch):
@@ -2215,7 +2305,7 @@ def split_step(cfg, run, batch):
              "weight_quant_ms_per_step": None}
     if cfg.precision != "fp8":
         return split
-    moe = run.params["layers"][0]["moe"]
+    moe = next(lay["moe"] for lay in run.params["layers"] if "moe" in lay)
 
     def quant_weights():
         for key in ("w_gate", "w_up", "w_down", "shared_gate", "shared_up",
@@ -2224,8 +2314,91 @@ def split_step(cfg, run, batch):
             q.quantize_blockwise_batched(w)
             q.quantize_blockwise_batched(w.transpose(1, 2).contiguous())
     wq_ms = cuda_ms(lambda i: quant_weights(), iters=3, warmup=1)
-    split["weight_quant_ms_per_step"] = wq_ms * cfg.num_layers
+    split["weight_quant_ms_per_step"] = wq_ms * kernel_layers(cfg)
     return split
+
+
+def phase_checkpoint() -> None:
+    """``ds_fp8`` cut to 2 layers (its dense layer and one MoE layer):
+    4 steps of ``train`` saving a checkpoint after step 3 into ``build/``;
+    the whole state (params, AdamW's m, v and f32 masters, the step)
+    restored into a fresh tree on the card must equal the live state leaf
+    by leaf, and the loss of the next batch (forward only) from the
+    restored params must be bitwise the live params'.  Then ``train``
+    resumes from the directory and runs step 4.  The directory is deleted
+    at the end."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import make_model
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = variant_config("ds_fp8", num_layers=2)
+    d = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(batch=8, seq=512, lr=1e-3, warmup_steps=3, seed=0,
+              log_every=1, device="cuda", ckpt_dir=d, save_every=4)
+    stamps = []
+
+    def log(line):
+        stamps.append((time.perf_counter(), line))
+        print("checkpoint", line, flush=True)
+    try:
+        run = train(cfg, steps=4, log=log, **kw)
+        # the save runs between step 3's line (the step timer has waited
+        # for the step) and the [ckpt] line
+        t_step = next(t for t, line in stamps if line.startswith("step     3"))
+        t_saved = next(t for t, line in stamps if line.startswith("[ckpt]"))
+        step_dir = os.path.join(d, "step_3")
+        nbytes = {f: os.path.getsize(os.path.join(step_dir, f))
+                  for f in os.listdir(step_dir)}
+        free_bytes = shutil.disk_usage(d).free
+        live = {"params": run.params, "opt": run.opt_state}
+        like = tree_map(torch.empty_like, live)
+        t0 = time.perf_counter()
+        restored, meta, s = ckpt.restore_latest(d, like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        leaves = list(zip(tree_leaves(restored), tree_leaves(live)))
+        unequal = sum(not torch.equal(a, b) for a, b in leaves)
+        model = make_model(cfg, "cuda")
+        nxt = run.data.batch_at(4)
+        with torch.no_grad():
+            loss_live = model.loss(run.params, nxt)[0]
+            loss_restored = model.loss(restored["params"], nxt)[0]
+        same = torch.equal(loss_live, loss_restored)
+        del like, restored, leaves, run, live
+        free_memory()
+        stamps.clear()
+        resumed = train(cfg, steps=5, log=log, **kw)
+        resumed_log = [line for _, line in stamps if "[resume]" in line]
+        resumed_steps = [h["step"] for h in resumed.history]
+        resumed_loss = resumed.history[-1]["loss"]
+        del resumed
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    free_memory()
+    rec = {"phase": "checkpoint", "config": "ds_fp8", "layers": 2,
+           "params": cfg.param_count(), "saved_step": s, "meta_step":
+           meta["step"], "leaves": meta["num_leaves"],
+           "leaves_not_equal": unequal, "bytes_written": sum(nbytes.values()),
+           "files": nbytes, "disk_free_bytes_after_save": free_bytes,
+           "save_s": t_saved - t_step, "restore_s": restore_s,
+           "next_loss_live": float(loss_live),
+           "next_loss_restored": float(loss_restored),
+           "next_loss_bitwise_equal": same, "resume_log": resumed_log,
+           "resumed_steps": resumed_steps,
+           "resumed_step_loss": resumed_loss,
+           "resumed_step_loss_bitwise_forward_only": resumed_loss
+           == float(loss_live)}
+    emit(rec)
+    if s != 3 or unequal or not same:
+        raise AssertionError(f"checkpoint: restored step {s}, {unequal} "
+                             f"leaves differ, next loss bitwise {same}")
+    if resumed_steps != [4] or not resumed_log \
+            or not math.isfinite(resumed_loss):
+        raise AssertionError(f"checkpoint: the resumed run logged "
+                             f"{resumed_log}, ran {resumed_steps}")
 
 
 def main(argv=None) -> int:
@@ -2258,7 +2431,7 @@ def main(argv=None) -> int:
         phase_padded(full=not args.quick)
     if not args.quick:
         paths = {}
-        for variant in VARIANTS:
+        for variant in (*VARIANTS, DENSE_VARIANT):
             free_memory()
             with timed(f"forward {variant}"):
                 phase_forward(variant)
@@ -2279,15 +2452,26 @@ def main(argv=None) -> int:
         free_memory()
         with timed("serve"):
             paths.update(phase_serve())
-        for variant in VARIANTS:
+        parity = {}
+        for variant in (*VARIANTS, *DS_VARIANTS):
             free_memory()
             with timed(f"train_parity {variant}"):
-                phase_train_parity(variant)
-        for variant in VARIANTS:
+                out = phase_train_parity(variant)
+            if variant in DS_VARIANTS:
+                parity[variant] = out
+            del out
+        compare_padded_parity(*(parity[v] for v in DS_VARIANTS))
+        del parity
+        histories = {}
+        for variant in (*VARIANTS, *DS_VARIANTS):
             free_memory()
             with timed(f"train {variant}"):
-                paths.update(phase_train(variant))
+                counts, histories[variant] = phase_train(variant)
+            paths.update(counts)
+        compare_padded_training(*(histories[v] for v in DS_VARIANTS))
         free_memory()
+        with timed("checkpoint"):
+            phase_checkpoint()
         # launches: the sum over the main paths driven (serving and
         # training in each configuration, training with the fp8 wgrad),
         # each counted from 0

@@ -1,0 +1,152 @@
+"""Fault-tolerant checkpointing: atomic, versioned, auto-resume; the JAX
+package's ``checkpoint/checkpointer.py``, writing the same files.
+
+Layout:  <dir>/step_<n>/{arrays.npz, meta.json}  written to
+``.tmp_step_<n>`` and ``os.rename``d into place (atomic on POSIX), then
+``latest`` rewritten through ``.latest_tmp``.  A crash mid-write leaves
+at most an orphan tmp dir; ``latest_step`` only ever sees complete
+checkpoints.  ``keep_last`` bounds disk usage.
+
+Leaves are named ``a<i>`` in :func:`~repro_torch.tree.tree_leaves` order
+(sorted dict keys, the order of ``jax.tree.leaves``).  numpy has no
+bfloat16, so a bf16 leaf is stored as its raw 2-byte words, a ``|V2``
+array, as the JAX package's bf16 arrays come out of ``np.savez``; other
+dtypes keep their own.  ``meta.json`` carries the reference's keys and
+each leaf's torch dtype (``dtypes``).  :func:`restore` fills a tree of
+the wanted structure in place, each leaf keeping its dtype and device,
+bit for bit.  Leaves go to and from the host one at a time.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import zipfile
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_leaves
+
+_BYTES = np.dtype("V2")
+
+
+def _to_numpy(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().contiguous().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(_BYTES)
+    return x.numpy()
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    if a.dtype == _BYTES:                 # raw bf16 words
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _structure(tree) -> str:
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_structure(tree[k])}"
+                               for k in sorted(tree)) + "}"
+    if isinstance(tree, (list, tuple)):
+        return "[" + ", ".join(_structure(v) for v in tree) + "]"
+    return "*"
+
+
+def save(ckpt_dir: str, step: int, tree: Any, *, keep_last: int = 3,
+         extra_meta: Optional[dict] = None) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+
+    leaves = tree_leaves(tree)
+    # np.savez's own entries (a<i>.npy, stored, zip64), one leaf at a time
+    with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w",
+                         compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for i, x in enumerate(leaves):
+            with zf.open(f"a{i}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, _to_numpy(x),
+                                          allow_pickle=False)
+    meta = {"step": step, "num_leaves": len(leaves),
+            "treedef": _structure(tree),
+            "dtypes": [str(x.dtype).removeprefix("torch.") for x in leaves],
+            **(extra_meta or {})}
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)                       # atomic publish
+    with open(os.path.join(ckpt_dir, ".latest_tmp"), "w") as f:
+        f.write(str(step))
+    os.rename(os.path.join(ckpt_dir, ".latest_tmp"),
+              os.path.join(ckpt_dir, "latest"))
+
+    _gc(ckpt_dir, keep_last)
+    return final
+
+
+def _gc(ckpt_dir: str, keep_last: int):
+    steps = sorted(all_steps(ckpt_dir))
+    for s in steps[:-keep_last] if keep_last else []:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"),
+                      ignore_errors=True)
+
+
+def all_steps(ckpt_dir: str):
+    if not os.path.isdir(ckpt_dir):
+        return []
+    out = []
+    for name in os.listdir(ckpt_dir):
+        if name.startswith("step_"):
+            try:
+                out.append(int(name.split("_", 1)[1]))
+            except ValueError:
+                pass
+    return out
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    path = os.path.join(ckpt_dir, "latest")
+    if os.path.exists(path):
+        with open(path) as f:
+            s = int(f.read().strip())
+        if os.path.isdir(os.path.join(ckpt_dir, f"step_{s}")):
+            return s
+    steps = all_steps(ckpt_dir)     # fall back to scan (torn 'latest')
+    return max(steps) if steps else None
+
+
+@torch.no_grad()
+def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
+    """Restore into ``like``: each of its tensors is overwritten in place
+    with the saved leaf (cast to its dtype where the file's differs, as
+    the reference's ``astype``) and ``like`` is returned with the meta."""
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    leaves = tree_leaves(like)
+    if meta["num_leaves"] != len(leaves):
+        raise ValueError(f"checkpoint/model mismatch: {meta['num_leaves']} "
+                         f"leaves saved, {len(leaves)} wanted")
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for i, ref in enumerate(leaves):
+            src = _from_numpy(data[f"a{i}"])
+            if src.shape != ref.shape:
+                raise ValueError(f"leaf a{i}: saved shape {tuple(src.shape)}"
+                                 f", wanted {tuple(ref.shape)}")
+            ref.copy_(src)
+    return like, meta
+
+
+def restore_latest(ckpt_dir: str, like: Any):
+    s = latest_step(ckpt_dir)
+    if s is None:
+        return None, None, None
+    tree, meta = restore(ckpt_dir, s, like)
+    return tree, meta, s

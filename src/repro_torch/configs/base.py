@@ -2,8 +2,10 @@
 
 The fields carry the names of the JAX package's ``ModelConfig``; those
 the port does not read yet (recurrent, encoder and vision fields, the
-MoE dispatch, remat and scan switches, distribution switches) are left
-out until a slice ports what reads them.  ``gemm_backend`` selects the
+remat and scan switches, distribution switches) are left out until a
+slice ports what reads them.  ``moe_dispatch`` is ``"ragged"`` (the
+paper's padding-free grouped GEMM) or ``"dense"`` (GShard's capacity
+buckets).  ``gemm_backend`` selects the
 grouped GEMMs' backend for the whole model: None, or
 ``"padded_baseline"``, the paper's baseline.  ``attn_backend`` picks the
 prefill and training attention: ``"chunked"`` (plain PyTorch) or
@@ -58,6 +60,7 @@ class ModelConfig:
     # tile shapes of every grouped GEMM; None = KernelConfig()
     kernel_config: Optional[KernelConfig] = None
     attn_chunk: int = 512
+    moe_dispatch: str = "ragged"       # "ragged" (paper) | "dense" (GShard)
     attn_backend: str = "chunked"      # "chunked" | "flash"
 
     def __post_init__(self):

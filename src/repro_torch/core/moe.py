@@ -15,9 +15,18 @@ plans over its padded sizes, so the layer builds no plan of its own.
 Gradients reach the router through the top-k weights and the
 load-balance loss; the token dispatch and the combine are gathers both
 ways, so the backward, like the forward, sums each token's k slots in
-one fixed order without atomics.  Not yet ported, and raising
-``NotImplementedError``: ``dispatch="dense"`` (ROADMAP A6) and expert
-parallelism (ROADMAP A15).
+one fixed order without atomics.
+
+``dispatch="dense"`` is GShard's capacity-bucket dispatch, the padding
+regime the paper removes: each expert's rows go into a bucket of
+``cap_e`` rows, the buckets run three batched products in x's dtype
+(also under ``precision="fp8"``, as in the reference; the shared experts
+keep their fp8 kernels), and rows past an expert's capacity are dropped.
+Unlike the reference, which scatters the dropped rows as zeros onto the
+last slot of the last expert (so an overflowing last expert loses its
+last kept row), the buckets take the kept rows only (ROADMAP C).
+Not yet ported, and raising ``NotImplementedError``: expert parallelism
+(ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -138,15 +147,44 @@ def _silu_mul_bf16(g, u):
     return g * torch.sigmoid(g) * u
 
 
+def _dense_experts(params, xs: torch.Tensor, gs: torch.Tensor,
+                   num_slots: int, capacity_factor: float) -> torch.Tensor:
+    """GShard-style expert FFN over the packed rows ``xs`` [cap, d] with
+    group sizes ``gs``: each expert's first ``cap_e`` rows (the ceiling
+    of ``num_slots * capacity_factor / E``, rounded up to 8) go into its
+    bucket of an [E, cap_e, d] tensor, the buckets run the gate, up and
+    down products batched, and each kept row reads its result back; the
+    other rows are 0.  Buckets and results move by gathers, whose
+    backward adds into distinct rows; empty bucket slots and dropped rows
+    read one zero row past the data."""
+    e = gs.shape[0]
+    cap, d = xs.shape
+    cap_e = max(-(-int(num_slots * capacity_factor) // e), 1)
+    cap_e = (cap_e + 7) // 8 * 8
+    ends = torch.cumsum(gs, 0)
+    starts = ends - gs
+    slot = torch.arange(cap_e, device=xs.device)
+    src = torch.where(slot < gs[:, None], starts[:, None] + slot, cap)
+    xe = torch.cat([xs, xs.new_zeros(1, d)])[src]            # [E, cap_e, d]
+    he = _silu_mul_bf16(torch.bmm(xe, params["w_gate"]),
+                        torch.bmm(xe, params["w_up"]))
+    ye = torch.bmm(he, params["w_down"])                      # [E, cap_e, d]
+    row = torch.arange(cap, device=xs.device)
+    gid = torch.searchsorted(ends, row, right=True).clamp_(max=e - 1)
+    pos = row - starts[gid]
+    keep = (row < ends[-1]) & (pos < cap_e)
+    back = torch.where(keep, gid * cap_e + pos, e * cap_e)
+    return torch.cat([ye.reshape(e * cap_e, d), ye.new_zeros(1, d)])[back]
+
+
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
               ep_size: int = 1):
     """x: [T, d_model].  Returns (y [T, d_model], aux dict)."""
     if ep_size != 1 or ep_rank != 0:
         raise NotImplementedError("expert parallelism is not ported yet "
                                   "(ROADMAP A15)")
-    if cfg.dispatch != "ragged":
-        raise NotImplementedError(f"dispatch={cfg.dispatch!r} is not ported "
-                                  "yet (ROADMAP A6)")
+    if cfg.dispatch not in ("ragged", "dense"):
+        raise ValueError(f"unknown dispatch {cfg.dispatch!r}")
     if cfg.precision not in ("fp8", "bf16"):
         raise ValueError(f"unknown precision {cfg.precision!r}")
     t, d = x.shape
@@ -185,10 +223,13 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
     # plan); in fp8, one quantization of xs serves the gate and up GEMMs
     fp8 = cfg.precision == "fp8"
     planned = not (fp8 and kcfg.backend == PADDED_BASELINE)
+    ragged = cfg.dispatch == "ragged"
     tile_plan = make_tile_plan(gs, cap, block_m=kcfg.block_m,
-                               num_groups=e) if planned else None
-    qx = quantize_activation(xs) if fp8 else None
-    if fp8 and kcfg.fuse_producer:
+                               num_groups=e) if planned and ragged else None
+    qx = quantize_activation(xs) if fp8 and ragged else None
+    if not ragged:
+        y = _dense_experts(params, xs, gs, num_slots, cfg.capacity_factor)
+    elif fp8 and kcfg.fuse_producer:
         # producer-fused FFN: the gate/up GEMMs store fp8 + 1x128 scales
         # and the activation dequantizes them on load; the FFN performs
         # exactly one standalone quantization (qx)

@@ -6,8 +6,14 @@
 ``--smoke`` takes the reduced config; ``--device cpu`` runs the plain
 PyTorch versions of the kernels on the CPU.  The loop lives in
 :func:`train`, which a caller can drive with a config of its own (for
-example a depth-cut one).  Checkpointing is not ported yet: ``--ckpt-dir``,
-``--save-every`` and ``--fail-at-step`` raise.
+example a depth-cut one).
+
+Fault tolerance, as in the JAX package's trainer: with ``--ckpt-dir`` the
+run resumes from the directory's latest complete checkpoint (params and
+AdamW state) at the step after it, and saves one after every step with
+``(step + 1) % save_every == 0``; the data pipeline is stateless
+(``batch_at(step)``), so the resumed run consumes exactly the batches it
+would have.  ``--fail-at-step`` injects a crash before that step runs.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -32,7 +39,7 @@ class TrainRun:
     opt_state: dict
     step_fn: object          # (params, opt_state, batch) -> (.., .., metrics)
     data: SyntheticLM
-    history: list            # per step: step, loss, grad_norm, lr, step_ms
+    history: list            # per step run: step, loss, grad_norm, lr, step_ms
 
 
 class _StepTimer:
@@ -62,10 +69,15 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           grad_accum: int = 1, lr: float = 3e-4, seed: int = 0,
           log_every: int = 10, device=None,
           warmup_steps: Optional[int] = None,
-          wgrad_precision: Optional[str] = None, log=print) -> TrainRun:
+          wgrad_precision: Optional[str] = None,
+          ckpt_dir: Optional[str] = None, save_every: int = 50,
+          fail_at_step: int = -1, log=print) -> TrainRun:
     """Train ``cfg`` from random weights (drawn from ``seed``) on the
-    synthetic pipeline for ``steps`` steps.  Warmup defaults to the JAX
-    package's ``max(steps // 20, 5)``; bf16 models keep f32 masters."""
+    synthetic pipeline up to step ``steps``.  Warmup defaults to the JAX
+    package's ``max(steps // 20, 5)``; bf16 models keep f32 masters.  The
+    optimizer config depends on the arguments alone, so a resumed run's
+    schedule is the uninterrupted one's; its history starts at the
+    resumed step."""
     model = make_model(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params = model.init_params(gen)
@@ -77,12 +89,21 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
     opt_state = adamw.init_opt_state(params, opt_cfg)
     step_fn = make_train_step(model.loss, opt_cfg, grad_accum=grad_accum,
                               wgrad_precision=wgrad_precision)
+    start_step = 0
+    if ckpt_dir:
+        restored, _, s = ckpt.restore_latest(
+            ckpt_dir, {"params": params, "opt": opt_state})
+        if restored is not None:
+            start_step = s + 1
+            log(f"[resume] restored step {s} from {ckpt_dir}")
     data = SyntheticLM(DataConfig(seed=seed, batch_size=batch, seq_len=seq),
                        cfg, device=model.device)
     timer = _StepTimer(model.device)
     history = []
     t0 = time.perf_counter()
-    for step in range(steps):
+    for step in range(start_step, steps):
+        if step == fail_at_step:
+            raise SystemExit(f"[injected failure] at step {step}")
         b = data.batch_at(step)
         timer.start()
         params, opt_state, metrics = step_fn(params, opt_state, b)
@@ -90,11 +111,15 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
                **{k: float(metrics[k]) for k in ("loss", "grad_norm", "lr")}}
         history.append(rec)
         if step % log_every == 0 or step == steps - 1:
-            tps = (step + 1) * batch * seq / max(time.perf_counter() - t0,
-                                                 1e-9)
+            tps = len(history) * batch * seq / max(time.perf_counter() - t0,
+                                                   1e-9)
             log(f"step {step:5d}  loss {rec['loss']:.4f}  "
                 f"gnorm {rec['grad_norm']:.3f}  lr {rec['lr']:.2e}  "
                 f"step {rec['step_ms']:.1f} ms  tok/s {tps:,.0f}")
+        if ckpt_dir and save_every and (step + 1) % save_every == 0:
+            path = ckpt.save(ckpt_dir, step,
+                             {"params": params, "opt": opt_state})
+            log(f"[ckpt] step {step} -> {path}")
     return TrainRun(params, opt_state, step_fn, data, history)
 
 
@@ -114,15 +139,10 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--save-every", type=int, default=None)
-    ap.add_argument("--fail-at-step", type=int, default=None,
+    ap.add_argument("--save-every", type=int, default=50)
+    ap.add_argument("--fail-at-step", type=int, default=-1,
                     help="inject a crash (restart testing)")
     args = ap.parse_args(argv)
-    for flag in ("ckpt_dir", "save_every", "fail_at_step"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} needs the checkpointer, which "
-                "is not ported yet (ROADMAP A10)")
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     repl = {}
@@ -135,7 +155,9 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, **repl)
     run = train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                 grad_accum=args.grad_accum, lr=args.lr, seed=args.seed,
-                log_every=args.log_every, device=args.device)
+                log_every=args.log_every, device=args.device,
+                ckpt_dir=args.ckpt_dir, save_every=args.save_every,
+                fail_at_step=args.fail_at_step)
     print("done.")
     return run
 

@@ -124,7 +124,10 @@ def cross_entropy(logits, labels):
 
 
 def embed(p, tokens):
-    return p["embedding"][tokens]
+    # F.embedding's backward adds each row's gradients in a fixed order
+    # (an indexing gather's accumulates across threads in any order), so
+    # a resumed run repeats an uninterrupted one bit for bit
+    return F.embedding(tokens.long(), p["embedding"])
 
 
 def unembed(p, x):

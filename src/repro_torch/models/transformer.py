@@ -33,7 +33,8 @@ def moe_config(cfg: ModelConfig) -> MoEConfig:
         num_experts=m.num_experts, top_k=m.top_k, d_model=cfg.d_model,
         d_ff_expert=m.d_ff_expert, num_shared_experts=m.num_shared_experts,
         norm_topk_prob=m.norm_topk_prob, capacity_factor=m.capacity_factor,
-        precision=cfg.precision, kernel_config=cfg.resolved_kernel_config)
+        precision=cfg.precision, kernel_config=cfg.resolved_kernel_config,
+        dispatch=cfg.moe_dispatch)
 
 
 def _check_supported(cfg: ModelConfig) -> None:

@@ -9,6 +9,8 @@ The JAX side runs its Pallas kernels in interpret mode (or its
 port's do.  Each test states its tolerance and why.
 """
 import dataclasses
+import importlib.util
+import pathlib
 
 import numpy as np
 import jax
@@ -26,6 +28,7 @@ from repro.models import model_zoo as jzoo
 from repro.optim import adamw as jadamw
 from repro.train.trainer import make_train_step as jmake_train_step
 from repro_torch.analysis import events
+from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs import smoke_config
 from repro_torch.convert import (opt_state_from_jax, params_from_jax,
                                  tensor_from_numpy, tree_from_numpy)
@@ -565,7 +568,10 @@ def test_variant_loss_trajectories_match_jax(variant):
     assert want[-1] < want[0] and got[-1] < got[0]
 
 
-def test_train_entry_point_on_cpu():
+def test_train_entry_point_on_cpu(tmp_path, capsys):
+    """``train`` runs its steps; the command line's checkpoint flags save,
+    crash and resume (the bitwise trajectories:
+    ``tests/test_torch_train_restart.py``)."""
     run = tlaunch.train(smoke_config("qwen2-moe-a2.7b"), steps=2, batch=2,
                         seq=16, device="cpu", log=lambda *_: None,
                         wgrad_precision="fp8")
@@ -573,9 +579,35 @@ def test_train_entry_point_on_cpu():
     assert all(np.isfinite(h["loss"]) and h["step_ms"] > 0
                for h in run.history)
     assert int(run.opt_state["step"]) == 2
-    for flag in ("--ckpt-dir=x", "--save-every=5", "--fail-at-step=1"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            tlaunch.main(["--smoke", "--device", "cpu", flag])
+    d = str(tmp_path / "ckpt")
+    argv = ["--smoke", "--device", "cpu", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", d, "--save-every", "2"]
+    with pytest.raises(SystemExit, match="injected failure"):
+        tlaunch.main(argv + ["--steps", "4", "--fail-at-step", "3"])
+    assert ckpt.all_steps(d) == [1]
+    assert f"[ckpt] step 1 -> {d}/step_1" in capsys.readouterr().out
+    run = tlaunch.main(argv + ["--steps", "4"])
+    assert f"[resume] restored step 1 from {d}" in capsys.readouterr().out
+    assert [h["step"] for h in run.history] == [2, 3]
+    assert int(run.opt_state["step"]) == 4 and ckpt.latest_step(d) == 3
+
+
+def test_train_moe_example_on_cpu(capsys):
+    """``examples/train_moe_torch.py`` (the reduced deepseek-moe in f32)
+    trains a few fp8 steps through the plain versions, loss falling, and
+    prints the reference example's lines."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / \
+        "train_moe_torch.py"
+    spec = importlib.util.spec_from_file_location("train_moe_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    first, last = example.main(["--device", "cpu", "--steps", "6",
+                                "--seq", "64", "--precision", "fp8"])
+    assert last < first
+    out = capsys.readouterr().out
+    assert "precision=fp8  experts=8 top_k=2" in out
+    assert "grouped GEMM rows/step/layer: 512 (padding baseline would add " \
+        "~508 rows" in out
 
 
 def test_train_command_line_bf16_on_cpu():
