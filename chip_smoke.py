@@ -16,9 +16,16 @@ dense GQA qwen3-1.7b (bf16) with ``attn_backend="flash"``; and of
 deepseek-moe-16b (64 routed experts top-6, 2 shared, a dense first
 layer), ``ds_fp8`` and ``ds_fp8_padded`` (``gemm_backend=
 "padded_baseline"``: the paper's baseline, every fp8 GEMM padded per
-group to its tile, run on the same GEMM kernel, unpadded).  Flash
-attention runs where S % 128 == 0, in prefill and training, never in
-decode.  Phases, each printing JSON lines:
+group to its tile, run on the same GEMM kernel, unpadded).  The rest of
+the zoo, forward and serve only (``ZOO``): ``rg_fp8`` (recurrentgemma-2b,
+fp8: RG-LRU blocks and a sliding-window MQA layer), ``xlstm_bf16``
+(xlstm-350m: no MLP, so no kernel), ``whisper_fp8_flash`` (whisper-tiny:
+encoder-decoder, the fused quantizer's gelu mode, flash at head dim 64),
+``pixtral_fp8_flash`` (pixtral-12b: 256 patch embeddings prepended),
+``yi_fp8_flash`` (yi-9b: GQA 32/4), ``minitron_fp8`` and
+``qwen110_fp8`` (qwen1.5-110b: the G = 1 GEMMs at K / N 8192 / 49152).
+Flash attention runs where S % 128 == 0, in prefill and training, never
+in decode, never in a windowed layer.  Phases, each printing JSON lines:
   1. probe   card name and power limit, torch/CUDA versions, nvcc;
   2. build   every CUDA kernel from ``src/repro_torch/kernels/csrc``;
   3. kernel  each kernel against its plain PyTorch version on the card at
@@ -48,7 +55,13 @@ decode.  Phases, each printing JSON lines:
              dense layer and one MoE layer): prefill logits through the
              kernels against the plain versions (prompt 64, and 128 for
              the flash configurations); ``ds_fp8_padded``'s logits
-             bitwise ``ds_fp8``'s; ``fp8_dense`` only here;
+             bitwise ``ds_fp8``'s; ``fp8_dense`` only here; then each
+             zoo recipe at batch 4, cut as ``ZOO_FORWARD`` says (one
+             cycle of recurrentgemma-2b at prompt 2304, past its 2048
+             window; one cycle of xlstm-350m at 512; whisper-tiny whole
+             over 1500 frames at 128; the others 2 layers), logits at
+             the same bounds, launch counts exact, whisper's fused
+             quantizer in gelu mode;
   5. serve   batch 4, 16 new tokens, greedy, random weights: the 24-layer
              qwen2-moe-a2.7b on one param tree, at prompt 64 in ``fp8``,
              ``fp8_fused`` and ``bf16``, at prompt 512 in ``fp8`` and
@@ -57,8 +70,16 @@ decode.  Phases, each printing JSON lines:
              the 28-layer deepseek-moe-16b on one param tree at prompt 64
              and 512, each in ``ds_fp8`` and ``ds_fp8_padded`` (tokens
              equal between the two; one padded generate under
-             ``torch.cuda.set_sync_debug_mode("error")``); the launch
-             counts of each run are asserted;
+             ``torch.cuda.set_sync_debug_mode("error")``); then each zoo
+             recipe as ``ZOO_SERVE`` says (yi-9b p512, minitron-8b p64,
+             qwen1.5-110b p64 cut to 4 layers, pixtral-12b 256 patches +
+             p128, recurrentgemma-2b batch 2 p2304, xlstm-350m p512,
+             whisper-tiny 1500 frames + p128; every other one whole),
+             each on a tree of its own, with a profile of a prefill and
+             of a decode step; the launch counts of each run are
+             asserted; then the window gate: recurrentgemma-2b, one
+             cycle, bf16, decoding position 2305 after a prefill of 2304
+             (a ring cache) gives the prefill-of-2305 logits;
   6. train-parity  each configuration cut to 2 layers, batch 2, seq 256:
              loss and gradients of one train step through the kernels
              against the plain versions; ``ds_fp8_padded``'s loss
@@ -2046,6 +2067,256 @@ def phase_serve():
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the zoo: every other architecture of the JAX package at full width
+# ---------------------------------------------------------------------------
+
+# recipe -> (arch, ModelConfig fields replaced); fp8 wherever the model has
+# an MLP, flash where the model's prefill reaches it (no window, S % 128
+# == 0); xlstm-350m has no MLP, so it runs bf16 and launches no kernel
+ZOO = {
+    "rg_fp8": ("recurrentgemma-2b", {"precision": "fp8"}),
+    "xlstm_bf16": ("xlstm-350m", {}),
+    "whisper_fp8_flash": ("whisper-tiny", {"precision": "fp8", **FLASH}),
+    "pixtral_fp8_flash": ("pixtral-12b", {"precision": "fp8", **FLASH}),
+    "yi_fp8_flash": ("yi-9b", {"precision": "fp8", **FLASH}),
+    "minitron_fp8": ("minitron-8b", {"precision": "fp8"}),
+    "qwen110_fp8": ("qwen1.5-110b", {"precision": "fp8"}),
+}
+# forward phase: depth (one cycle of the hybrid and ssm patterns; whisper
+# whole) and prompt; > 2048 (the window) for recurrentgemma-2b, 128 for
+# the flash recipes (pixtral's 128 tokens follow its 256 patches: 384
+# positions), a multiple of 256 for xlstm (its mLSTM chunks)
+ZOO_FORWARD = {"rg_fp8": (3, 2304), "xlstm_bf16": (6, 512),
+               "whisper_fp8_flash": (None, 128),
+               "pixtral_fp8_flash": (2, 128), "yi_fp8_flash": (2, 128),
+               "minitron_fp8": (2, 64), "qwen110_fp8": (2, 64)}
+# serve phase: batch, prompt (tokens; pixtral adds 256 patches), depth
+# (None: every layer; qwen1.5-110b's 80 layers are ~222 GB in bf16, cut
+# to 4)
+ZOO_SERVE = {"yi_fp8_flash": (4, 512, None), "minitron_fp8": (4, 64, None),
+             "qwen110_fp8": (4, 64, 4), "pixtral_fp8_flash": (4, 128, None),
+             "rg_fp8": (2, 2304, None), "xlstm_bf16": (4, 512, None),
+             "whisper_fp8_flash": (4, 128, None)}
+# launches of one fp8 MLP per forward: SwiGLU quantizes x for the gate and
+# the up GEMM, then the fused activation quantizer feeds the down GEMM;
+# GELU (whisper) has no gate
+MLP_LAUNCHES = {"swiglu": {"quantize_tilewise": 2, "act_quantize": 1,
+                           "gmm": 3},
+                "gelu": {"quantize_tilewise": 1, "act_quantize": 1,
+                         "gmm": 2}}
+
+
+def zoo_config(variant: str, **kw):
+    from repro_torch.configs import get_config
+    arch, repl = ZOO[variant]
+    return dataclasses.replace(get_config(arch), **repl, **kw)
+
+
+def zoo_expected(cfg, prompt: int, new: int) -> dict:
+    """Launch counts of a prefill of ``prompt`` tokens and ``new - 1``
+    decode steps: one fp8 MLP per layer per forward (whisper: its encoder
+    layers in the prefill alone, its decoder layers in every forward),
+    flash attention once per non-windowed attention layer of the prefill
+    where the positions (a VLM's patches included) are a multiple of
+    128."""
+    from repro_torch.models.transformer import layer_kinds
+    out = dict.fromkeys(SOURCES, 0)
+    audio = cfg.family == "audio"
+    if cfg.precision == "fp8" and (cfg.d_ff or audio):
+        mlps = (cfg.encoder_layers + cfg.num_layers * new if audio
+                else cfg.num_layers * new)
+        for name, n in MLP_LAUNCHES["gelu" if audio else "swiglu"].items():
+            out[name] = n * mlps
+    positions = prompt + (cfg.num_patches if cfg.family == "vlm" else 0)
+    if cfg.attn_backend == "flash" and positions % 128 == 0 \
+            and cfg.window is None:
+        out["flash_attention"] = cfg.num_layers if audio else sum(
+            k == "attn" for k in layer_kinds(cfg))
+    return out
+
+
+@contextlib.contextmanager
+def act_modes():
+    """Collect the activation of every fused activation-quantizer call."""
+    from repro_torch.kernels import epilogue_kernel as ek
+    real, seen = ek.act_quantize, []
+
+    def keep(g, u=None, **kw):
+        seen.append(kw.get("act", "silu_mul"))
+        return real(g, u, **kw)
+    ek.act_quantize = keep
+    try:
+        yield seen
+    finally:
+        ek.act_quantize = real
+
+
+def phase_zoo_forward(variant: str):
+    """Full width, cut as ``ZOO_FORWARD`` says, batch 4: prefill logits
+    through the kernels against the plain versions on the card, at the
+    bounds of the forward phase (2e-2 of the largest logit; 10% for an
+    fp8 recipe with flash attention, with flash attention's layer-0
+    output within one bf16 step of its plain version), launch counts
+    exact, and which activations the fused quantizer ran."""
+    import torch
+    from repro_torch.models.model_zoo import make_model, synthetic_batch
+    layers, prompt = ZOO_FORWARD[variant]
+    cfg = zoo_config(variant, **({} if layers is None
+                                 else {"num_layers": layers}))
+    flash = cfg.attn_backend == "flash"
+    model = make_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = model.init_params(gen)
+    batch = synthetic_batch(gen, cfg, prompt, 4)
+    cap = prompt + 16 + (cfg.num_patches if cfg.family == "vlm" else 0)
+    with torch.inference_mode(), flash_outputs() as attn_out, \
+            act_modes() as acts:
+        reset_counts()
+        lk, _ = model.prefill(params, batch, cache_capacity=cap)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with plain_kernels():
+            lp, _ = model.prefill(params, batch, cache_capacity=cap)
+        torch.cuda.synchronize()
+    if read_counts() != counts:
+        raise AssertionError("the plain forward launched a kernel")
+    lk, lp = lk.float(), lp.float()
+    expect = zoo_expected(cfg, prompt, 1)
+    rel = float((lk - lp).abs().max() / lp.abs().max())
+    bound = 0.1 if flash and cfg.precision == "fp8" else 2e-2
+    rec = {"phase": "forward", "config": variant, "arch": cfg.name,
+           "layers": cfg.num_layers, "batch": 4, "prompt": prompt,
+           "logits_shape": list(lk.shape), "rel_to_max_err": rel,
+           "bound": bound, "launches": counts, "expected_launches": expect,
+           "act_modes": sorted(set(acts))}
+    n_flash = expect["flash_attention"]
+    if n_flash:
+        a_k, a_p = attn_out[0], attn_out[n_flash]
+        err = (a_k - a_p).abs()
+        rec.update(layer0_attention_rel_to_max=float(err.max()
+                                                     / a_p.abs().max()),
+                   layer0_attention_beyond_bf16_step=int(
+                       (err > flash_tol(a_p)).sum()))
+    emit(rec)
+    if counts != expect:
+        raise AssertionError(f"forward {variant}: launch counts {counts} != "
+                             f"expected {expect}")
+    if not torch.isfinite(lk).all() or rel > bound:
+        raise AssertionError(f"{variant}: kernel vs plain logits rel-to-max "
+                             f"{rel} > {bound}, or not finite")
+    if n_flash and rec["layer0_attention_beyond_bf16_step"]:
+        raise AssertionError(f"{variant}: layer 0's flash attention is "
+                             "beyond one bf16 step of its plain version")
+    if cfg.family == "audio" and rec["act_modes"] != ["gelu"]:
+        raise AssertionError(f"{variant}: the MLPs ran {rec['act_modes']}")
+
+
+def phase_zoo_serve(variant: str) -> dict:
+    """Batch, prompt and depth as ``ZOO_SERVE`` says, 16 new tokens,
+    greedy, seeded weights: a warm-up generate, a timed one (launch counts
+    asserted, peak memory), a timed prefill, a profile of a prefill and of
+    a decode step.  Returns the launch counts."""
+    import torch
+    from repro_torch.models.model_zoo import make_model, synthetic_batch
+    from repro_torch.serve.engine import Engine
+    batch_size, prompt, layers = ZOO_SERVE[variant]
+    new = 16
+    cfg = zoo_config(variant, **({} if layers is None
+                                 else {"num_layers": layers}))
+    free_memory()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = make_model(cfg, "cuda")
+    params = model.init_params(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = synthetic_batch(gen, cfg, prompt, batch_size)
+    engine = Engine(model, params, max_new_tokens=new)
+    engine.generate(batch)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = engine.generate(batch)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    extra = cfg.num_patches if cfg.family == "vlm" else 0
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        last, cache = engine.prefill(batch, prompt + extra + new)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok = res.tokens[:, 0]
+        prof = {"prefill": profile_breakdown(
+                    lambda: engine.prefill(batch, prompt + extra + new)),
+                "decode_step": profile_breakdown(
+                    lambda: engine.decode_step(tok, cache))}
+    expect = zoo_expected(cfg, prompt, new)
+    toks = res.tokens
+    ok_tokens = (tuple(toks.shape) == (batch_size, new)
+                 and int(toks.min()) >= 0
+                 and int(toks.max()) < cfg.vocab_size)
+    emit({"phase": "serve", "config": variant, "path": f"serve_{variant}",
+          "arch": cfg.name, "layers": cfg.num_layers,
+          "params": cfg.param_count(), "precision": cfg.precision,
+          "attn_backend": cfg.attn_backend, "batch": batch_size,
+          "prompt": prompt, "patches": extra, "max_new_tokens": new,
+          "init_s": init_s, "generate_ms": gen_s * 1e3,
+          "prefill_ms": prefill_s * 1e3,
+          "decode_ms_per_step": (gen_s - prefill_s) * 1e3 / (new - 1),
+          "tok_per_s": batch_size * new / gen_s,
+          "max_memory_allocated_gb": peak / 1e9,
+          "launches": counts, "expected_launches": expect,
+          "tokens_ok": ok_tokens, "sample": toks[0].tolist()})
+    for name, br in prof.items():
+        emit({"phase": "profile", "config": variant,
+              "path": f"serve_{variant}", "of": name, **br})
+    if counts != expect:
+        raise AssertionError(f"serve {variant}: launch counts {counts} "
+                             f"!= expected {expect}")
+    if not ok_tokens or not torch.isfinite(last.float()).all():
+        raise AssertionError(f"serve {variant} produced malformed tokens "
+                             "or logits")
+    del engine, model, params, cache
+    return counts
+
+
+def phase_window_gate() -> None:
+    """recurrentgemma-2b at full width, one cycle, bf16 (no kernel), batch
+    2: decoding position t + 1 after a prefill of t = 2304 > 2048 (the
+    window; the attention layer's cache is the ring) gives the logits of
+    a prefill of t + 1, within 2e-2 of the largest logit (the reference's
+    own consistency test allows 0.15 absolute), every row's argmax
+    equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import make_model, synthetic_batch
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), num_layers=3)
+    model = make_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = model.init_params(gen)
+    t = 2304
+    toks = synthetic_batch(gen, cfg, t + 1, 2)["tokens"]
+    with torch.inference_mode():
+        full, _ = model.prefill(params, {"tokens": toks}, cache_capacity=t + 1)
+        _, cache = model.prefill(params, {"tokens": toks[:, :t]},
+                                 cache_capacity=t + 1)
+        ring = [c["k"].shape[1] for c in cache["layers"] if "k" in c]
+        step, _ = model.decode_step(params, toks[:, t:], cache)
+    a, b = full[:, -1].float(), step[:, 0].float()
+    rel = float((a - b).abs().max() / a.abs().max())
+    same = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    emit({"phase": "window_gate", "arch": cfg.name, "layers": 3,
+          "prefill": t, "window": cfg.window, "cache_slots": ring,
+          "rel_to_max_err": rel, "bound": 2e-2, "argmax_equal": same})
+    if ring != [cfg.window] or rel > 2e-2 or not same:
+        raise AssertionError(f"window gate: slots {ring}, rel {rel}, argmax "
+                             f"equal {same}")
+
+
 def free_memory() -> None:
     import torch
     gc.collect()
@@ -2449,9 +2720,19 @@ def main(argv=None) -> int:
             raise AssertionError("ds_fp8_padded's logits are not bitwise "
                                  "ds_fp8's")
         del logits
+        for variant in ZOO:
+            free_memory()
+            with timed(f"forward {variant}"):
+                phase_zoo_forward(variant)
         free_memory()
         with timed("serve"):
             paths.update(phase_serve())
+        for variant in ZOO_SERVE:
+            with timed(f"serve {variant}"):
+                paths[f"serve_{variant}"] = phase_zoo_serve(variant)
+        free_memory()
+        with timed("window_gate"):
+            phase_window_gate()
         parity = {}
         for variant in (*VARIANTS, *DS_VARIANTS):
             free_memory()
@@ -2507,9 +2788,11 @@ def main(argv=None) -> int:
             if name == "flash_attention":
                 row["shapes"] = t["shapes"]
             rows.append(row)
-        # flash attention ran on the serve and train paths of both models
+        # flash attention ran on the serve and train paths of both models,
+        # and on the zoo's serve paths that reach it
         for p in ("serve_fp8_flash", "serve_qwen3_flash", "train_fp8_flash",
-                  "train_qwen3_flash"):
+                  "train_qwen3_flash", "serve_yi_fp8_flash",
+                  "serve_pixtral_fp8_flash", "serve_whisper_fp8_flash"):
             if not paths[p].get("flash_attention"):
                 raise AssertionError(f"{p}: flash attention never launched")
         emit({"kernels": rows})

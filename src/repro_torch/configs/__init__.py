@@ -1,8 +1,12 @@
-"""Architecture registry of the port.
+"""Architecture registry of the port: every architecture of the JAX
+package.
 
 ``get_config(name)`` returns the full ModelConfig; ``smoke_config(name)``
-a reduced same-family config for CPU tests.  Only the architectures whose
-paths are ported are here; the others raise "not yet ported".
+a reduced same-family config for CPU tests; ``run_hints(name)`` the
+launcher hints (microbatch sizes; xlstm's mLSTM chunk).  The presets keep
+the JAX package's fields, with one difference: ``qwen2-moe-a2.7b`` and
+``deepseek-moe-16b`` default to ``precision="fp8"``; every other preset
+keeps the reference's bf16.
 """
 from __future__ import annotations
 
@@ -16,16 +20,13 @@ ARCHS = (
     "xlstm-350m", "qwen2-moe-a2.7b", "deepseek-moe-16b", "pixtral-12b",
     "recurrentgemma-2b",
 )
-#: those the port runs
-PORTED = ("qwen2-moe-a2.7b", "qwen3-1.7b", "deepseek-moe-16b")
+#: those the port runs: all of them
+PORTED = ARCHS
 
 
 def _mod(name: str):
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCHS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not yet ported to repro_torch; ported: {PORTED}")
     return importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
 
@@ -36,3 +37,8 @@ def get_config(name: str) -> ModelConfig:
 
 def smoke_config(name: str) -> ModelConfig:
     return _mod(name).smoke_config()
+
+
+def run_hints(name: str) -> dict:
+    """Per-arch launcher hints (microbatching and the like)."""
+    return getattr(_mod(name), "RUN_HINTS", {})

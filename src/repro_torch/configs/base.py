@@ -1,9 +1,15 @@
 """Model configuration dataclasses of the port, with torch dtypes.
 
-The fields carry the names of the JAX package's ``ModelConfig``; those
-the port does not read yet (recurrent, encoder and vision fields, the
-remat and scan switches, distribution switches) are left out until a
-slice ports what reads them.  ``moe_dispatch`` is ``"ragged"`` (the
+The fields carry the names and defaults of the JAX package's
+``ModelConfig``, the recurrent (``lru_width``, ``conv_width``), encoder
+(``encoder_layers``, ``encoder_seq``, ``cross_attention``) and vision
+(``num_patches``, ``patch_embed_dim``) fields included; the remat and
+scan switches and the distribution switches are left out, as the port
+has no remat, keeps its layers in a list and runs on one card.
+``block_pattern`` is cycled over the layers: ``"attn"`` (attention and
+an MLP or MoE), ``"rglru"`` (the RG-LRU recurrence and an MLP),
+``"mlstm"`` or ``"slstm"`` (the xLSTM blocks).  ``moe_dispatch`` is
+``"ragged"`` (the
 paper's padding-free grouped GEMM) or ``"dense"`` (GShard's capacity
 buckets).  ``gemm_backend`` selects the
 grouped GEMMs' backend for the whole model: None, or
@@ -53,6 +59,16 @@ class ModelConfig:
     block_pattern: Tuple[str, ...] = ("attn",)
     window: Optional[int] = None
     moe: Optional[MoESpec] = None
+    # recurrent dims
+    lru_width: Optional[int] = None
+    conv_width: int = 4
+    # encoder-decoder (whisper): encoder frames are a precomputed stub
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+    cross_attention: bool = False
+    # vlm stub: precomputed patch embeddings projected and prepended
+    num_patches: int = 0
+    patch_embed_dim: int = 1024
     dtype: torch.dtype = torch.bfloat16
     precision: str = "bf16"            # "bf16" | "fp8" for grouped/linear GEMMs
     # None | "padded_baseline" (kernels.plan.check_backend)
@@ -83,25 +99,60 @@ class ModelConfig:
         return resolve_config(self.kernel_config, backend=self.gemm_backend)
 
     def param_count(self) -> int:
-        """Parameter count of a decoder of attention blocks, each with MoE
-        (``moe``) or a dense SwiGLU MLP (``d_ff``; with MoE, the first
-        ``moe.first_dense_layers`` blocks): the number of elements in the
-        param tree."""
+        """The number of elements in the param tree, for every family: the
+        embedding (and head), the final norm(s), each layer's block (of
+        the kind :func:`repro_torch.models.transformer.layer_kinds` gives
+        it) and, for a VLM, the patch projection; for the audio family,
+        the encoder's and the decoder's layers."""
+        d = self.d_model
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        if self.family == "audio":      # whisper never ties its head
+            emb = 2 * self.vocab_size * d
+            enc = self._attn_params() + 2 * d + 2 * d * self.d_ff
+            dec = 2 * self._attn_params() + 3 * d + 2 * d * self.d_ff
+            return (emb + 2 * d + self.encoder_layers * enc
+                    + self.num_layers * dec)
+        from repro_torch.models.transformer import layer_kinds
+        n = emb + d
+        if self.family == "vlm" and self.num_patches:
+            n += self.patch_embed_dim * d
+        return n + sum(self._block_params(kind, i)
+                       for i, kind in enumerate(layer_kinds(self)))
+
+    def _attn_params(self) -> int:
         d, hd = self.d_model, self.resolved_head_dim
-        attn = d * hd * (self.num_heads + 2 * self.num_kv_heads) \
+        n = d * hd * (self.num_heads + 2 * self.num_kv_heads) \
             + hd * self.num_heads * d
         if self.qkv_bias:
-            attn += hd * (self.num_heads + 2 * self.num_kv_heads)
+            n += hd * (self.num_heads + 2 * self.num_kv_heads)
         if self.qk_norm:
-            attn += 2 * hd
+            n += 2 * hd
+        return n
+
+    def dense_ff_width(self) -> int:
+        """The width of an attention block's dense MLP: ``d_ff``, else (the
+        JAX package's rule) the active experts' width, else 4 d."""
         m = self.moe
-        dense_ff = 3 * d * self.d_ff
-        n_dense = self.num_layers if m is None else m.first_dense_layers
-        ff = n_dense * dense_ff
-        if m is not None:
-            ff += (self.num_layers - n_dense) * (
-                3 * d * m.d_ff_expert * (m.num_experts
-                                         + m.num_shared_experts)
-                + d * m.num_experts)
-        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return self.num_layers * (attn + 2 * d) + ff + emb + d
+        return self.d_ff or (m.d_ff_expert * (m.top_k + m.num_shared_experts)
+                             if m else 4 * self.d_model)
+
+    def _block_params(self, kind: str, i: int) -> int:
+        d, m = self.d_model, self.moe
+        if kind == "attn":
+            if m is not None and i >= m.first_dense_layers:
+                ff = 3 * d * m.d_ff_expert * (m.num_experts
+                                              + m.num_shared_experts) \
+                    + d * m.num_experts
+            else:
+                ff = 3 * d * self.dense_ff_width()
+            return self._attn_params() + 2 * d + ff
+        if kind == "rglru":
+            w, cw = self.lru_width or d, self.conv_width
+            return (2 * d + 2 * d * w + cw * w + 2 * w * w + w + w * d
+                    + 3 * d * self.d_ff)
+        hhd = self.num_heads * self.resolved_head_dim
+        if kind == "mlstm":
+            return d + 5 * d * hhd + 2 * d * self.num_heads
+        if kind == "slstm":
+            return d + 5 * d * d
+        raise ValueError(kind)

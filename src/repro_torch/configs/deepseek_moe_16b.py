@@ -20,6 +20,7 @@ CONFIG = ModelConfig(
                 num_shared_experts=2, norm_topk_prob=False,
                 first_dense_layers=1),
 )
+RUN_HINTS = {"train_microbatch": 32, "prefill_microbatch": 16}
 
 
 def smoke_config():

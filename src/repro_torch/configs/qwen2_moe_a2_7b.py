@@ -17,6 +17,7 @@ CONFIG = ModelConfig(
     moe=MoESpec(num_experts=60, top_k=4, d_ff_expert=1408,
                 num_shared_experts=4, norm_topk_prob=False),
 )
+RUN_HINTS = {"train_microbatch": 32, "prefill_microbatch": 16}
 
 
 def smoke_config():

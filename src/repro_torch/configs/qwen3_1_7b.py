@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     d_ff=6144, vocab_size=151936, head_dim=128, rope_theta=1e6,
     qk_norm=True, tie_embeddings=True,
 )
+RUN_HINTS = {"train_microbatch": 32, "prefill_microbatch": 16}
 
 
 def smoke_config():

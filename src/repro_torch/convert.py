@@ -3,11 +3,16 @@
 The JAX package's param tree comes in as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``), so the two packages compute the
 same function on the same weights.  bf16 arrays cross through f32, which
-is exact; fp8 arrays cross as a ``uint8`` view.  The unstacked
-``pre{i}`` blocks (the dense first layers of an MoE model), then the
-stacked ``params["layers"]`` (a leading layer axis, one ``"b0"`` block
-per layer for the ``("attn",)`` pattern), become one list of per-layer
-dicts.
+is exact; fp8 arrays cross as a ``uint8`` view; f32 leaves stay f32.
+The layer layouts, each becoming the port's one flat list of per-layer
+dicts in the JAX package's order (``transformer.layer_kinds``):
+  - a decoder: the unstacked ``pre{i}`` blocks (an MoE model's dense
+    first layers), then the stacked cycles ``params["layers"]`` (a
+    leading cycle axis, one ``"b{i}"`` block per entry of the block
+    pattern; cycle ``c``'s ``b{i}`` is layer ``n_pre + c * p + i``), then
+    the unstacked ``tail{i}`` blocks; a VLM's ``vision_proj`` alongside;
+  - whisper: the stacked ``enc_layers`` and ``layers`` (a leading layer
+    axis, no ``"b"`` keys) and ``enc_final_norm``.
 """
 from __future__ import annotations
 
@@ -42,22 +47,42 @@ def _index(tree, i):
     return np.asarray(tree)[i]
 
 
+def _unstack(tree) -> list:
+    """A stacked tree (a leading axis on every leaf) -> a list of trees."""
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [_index(tree, i) for i in range(np.asarray(leaf).shape[0])]
+
+
 def params_from_jax(np_tree, cfg: ModelConfig, device="cpu"):
-    """The JAX decoder's param tree (numpy leaves) -> the port's."""
-    if tuple(cfg.block_pattern) != ("attn",):
-        raise NotImplementedError("only the ('attn',) block pattern is ported")
-    out = {"embed": tree_from_numpy(np_tree["embed"], device),
-           "final_norm": tree_from_numpy(np_tree["final_norm"], device)}
+    """The JAX package's param tree (numpy leaves) of ``cfg``'s model ->
+    the port's."""
+    from repro_torch.models.transformer import layer_kinds
+
+    def conv(t):
+        return tree_from_numpy(t, device)
+    out = {k: conv(np_tree[k]) for k in ("embed", "final_norm",
+                                         "enc_final_norm", "vision_proj")
+           if k in np_tree}
+    if cfg.family == "audio":
+        out["enc_layers"] = [conv(t) for t in
+                             _unstack(np_tree["enc_layers"])]
+        out["layers"] = [conv(t) for t in _unstack(np_tree["layers"])]
+        return out
+    pattern = tuple(cfg.block_pattern) or ("attn",)
     n_pre = cfg.moe.first_dense_layers if cfg.moe is not None else 0
-    stacked = np_tree["layers"]["b0"]
-    n = np.asarray(stacked["ln1"]["scale"]).shape[0]
-    if n_pre + n != cfg.num_layers:
-        raise ValueError(f"the tree holds {n_pre} + {n} layers, the config "
+    cycles = [] if "layers" not in np_tree else [
+        list(c) for c in zip(*(_unstack(np_tree["layers"][f"b{i}"])
+                               for i in range(len(pattern))))]
+    n_tail = (cfg.num_layers - n_pre) % len(pattern)
+    layers = [np_tree[f"pre{i}"] for i in range(n_pre)]
+    layers += [blk for c in cycles for blk in c]
+    layers += [np_tree[f"tail{i}"] for i in range(n_tail)]
+    if len(layers) != len(layer_kinds(cfg)):
+        raise ValueError(f"the tree holds {len(layers)} layers, the config "
                          f"{cfg.num_layers}")
-    out["layers"] = [tree_from_numpy(np_tree[f"pre{i}"], device)
-                     for i in range(n_pre)]
-    out["layers"] += [tree_from_numpy(_index(stacked, i), device)
-                      for i in range(n)]
+    out["layers"] = [conv(t) for t in layers]
     return out
 
 

@@ -6,7 +6,9 @@ regenerates identical batches.  The "dataset" is one fixed cyclic token
 pattern per seed, sampled at random phases with 5% token noise, so a
 model shows a real, decreasing loss rather than ln(V) noise.
 :meth:`SyntheticLM.batch_at` is bitwise the JAX package's batch, moved
-to the pipeline's device.
+to the pipeline's device: the audio family's batches also carry
+``frames`` and a VLM's ``patch_embeds``, f32 normal draws from the same
+generator in the same order.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ class SyntheticLM:
         self.device = torch.device(device)
 
     def batch_np(self, step: int) -> dict:
-        """The batch of ``step`` as numpy int32 arrays."""
+        """The batch of ``step`` as numpy arrays (tokens and labels int32,
+        frames and patch embeddings f32)."""
         c = self.cfg
         rng = np.random.default_rng((c.seed, step))
         v = self.mcfg.vocab_size
@@ -51,8 +54,17 @@ class SyntheticLM:
         noise_mask = rng.random(tokens.shape) < 0.05
         tokens = np.where(noise_mask,
                           rng.integers(0, v, tokens.shape), tokens)
-        return {"tokens": tokens.astype(np.int32),
-                "labels": tokens.astype(np.int32)}
+        batch = {"tokens": tokens.astype(np.int32),
+                 "labels": tokens.astype(np.int32)}
+        m = self.mcfg
+        if m.family == "audio":
+            batch["frames"] = rng.standard_normal(
+                (c.batch_size, m.encoder_seq, m.d_model)).astype(np.float32)
+        if m.family == "vlm":
+            batch["patch_embeds"] = rng.standard_normal(
+                (c.batch_size, m.num_patches, m.patch_embed_dim)
+            ).astype(np.float32)
+        return batch
 
     def batch_at(self, step: int) -> dict:
         return {k: torch.from_numpy(a).to(self.device)

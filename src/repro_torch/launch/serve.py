@@ -3,8 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --arch qwen2-moe-a2.7b --batch 4 --prompt-len 64 --max-new 16
 
+``--arch`` takes every architecture of ``repro_torch.configs.ARCHS``;
 ``--smoke`` takes the reduced config; ``--device cpu`` runs the plain
-PyTorch versions of the kernels on the CPU.
+PyTorch versions of the kernels on the CPU.  The batch carries the stub
+frontends' inputs (whisper's ``frames``, a VLM's ``patch_embeds``).  An
+xLSTM prompt must satisfy ``S % min(256, S) == 0`` (its mLSTM chunks).
 """
 from __future__ import annotations
 
@@ -13,14 +16,14 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.models.model_zoo import make_model, synthetic_batch
 from repro_torch.serve.engine import Engine
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-moe-a2.7b")
+    ap.add_argument("--arch", default="qwen2-moe-a2.7b", choices=ARCHS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=4)

@@ -3,8 +3,11 @@
   PYTHONPATH=src python -m repro_torch.launch.train --device cuda \
       --arch qwen2-moe-a2.7b --steps 100 --batch 8 --seq 512
 
-``--smoke`` takes the reduced config; ``--device cpu`` runs the plain
-PyTorch versions of the kernels on the CPU.  The loop lives in
+``--arch`` takes every architecture of ``repro_torch.configs.ARCHS``
+(the data pipeline's batches carry whisper's ``frames`` and a VLM's
+``patch_embeds``; an xLSTM ``--seq`` must satisfy ``S % min(256, S) ==
+0``); ``--smoke`` takes the reduced config; ``--device cpu`` runs the
+plain PyTorch versions of the kernels on the CPU.  The loop lives in
 :func:`train`, which a caller can drive with a config of its own (for
 example a depth-cut one).
 
@@ -25,7 +28,7 @@ from typing import Optional
 import torch
 
 from repro_torch.checkpoint import checkpointer as ckpt
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models.model_zoo import make_model
@@ -125,7 +128,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-moe-a2.7b")
+    ap.add_argument("--arch", default="qwen2-moe-a2.7b", choices=ARCHS)
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (CPU-sized)")
     ap.add_argument("--device", default="cuda")

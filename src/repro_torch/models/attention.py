@@ -7,8 +7,14 @@ plain tensor ops (not ``scaled_dot_product_attention``), so the two
 agree.  With ``cfg.attn_backend == "flash"``, a layer without a window
 and S % 128 == 0 runs :func:`~repro_torch.kernels.flash_attention_kernel.
 flash_attention_trainable` instead, under the JAX package's condition;
-any other prefill, and every decode step, keeps the plain paths.  The
-sliding-window branches are not ported (no ported model has a window).
+any other prefill, and every decode step, keeps the plain paths.
+
+Sliding windows (``layer_window``) follow the JAX package: a key at most
+``window - 1`` positions behind the query is seen.  A prefill longer
+than the window leaves a ring-buffer cache of exactly ``window`` slots,
+position ``p`` at slot ``p % window``; a decode step on it writes its
+K/V at ``len % window``, in place.  A windowed cache with more slots
+than the window keeps position ``p`` at slot ``p`` and masks by window.
 """
 from __future__ import annotations
 
@@ -71,10 +77,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
 
     q: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D].  q rows sit at positions
     ``q_offset + i``, k rows at ``k_offset + j``.  Chunk pairs with no
-    live (q, k) pair under the causal mask are skipped.
+    live (q, k) pair under the causal and window masks are skipped.
     """
-    if window is not None:
-        raise NotImplementedError("sliding-window attention is not ported yet")
     b, sq, hq, hd = q.shape
     _, sk, hkv, _ = k.shape
     g = hq // hkv
@@ -98,6 +102,9 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
         for j in range(nk):
             if causal and (q_offset + i * cq + cq - 1) < (k_offset + j * ck):
                 continue
+            if window is not None and (q_offset + i * cq) - (
+                    k_offset + j * ck + ck - 1) >= window:
+                continue
             kj, vj = k[:, j * ck:(j + 1) * ck], v[:, j * ck:(j + 1) * ck]
             if kj.shape[1] < ck:
                 pad = kj.new_zeros((b, ck - kj.shape[1], hkv, hd))
@@ -108,6 +115,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
             mask = (kpi[None, :] < k_valid).expand(cq, ck)
             if causal:
                 mask = mask & (qpi[:, None] >= kpi[None, :])
+            if window is not None:
+                mask = mask & ((qpi[:, None] - kpi[None, :]) < window)
             s = torch.where(mask, s, torch.full_like(s, NEG_INF))
             m_new = torch.maximum(m, s.amax(dim=-1))
             pr = torch.exp(s - m_new[..., None])
@@ -123,15 +132,25 @@ def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
 
 def decode_attention(q, k_cache, v_cache, q_pos: int, *,
                      window: Optional[int]):
-    """q: [B, 1, Hq, D] vs cache [B, S, Hkv, D]; positions <= q_pos valid."""
+    """q: [B, 1, Hq, D] vs cache [B, S, Hkv, D], slot ``j`` holding
+    position ``j``; positions <= q_pos (and, with a window, > q_pos -
+    window) valid."""
+    _, s, _, _ = k_cache.shape
+    k_pos = torch.arange(s, device=q.device)
+    mask = k_pos <= q_pos
     if window is not None:
-        raise NotImplementedError("sliding-window attention is not ported yet")
+        mask = mask & (q_pos - k_pos < window)
+    return _attend_cache(q, k_cache, v_cache, mask)
+
+
+def _attend_cache(q, k_cache, v_cache, mask):
+    """Softmax attention of one query row per sequence over the cache
+    slots where ``mask`` [S] holds."""
     b, _, hq, hd = q.shape
     _, s, hkv, _ = k_cache.shape
     g = hq // hkv
     qg = q.reshape(b, hkv, g, hd).float()
     scores = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * hd ** -0.5
-    mask = torch.arange(s, device=q.device) <= q_pos
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     pr = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", pr, v_cache.float())
@@ -140,10 +159,17 @@ def decode_attention(q, k_cache, v_cache, q_pos: int, *,
 
 def _cache_from_prefill(k, v, window, capacity=None, dtype=torch.bfloat16):
     """Decode cache from prefill K/V, padded to ``capacity`` slots so the
-    decode steps can append in place."""
-    if window is not None:
-        raise NotImplementedError("sliding-window caches are not ported yet")
+    decode steps can append in place.  A window layer whose prompt is
+    longer than the window keeps the last ``window`` positions in a ring
+    buffer, position ``p`` at slot ``p % window``."""
     b, s, hkv, hd = k.shape
+    if window is not None and s > window:
+        slots = torch.arange(s - window, s, device=k.device) % window
+        kc = torch.zeros((b, window, hkv, hd), dtype=dtype, device=k.device)
+        vc = torch.zeros_like(kc)
+        kc[:, slots] = k[:, -window:].to(dtype)
+        vc[:, slots] = v[:, -window:].to(dtype)
+        return {"k": kc, "v": vc, "len": s}
     cap = max(capacity or s, s)
     kc = torch.zeros((b, cap, hkv, hd), dtype=dtype, device=k.device)
     vc = torch.zeros_like(kc)
@@ -181,10 +207,22 @@ def attention_block(p, x, cfg, positions, *, cache=None, layer_window=None,
         pos = cache["len"]
         positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q, k, v = _project_qkv(p, x, cfg, positions)
-        cache["k"][:, pos:pos + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, pos:pos + 1] = v.to(cache["v"].dtype)
-        out = decode_attention(q, cache["k"], cache["v"], pos,
-                               window=layer_window)
+        ring = layer_window is not None and \
+            cache["k"].shape[1] == layer_window
+        slot = pos % layer_window if ring else pos
+        cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
+        cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
+        if ring:
+            # the position each slot holds: the slots up to ``slot`` were
+            # written in this lap of the ring, the later ones in the last
+            j = torch.arange(layer_window, device=x.device)
+            slot_pos = torch.where(j <= slot, pos - slot + j,
+                                   pos - slot - layer_window + j)
+            out = _attend_cache(q, cache["k"], cache["v"],
+                                (slot_pos >= 0) & (slot_pos <= pos))
+        else:
+            out = decode_attention(q, cache["k"], cache["v"], pos,
+                                   window=layer_window)
         new_cache = {"k": cache["k"], "v": cache["v"], "len": pos + 1}
     out = out.reshape(b, s, hq * hd)
     return out @ p["wo"].to(x.dtype), new_cache

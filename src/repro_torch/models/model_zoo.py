@@ -1,5 +1,8 @@
-"""Model API of the port: ``make_model(cfg)`` returns a :class:`Model`
-with init / loss / prefill / decode entry points bound to one device.
+"""Model API of the port over every architecture of the JAX package:
+``make_model(cfg)`` returns a :class:`Model` with init / loss / prefill /
+decode entry points bound to one device.  The audio family (whisper)
+runs :mod:`repro_torch.models.whisper`, every other family the decoder
+of :mod:`repro_torch.models.transformer`.
 
 The device defaults to CUDA; without a card, and without
 ``device="cpu"``, :func:`make_model` raises.
@@ -14,6 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models import whisper as whs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,36 +28,53 @@ class Model:
     loss: Callable           # (params, batch) -> (loss, metrics)
     prefill: Callable        # (params, batch, cache_capacity) -> (logits, cache)
     decode_step: Callable    # (params, tokens, cache) -> (logits, cache)
-    init_cache: Callable     # (batch_size, seq) -> cache
+    init_cache: Callable     # (params, batch, batch_size, seq) -> cache
 
 
 def make_model(cfg: ModelConfig, device=None) -> Model:
     dev = resolve_device(device)
-    if not ((cfg.family == "moe" and cfg.moe is not None)
-            or (cfg.family == "dense" and cfg.moe is None and cfg.d_ff)):
-        raise NotImplementedError(f"{cfg.name}: only the MoE and dense "
-                                  "decoder families are ported (ROADMAP A9, "
-                                  "A14)")
+    if cfg.family == "audio":
+        def init_params(generator: torch.Generator):
+            return whs.init_whisper(cfg, generator=generator, device=dev)
 
-    def init_params(generator: torch.Generator):
-        return tfm.init_decoder(cfg, generator=generator, device=dev)
+        def loss(params, batch):
+            return whs.whisper_loss(params, batch, cfg)
 
-    def loss(params, batch):
-        return tfm.lm_loss(params, batch, cfg)
+        def prefill(params, batch, cache_capacity=None):
+            logits, cache, _ = whs.whisper_forward(
+                params, batch["tokens"], batch["frames"], cfg,
+                mode="prefill", cache_capacity=cache_capacity)
+            return logits, cache
 
-    def prefill(params, batch, cache_capacity=None):
-        logits, cache, _ = tfm.decoder_forward(
-            params, batch["tokens"], cfg, mode="prefill",
-            cache_capacity=cache_capacity)
-        return logits, cache
+        def decode_step(params, tokens, cache):
+            logits, cache, _ = whs.whisper_forward(
+                params, tokens, None, cfg, mode="decode", cache=cache)
+            return logits, cache
 
-    def decode_step(params, tokens, cache):
-        logits, cache, _ = tfm.decoder_forward(params, tokens, cfg,
-                                               mode="decode", cache=cache)
-        return logits, cache
+        def init_cache(params, batch, batch_size, seq):
+            return whs.whisper_init_cache(params, batch["frames"], cfg,
+                                          batch_size, seq)
+    else:
+        def init_params(generator: torch.Generator):
+            return tfm.init_decoder(cfg, generator=generator, device=dev)
 
-    def init_cache(batch_size, seq):
-        return tfm.init_cache(cfg, batch_size, seq, device=dev)
+        def loss(params, batch):
+            return tfm.lm_loss(params, batch, cfg)
+
+        def prefill(params, batch, cache_capacity=None):
+            logits, cache, _ = tfm.decoder_forward(
+                params, batch["tokens"], cfg, mode="prefill",
+                patch_embeds=batch.get("patch_embeds"),
+                cache_capacity=cache_capacity)
+            return logits, cache
+
+        def decode_step(params, tokens, cache):
+            logits, cache, _ = tfm.decoder_forward(params, tokens, cfg,
+                                                   mode="decode", cache=cache)
+            return logits, cache
+
+        def init_cache(params, batch, batch_size, seq):
+            return tfm.init_cache(cfg, batch_size, seq, device=dev)
 
     return Model(cfg=cfg, device=dev, init_params=init_params, loss=loss,
                  prefill=prefill, decode_step=decode_step,
@@ -73,10 +94,22 @@ def with_kernel_config(model: Model, kernel_config) -> Model:
 
 def synthetic_batch(generator: torch.Generator, cfg: ModelConfig,
                     seq_len: int, batch_size: int, *, device=None):
-    """Random token batch drawn from ``generator`` (on its device unless
-    ``device`` is given)."""
+    """Random batch drawn from ``generator`` (on its device unless
+    ``device`` is given): tokens (the labels too), and the stub frontends'
+    inputs, bf16 normal draws: ``frames`` [B, encoder_seq, d_model] for
+    the audio family, ``patch_embeds`` [B, num_patches, patch_embed_dim]
+    for a VLM."""
     dev = device if device is not None else generator.device
     tokens = torch.randint(0, cfg.vocab_size, (batch_size, seq_len),
                            generator=generator, device=dev, dtype=torch.int64)
-    return {"tokens": tokens}
+    batch = {"tokens": tokens, "labels": tokens}
 
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+    if cfg.family == "audio":
+        batch["frames"] = normal(batch_size, cfg.encoder_seq, cfg.d_model)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = normal(batch_size, cfg.num_patches,
+                                       cfg.patch_embed_dim)
+    return batch

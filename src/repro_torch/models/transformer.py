@@ -1,15 +1,20 @@
-"""Decoder LM of attention blocks, each with MoE or a dense MLP.
+"""Generic decoder LM over the JAX package's families (dense, MoE, ssm,
+hybrid, vlm): the config's ``block_pattern`` cycled over the layers.
 
-The JAX package scans over stacked layer params; here ``params["layers"]``
-is a list of per-layer dicts and the scan is a Python loop.  Modes:
-"train" (differentiable: :func:`lm_loss` trains through it), "prefill"
-(returns per-layer caches), "decode" (one token against the caches,
-updated in place).
-Only the ``("attn",)`` block pattern is ported, with MoE in every layer
-(``cfg.moe``), or a dense SwiGLU MLP of width ``cfg.d_ff`` in the first
-``cfg.moe.first_dense_layers`` and MoE in the rest (the JAX package's
-``pre{i}`` blocks, then its stacked layers), or a dense SwiGLU MLP in
-every layer (the dense family).  Every GEMM call site takes
+The layer order is the JAX package's ``_layout``: the ``pre{i}`` blocks
+(an MoE model's dense first layers), then ``cycles`` x ``block_pattern``,
+then the ``tail{i}`` remainder of the pattern.  The JAX package scans
+over stacked cycles; here ``params["layers"]`` is one flat list of
+per-layer dicts in that order (:func:`layer_kinds` names each layer's
+kind) and the scan is a Python loop.  Kinds: ``"attn"`` (attention, then
+MoE or a dense SwiGLU MLP), ``"rglru"`` (the RG-LRU block, then a SwiGLU
+MLP), ``"mlstm"`` and ``"slstm"`` (the xLSTM blocks); any other raises
+``ValueError``, as in the JAX package.  A VLM (``family="vlm"``)
+projects ``patch_embeds`` by ``vision_proj`` and prepends them to the
+token embeddings.  Modes: "train" (differentiable: :func:`lm_loss`
+trains through it), "prefill" (returns per-layer caches), "decode" (one
+token against the caches; attention caches are updated in place,
+recurrent states returned anew).  Every GEMM call site takes
 ``cfg.resolved_kernel_config``, the kernel config with ``gemm_backend``
 folded in.
 """
@@ -22,9 +27,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import MoEConfig, init_moe_params, moe_apply
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rg
+from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
-                                       init_mlp, init_rms_norm, mlp,
+                                       init_mlp, init_rms_norm, mlp, ninit,
                                        rms_norm, unembed)
+
+#: the block kinds of ``block_pattern``
+KINDS = ("attn", "rglru", "mlstm", "slstm")
 
 
 def moe_config(cfg: ModelConfig) -> MoEConfig:
@@ -37,18 +47,21 @@ def moe_config(cfg: ModelConfig) -> MoEConfig:
         dispatch=cfg.moe_dispatch)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    moe = cfg.moe
-    moe_ok = moe is not None and (
-        (not moe.first_dense_layers and not cfg.d_ff)
-        or (0 < moe.first_dense_layers <= cfg.num_layers and cfg.d_ff > 0))
-    dense_ok = moe is None and cfg.d_ff > 0
-    if tuple(cfg.block_pattern) != ("attn",) or not (moe_ok or dense_ok):
-        raise NotImplementedError(
-            f"{cfg.name}: only decoders of attention blocks, each with MoE "
-            "(the first moe.first_dense_layers with a dense MLP of width "
-            "d_ff) or a dense MLP, are ported (other blocks: ROADMAP A9, "
-            "A14)")
+def layer_kinds(cfg: ModelConfig) -> list:
+    """The kind of every layer, in the flat order of ``params["layers"]``:
+    the JAX package's ``pre{i}`` blocks (``"attn"``), then its stacked
+    cycles of ``block_pattern``, then its ``tail{i}`` blocks.  An unknown
+    kind raises ``ValueError``."""
+    pattern = tuple(cfg.block_pattern) or ("attn",)
+    for kind in pattern:
+        if kind not in KINDS:
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}; "
+                             f"expected one of {KINDS}")
+    n_pre = cfg.moe.first_dense_layers if cfg.moe else 0
+    rest = cfg.num_layers - n_pre
+    cycles = rest // len(pattern)
+    return (["attn"] * n_pre + list(pattern) * cycles
+            + list(pattern[:rest % len(pattern)]))
 
 
 def is_moe_layer(cfg: ModelConfig, i: int) -> bool:
@@ -56,80 +69,134 @@ def is_moe_layer(cfg: ModelConfig, i: int) -> bool:
     return cfg.moe is not None and i >= cfg.moe.first_dense_layers
 
 
-def init_block(cfg: ModelConfig, *, generator, device, moe_layer: bool):
+def init_block(kind: str, cfg: ModelConfig, *, generator, device,
+               moe_layer: bool):
     d = cfg.d_model
-    p = {"ln1": init_rms_norm(d, device=device),
-         "ln2": init_rms_norm(d, device=device),
-         "attn": attn.init_attention(cfg, cfg.dtype, generator=generator,
-                                     device=device)}
-    if moe_layer:
-        p["moe"] = init_moe_params(moe_config(cfg), generator=generator,
-                                   device=device, dtype=cfg.dtype)
-    else:
-        p["mlp"] = init_mlp(d, cfg.d_ff, "swiglu", cfg.dtype,
-                            generator=generator, device=device)
-    return p
+    kw = dict(generator=generator, device=device)
+    if kind == "attn":
+        p = {"ln1": init_rms_norm(d, device=device),
+             "ln2": init_rms_norm(d, device=device),
+             "attn": attn.init_attention(cfg, cfg.dtype, **kw)}
+        if moe_layer:
+            p["moe"] = init_moe_params(moe_config(cfg), dtype=cfg.dtype,
+                                       **kw)
+        else:
+            p["mlp"] = init_mlp(d, cfg.dense_ff_width(), "swiglu",
+                                cfg.dtype, **kw)
+        return p
+    if kind == "rglru":
+        return {"ln1": init_rms_norm(d, device=device),
+                "ln2": init_rms_norm(d, device=device),
+                "rglru": rg.init_rglru(cfg, cfg.dtype, **kw),
+                "mlp": init_mlp(d, cfg.d_ff, "swiglu", cfg.dtype, **kw)}
+    if kind == "mlstm":
+        return {"ln1": init_rms_norm(d, device=device),
+                "mlstm": xl.init_mlstm(cfg, cfg.dtype, **kw)}
+    if kind == "slstm":
+        return {"ln1": init_rms_norm(d, device=device),
+                "slstm": xl.init_slstm(cfg, cfg.dtype, **kw)}
+    raise ValueError(kind)
 
 
-def block_apply(p, x, cfg: ModelConfig, positions, *, cache=None,
+def block_apply(kind: str, p, x, cfg: ModelConfig, positions, *, cache=None,
                 mode: str = "train", cache_capacity=None, pos_offset: int = 0):
-    """Returns (x, new_cache, aux_loss)."""
-    h, new_cache = attn.attention_block(
-        p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg, positions,
-        cache=cache, layer_window=cfg.window, mode=mode,
-        cache_capacity=cache_capacity, pos_offset=pos_offset)
-    x = x + h
-    h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-    if "moe" not in p:
-        ff = mlp(p["mlp"], h2, "swiglu", precision=cfg.precision,
-                 config=cfg.resolved_kernel_config)
-        return x + ff, new_cache, torch.zeros((), dtype=torch.float32,
-                                              device=x.device)
-    b, s, d = h2.shape
-    ff, aux = moe_apply(p["moe"], h2.reshape(b * s, d), moe_config(cfg))
-    return x + ff.reshape(b, s, d), new_cache, aux["load_balance_loss"]
+    """Returns (x, new_cache, aux_loss); new_cache is None in train
+    mode."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    mlp_kw = dict(precision=cfg.precision, config=cfg.resolved_kernel_config)
+    if kind == "attn":
+        h, new_cache = attn.attention_block(
+            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg, positions,
+            cache=cache, layer_window=cfg.window, mode=mode,
+            cache_capacity=cache_capacity, pos_offset=pos_offset)
+        x = x + h
+        h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+        if "moe" not in p:
+            return x + mlp(p["mlp"], h2, "swiglu", **mlp_kw), new_cache, aux
+        b, s, d = h2.shape
+        ff, maux = moe_apply(p["moe"], h2.reshape(b * s, d), moe_config(cfg))
+        return x + ff.reshape(b, s, d), new_cache, maux["load_balance_loss"]
+    if kind == "rglru":
+        h, state = rg.rglru_apply(p["rglru"],
+                                  rms_norm(p["ln1"], x, cfg.norm_eps),
+                                  state=cache)
+        x = x + h
+        x = x + mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), "swiglu",
+                    **mlp_kw)
+    elif kind in ("mlstm", "slstm"):
+        fn = xl.mlstm_apply if kind == "mlstm" else xl.slstm_apply
+        h, state = fn(p[kind], rms_norm(p["ln1"], x, cfg.norm_eps),
+                      state=cache)
+        x = x + h
+    else:
+        raise ValueError(kind)
+    return x, (None if mode == "train" else state), aux
+
+
+def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq_len: int,
+                     *, device):
+    if kind == "attn":
+        return attn.init_kv_cache(cfg, batch, seq_len, cfg.window,
+                                  device=device)
+    if kind == "rglru":
+        return rg.init_rglru_state(cfg, batch, device=device)
+    if kind == "mlstm":
+        return xl.init_mlstm_state(cfg, batch, device=device)
+    if kind == "slstm":
+        return xl.init_slstm_state(cfg, batch, device=device)
+    raise ValueError(kind)
 
 
 def init_decoder(cfg: ModelConfig, *, generator: torch.Generator, device):
-    _check_supported(cfg)
-    return {
+    kinds = layer_kinds(cfg)
+    params = {
         "embed": init_embedding(cfg.vocab_size, cfg.d_model, cfg.dtype,
                                 cfg.tie_embeddings, generator=generator,
                                 device=device),
         "final_norm": init_rms_norm(cfg.d_model, device=device),
-        "layers": [init_block(cfg, generator=generator, device=device,
-                              moe_layer=is_moe_layer(cfg, i))
-                   for i in range(cfg.num_layers)],
     }
+    if cfg.family == "vlm" and cfg.num_patches:
+        params["vision_proj"] = ninit(
+            (cfg.patch_embed_dim, cfg.d_model), cfg.patch_embed_dim ** -0.5,
+            cfg.dtype, generator=generator, device=device)
+    params["layers"] = [init_block(kind, cfg, generator=generator,
+                                   device=device,
+                                   moe_layer=is_moe_layer(cfg, i))
+                        for i, kind in enumerate(kinds)]
+    return params
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device):
-    _check_supported(cfg)
-    return {"layers": [attn.init_kv_cache(cfg, batch, seq_len, cfg.window,
-                                          device=device)
-                       for _ in range(cfg.num_layers)]}
+    return {"layers": [init_block_cache(kind, cfg, batch, seq_len,
+                                        device=device)
+                       for kind in layer_kinds(cfg)]}
 
 
 def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
-                    cache=None, pos_offset: int = 0,
+                    cache=None, patch_embeds=None, pos_offset: int = 0,
                     cache_capacity: Optional[int] = None):
     """tokens: [B, S] int.  Returns (logits, new_cache, aux_loss).
 
     decode mode: S == 1 and ``cache`` holds the per-layer state.
+    vlm: ``patch_embeds`` [B, P, patch_embed_dim] are projected and
+    prepended (their loss positions carry label -1 in :func:`lm_loss`).
     """
-    _check_supported(cfg)
-    b, s = tokens.shape
+    kinds = layer_kinds(cfg)
     x = embed(params["embed"], tokens)
+    if patch_embeds is not None:
+        pe = patch_embeds.to(x.dtype) @ params["vision_proj"].to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
+    b, s = x.shape[:2]
     positions = None
     if mode != "decode":
         positions = pos_offset + torch.arange(s, dtype=torch.int32,
                                               device=tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     caches = []
-    for li, lp in enumerate(params["layers"]):
+    for li, (kind, lp) in enumerate(zip(kinds, params["layers"])):
         c = cache["layers"][li] if cache is not None else None
-        x, nc, aux = block_apply(lp, x, cfg, positions, cache=c, mode=mode,
-                                 cache_capacity=cache_capacity,
+        x, nc, aux = block_apply(kind, lp, x, cfg, positions, cache=c,
+                                 mode=mode, cache_capacity=cache_capacity,
                                  pos_offset=pos_offset)
         aux_total = aux_total + aux
         caches.append(nc)
@@ -141,10 +208,15 @@ def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, aux_weight=0.01):
-    """batch: {tokens [B, S], labels [B, S] (-1 = ignore)}.  Next-token
-    cross-entropy plus ``aux_weight`` times the MoE load-balance loss;
-    returns ``(loss, {"ce", "aux"})``."""
+    """batch: {tokens [B, S], labels [B, S] (-1 = ignore), optional
+    patch_embeds}.  Next-token cross-entropy plus ``aux_weight`` times the
+    MoE load-balance loss; returns ``(loss, {"ce", "aux"})``."""
+    pe = batch.get("patch_embeds")
     logits, _, aux = decoder_forward(params, batch["tokens"], cfg,
-                                     mode="train")
-    loss = cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+                                     mode="train", patch_embeds=pe)
+    labels = batch["labels"]
+    if pe is not None:      # the patch positions carry no label
+        labels = torch.cat([labels.new_full((labels.shape[0], pe.shape[1]),
+                                            -1), labels], dim=1)
+    loss = cross_entropy(logits[:, :-1], labels[:, 1:])
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}

@@ -12,6 +12,10 @@ geometry is decode-specialized, as in the JAX package (which picks the
 tile by autotuning, not ported yet).  Under ``"padded_baseline"`` decode
 thus pads each group to 16 rows.
 
+The batch passes to the model's prefill whole, so a VLM's
+``patch_embeds`` and whisper's ``frames`` reach it; a VLM's cache holds
+its patch positions too (``num_patches`` more slots).
+
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a card
 it raises.  Everything runs under ``torch.inference_mode()``.
 """
@@ -89,7 +93,9 @@ class Engine:
     @torch.inference_mode()
     def generate(self, batch, *, generator: Optional[torch.Generator] = None
                  ) -> GenerationResult:
-        cap = batch["tokens"].shape[1] + self.max_new
+        cfg = self.model.cfg
+        extra = cfg.num_patches if cfg.family == "vlm" else 0
+        cap = batch["tokens"].shape[1] + extra + self.max_new
         last_logits, cache = self.prefill(batch, cap)
         tok = self._sample(last_logits, generator)
         done = torch.zeros_like(tok, dtype=torch.bool)

@@ -41,7 +41,7 @@ from repro.models import model_zoo as jzoo
 from repro.optim import adamw as jadamw
 from repro.serve.engine import Engine as JEngine
 from repro.train.trainer import make_train_step as jmake_train_step
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ARCHS, get_config, smoke_config
 from repro_torch.convert import (opt_state_from_jax, params_from_jax,
                                  tree_from_numpy)
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -87,7 +87,7 @@ def _shapes(tree, prefix=""):
 # configs, param counts and the param tree
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", MODELS)
+@pytest.mark.parametrize("name", ARCHS)
 def test_param_count_is_the_tree_size(name):
     """``param_count`` equals the number of elements in the param tree: of
     the port's own smoke tree, and (by shapes alone) of the JAX package's
@@ -311,13 +311,25 @@ def test_qwen3_entry_points_on_cpu(capsys):
     assert fk.flash_attention_cuda.launches == 0
 
 
-def test_other_families_still_raise():
-    from repro_torch.configs.base import ModelConfig
-    cfg = ModelConfig(name="x", family="ssm", num_layers=1, d_model=128,
-                      num_heads=2, num_kv_heads=2, d_ff=256, vocab_size=64)
-    with pytest.raises(NotImplementedError, match="MoE and dense"):
-        make_model(cfg, "cpu")
-    hybrid = dataclasses.replace(smoke_config("qwen3-1.7b"),
-                                 block_pattern=("attn", "rglru"))
-    with pytest.raises(NotImplementedError, match="attention blocks"):
-        make_model(hybrid, "cpu").init_params(torch.Generator())
+@pytest.mark.parametrize("name", ARCHS)
+def test_other_families_still_raise(name):
+    """Every architecture of the zoo builds and runs a smoke forward on the
+    CPU (finite logits of the expected shape); what still raises is a
+    block kind outside the four the zoo knows (``ValueError``, as in the
+    JAX package) and an unknown architecture (``KeyError``)."""
+    from repro_torch.models.model_zoo import synthetic_batch
+    cfg = smoke_config(name)
+    model = make_model(cfg, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init_params(gen)
+    batch = synthetic_batch(gen, cfg, 16, 2)
+    with torch.inference_mode():
+        logits, _ = model.prefill(params, batch, cache_capacity=32)
+    assert logits.shape == (2, 1, cfg.vocab_size)
+    assert torch.isfinite(logits.float()).all()
+    if cfg.family != "audio":       # whisper has no block pattern
+        unknown = dataclasses.replace(cfg, block_pattern=("attn", "mamba"))
+        with pytest.raises(ValueError, match="mamba"):
+            make_model(unknown, "cpu").init_params(gen)
+    with pytest.raises(KeyError):
+        smoke_config(name + "-x")

@@ -34,7 +34,7 @@ from repro.configs import smoke_config as jax_smoke_config
 from repro.kernels.plan import KernelConfig as JConfig
 from repro.models import model_zoo as jzoo
 from repro.serve.engine import Engine as JEngine
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import ARCHS, PORTED, get_config, smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.plan import KernelConfig
 from repro_torch.models import model_zoo
@@ -247,7 +247,8 @@ def test_configs():
     cfg = get_config("qwen2-moe-a2.7b")
     assert cfg.precision == "fp8" and cfg.num_layers == 24
     assert abs(cfg.param_count() - 14.3e9) < 0.05e9
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("yi-9b")
+    # every architecture of the JAX package is ported; an unknown one
+    # still raises
+    assert PORTED == ARCHS and get_config("yi-9b").name == "yi-9b"
     with pytest.raises(KeyError):
         get_config("gpt-5")
