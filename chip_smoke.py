@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --quick    # probe, build and kernel checks only
+    python3 chip_smoke.py --quick    # probe, build, kernel, autotune checks
 
 Eight configurations at full width are driven, built with
 ``dataclasses.replace`` on the registry's configs.  Of qwen2-moe-a2.7b:
@@ -51,7 +51,21 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              GEMM also over exactly the padded groups' rows; the peak
              memory of each pipeline beside the padding's own bytes
              ("padded" lines; the gate runs with --quick too);
-  4. forward each configuration cut to 2 layers (deepseek-moe-16b: its
+  4. autotune  the tuning layer (``kernels/plan.py``, ``resources.py``):
+             every built kernel variant's shared memory in the static
+             resource model against the kernel library's own
+             ``kernel_resources`` query, its threads, and its registers
+             fitting one SM at its CTAs an SM; B2, B5 and B7 at block_m
+             16 against 128 (the qwen2-moe routed prefill and decode,
+             minitron-8b's dense decode) within their gates, and whether
+             bitwise equal; a measured autotune under ``build/`` of the
+             grouped GEMMs at the qwen2-moe and deepseek-moe-16b routed
+             shapes and of the wgrads at the training shapes, every
+             candidate's measured ms beside the cost model's, nothing
+             skipped, then a cache hit that measures nothing; the aten
+             ops and eager ms of one padded GEMM with the plan cache
+             against a fresh plan;
+  5. forward each configuration cut to 2 layers (deepseek-moe-16b: its
              dense layer and one MoE layer): prefill logits through the
              kernels against the plain versions (prompt 64, and 128 for
              the flash configurations); ``ds_fp8_padded``'s logits
@@ -62,7 +76,7 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              over 1500 frames at 128; the others 2 layers), logits at
              the same bounds, launch counts exact, whisper's fused
              quantizer in gelu mode;
-  5. serve   batch 4, 16 new tokens, greedy, random weights: the 24-layer
+  6. serve   batch 4, 16 new tokens, greedy, random weights: the 24-layer
              qwen2-moe-a2.7b on one param tree, at prompt 64 in ``fp8``,
              ``fp8_fused`` and ``bf16``, at prompt 512 in ``fp8`` and
              ``fp8_flash`` (attention the only difference); then the
@@ -77,14 +91,20 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              whisper-tiny 1500 frames + p128; every other one whole),
              each on a tree of its own, with a profile of a prefill and
              of a decode step; the launch counts of each run are
-             asserted; then the window gate: recurrentgemma-2b, one
+             asserted; every engine selects its decode tiles (an MoE
+             model once, 16 rows, its tokens bitwise those of an engine
+             pinned to the fixed 16-row rule; a dense model none, on the
+             model's 128-row tiles, its decode step also profiled on 16);
+             the padded deepseek serve builds each static plan shape once
+             (``PLAN_CACHE.builds``) and none after its warm-up; then the
+             window gate: recurrentgemma-2b, one
              cycle, bf16, decoding position 2305 after a prefill of 2304
              (a ring cache) gives the prefill-of-2305 logits;
-  6. train-parity  each configuration cut to 2 layers, batch 2, seq 256:
+  7. train-parity  each configuration cut to 2 layers, batch 2, seq 256:
              loss and gradients of one train step through the kernels
              against the plain versions; ``ds_fp8_padded``'s loss
              bitwise ``ds_fp8``'s, and which gradients are bitwise;
-  7. train   batch 8, seq 512: the MoE configurations cut to 4 layers (the
+  8. train   batch 8, seq 512: the MoE configurations cut to 4 layers (the
              depth one card's 80 GB holds with bf16 params and f32 AdamW
              state; deepseek-moe-16b's dense layer and 3 MoE layers),
              qwen3-1.7b at its full 28 layers: 8 steps through
@@ -96,7 +116,7 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              and grad norm within 1e-3); for ``fp8`` and ``ds_fp8`` then
              the same 8 steps with the fp8 wgrad (launch counts asserted,
              a profile of one step);
-  8. checkpoint  ``ds_fp8`` cut to 2 layers trained 4 steps through
+  9. checkpoint  ``ds_fp8`` cut to 2 layers trained 4 steps through
              ``train`` with a checkpoint after the last, under ``build/``:
              restored into a fresh tree, every leaf equal to the live
              state and the next batch's loss bitwise the live params';
@@ -1633,6 +1653,268 @@ def phase_kernels(full: bool):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: autotune, the resource model and the plan cache
+# ---------------------------------------------------------------------------
+
+# the measured selections: op -> (label, M, K, N, G); the grouped GEMMs at
+# the qwen2-moe-a2.7b (60 experts) and deepseek-moe-16b (64) routed
+# shapes of a p64 prefill (batch 4) and a decode step, the wgrads at the
+# training paths' (batch 8 x seq 512)
+AUTOTUNE_SHAPES = {
+    "gemm": (("qwen2-moe prefill", 1024, 2048, 1408, 60),
+             ("deepseek p64 prefill", 1536, 2048, 1408, 64)),
+    "gemm_bf16": (("qwen2-moe prefill", 1024, 2048, 1408, 60),
+                  ("deepseek p64 prefill", 1536, 2048, 1408, 64)),
+    "gemm_quant": (("qwen2-moe prefill", 1024, 2048, 1408, 60),
+                   ("deepseek p64 prefill", 1536, 2048, 1408, 64)),
+    "decode": (("qwen2-moe decode", 16, 2048, 1408, 60),
+               ("deepseek decode", 24, 2048, 1408, 64)),
+    "wgrad": (("qwen2-moe train", 16384, 2048, 1408, 60),
+              ("deepseek train", 24576, 2048, 1408, 64)),
+    "wgrad_fp8": (("qwen2-moe train", 16384, 2048, 1408, 60),
+                  ("deepseek train", 24576, 2048, 1408, 64)),
+}
+# B2, B5 and B7 at block_m 16 against 128: name -> (M, K, N, G); the
+# qwen2-moe routed prefill and decode, minitron-8b's dense (G = 1) gate
+# at a batch-4 decode step
+ACROSS_BLOCK_M = {"qwen2-moe prefill": (1024, 2048, 1408, 60),
+                  "qwen2-moe decode": (16, 2048, 1408, 60),
+                  "minitron-8b decode": (4, 4096, 16384, 1)}
+
+
+def check_resources() -> list:
+    """(a) Every built variant's shared memory in the static model equals
+    what its launch asks (each library's ``kernel_resources`` query),
+    the launch may ask it, the threads agree, and the registers ptxas
+    gave fit one SM at the CTAs an SM the kernel is meant to hold."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import resources as res
+    rows = []
+    for v in res.variants():
+        q = build.resources(v["library"], *v["args"])
+        ctas = v["ctas_per_sm"] or 1
+        fit = res.fits_sm(q["registers"], q["threads"], ctas, q["smem"])
+        row = {"phase": "autotune_resources", "kernel": v["kernel"],
+               "variant": v["variant"], "model_smem": v["smem"],
+               "card": q, "model_threads": v["threads"],
+               "model_ctas_per_sm": v["ctas_per_sm"], "fit": fit}
+        emit(row)
+        rows.append(row)
+        if (q["smem"] != v["smem"] or q["max_dynamic_smem"] < q["smem"]
+                or q["threads"] != v["threads"] or not fit["fits"]
+                or q["ctas_per_sm"] < ctas):
+            raise AssertionError(f"resources {v['kernel']} {v['variant']}: "
+                                 f"model {v} against the card's {q}, {fit}")
+    return rows
+
+
+def check_across_block_m() -> list:
+    """(b) B2, B5 and B7 at block_m 16 against 128 on the same operands:
+    B2 and B5 within one bf16 step (the B2 gate), B7's dequantized values
+    within one e4m3 step and one bf16 step (its gate); prints whether
+    they are bitwise equal."""
+    import torch
+    from repro_torch.kernels import grouped_gemm_kernel as gk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import make_tile_plan
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cpu_gen = torch.Generator().manual_seed(12)
+    rows = []
+    for name, (m, k, n, g) in ACROSS_BLOCK_M.items():
+        sizes = (torch.tensor([m], dtype=torch.int32) if g == 1
+                 else routed_sizes(cpu_gen, m // 4, 4, g)).cuda()
+        a = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((g, k, n), generator=gen, device="cuda") * k ** -0.5
+        a8, sa = ref.quantize_tilewise_ref(a)
+        b8, sb = ref.quantize_blockwise_ref(w)
+        xb, wb = a.bfloat16(), w.bfloat16()
+        del a, w
+        outs = {}
+        for bm in (16, 128):
+            plan = make_tile_plan(sizes, m, block_m=bm, num_groups=g)
+            kw = dict(num_groups=g, block_m=bm, plan=plan)
+            outs[bm] = {
+                "gmm": gk.gmm_cuda(a8, sa, b8, sb, sizes, **kw).float(),
+                "gmm_bf16": gk.gmm_bf16_cuda(xb, wb, sizes, **kw).float(),
+                "gmm_quant": gk.gmm_quant_cuda(a8, sa, b8, sb, sizes, **kw)}
+        torch.cuda.synchronize()
+        for kernel in ("gmm", "gmm_bf16", "gmm_quant"):
+            y16, y128 = outs[16][kernel], outs[128][kernel]
+            if kernel == "gmm_quant":
+                bitwise = bool(torch.equal(y16[0].view(torch.uint8),
+                                           y128[0].view(torch.uint8))
+                               and torch.equal(y16[1], y128[1]))
+                step = torch.maximum(
+                    e4m3_step(y16[0]) * torch.repeat_interleave(y16[1], 128, 1),
+                    e4m3_step(y128[0])
+                    * torch.repeat_interleave(y128[1], 128, 1))
+                y16, y128 = dequant(*y16), dequant(*y128)
+            else:
+                bitwise = bool(torch.equal(y16, y128))
+                step = torch.zeros_like(y128)
+            scale = float(y128.abs().max())
+            err = (y16 - y128).abs()
+            tol = step + y128.abs() * 2.0 ** -7 + 1e-4 * scale + 1e-30
+            bad = int((err > tol).sum())
+            row = {"phase": "autotune_across_block_m", "case": name,
+                   "kernel": kernel, "shape": [m, k, n], "groups": g,
+                   "bitwise_equal": bitwise, "max_abs_err": float(err.max()),
+                   "rel_to_max": float(err.max()) / scale if scale else 0.0,
+                   "beyond_tolerance": bad}
+            emit(row)
+            rows.append(row)
+            if bad or not torch.isfinite(y16).all():
+                raise AssertionError(f"{kernel} {name}: block_m 16 and 128 "
+                                     f"differ beyond tolerance at {bad} "
+                                     "elements, or not finite")
+        del outs, a8, sa, b8, sb, xb, wb
+    return rows
+
+
+@contextlib.contextmanager
+def counting_measurements():
+    """Count ``plan._measure_candidate`` calls (the autotuner's timings)."""
+    from repro_torch.kernels import plan as plan_mod
+    real, calls = plan_mod._measure_candidate, []
+
+    def count(*a, **kw):
+        calls.append(kw.get("op"))
+        return real(*a, **kw)
+    plan_mod._measure_candidate = count
+    try:
+        yield calls
+    finally:
+        plan_mod._measure_candidate = real
+
+
+def check_autotune() -> list:
+    """(c) A measured selection under ``build/`` for every op and shape of
+    AUTOTUNE_SHAPES, from an empty cache: each candidate's measured ms
+    beside the cost model's prediction; a tiled op's winner measured with
+    nothing skipped, a tile-free op's (the wgrads) ranked by the cost
+    model with nothing measured; then the same call again, a cache hit
+    that measures nothing."""
+    from repro_torch.kernels import plan as plan_mod
+    path = os.path.join(HERE, "build", "chip_smoke_autotune.json")
+    if os.path.exists(path):
+        os.remove(path)
+    plan_mod.clear_cache_memo()
+    rows = []
+    for op, shapes in AUTOTUNE_SHAPES.items():
+        for label, m, k, n, g in shapes:
+            with counting_measurements() as calls:
+                t0 = time.perf_counter()
+                cfg = plan_mod.autotune(m, k, n, g, op=op, cache_path=path,
+                                        device="cuda", max_candidates=4)
+                tune_s = time.perf_counter() - t0
+                rep = plan_mod.last_autotune_report()
+                n_first = len(calls)
+                again = plan_mod.autotune(m, k, n, g, op=op, cache_path=path,
+                                          device="cuda", max_candidates=4)
+                hit = plan_mod.last_autotune_report()
+            tile_free = op in plan_mod.TILE_FREE_OPS
+            row = {"phase": "autotune", "op": op, "shape": label,
+                   "mkng": [m, k, n, g], "key": rep["key"],
+                   "selected": cfg.to_dict(), "source": rep["source"],
+                   "tile_free": tile_free,
+                   "candidates": [{"block_m": c["block_m"],
+                                   "block_n": c["block_n"],
+                                   "predicted_ms": p * 1e3,
+                                   "measured_ms": None if s is None
+                                   else s * 1e3}
+                                  for c, p, s in rep["candidates"]],
+                   "pruned": [{"block_m": c["block_m"],
+                               "block_n": c["block_n"],
+                               "n_span": c["n_span"], "reason": r}
+                              for c, r in rep["pruned"]],
+                   "skipped": rep["skipped"], "measurements": n_first,
+                   "second_call_cache_hit": hit["cache_hit"],
+                   "second_call_measurements": len(calls) - n_first,
+                   "seconds": tune_s}
+            emit(row)
+            rows.append(row)
+            want = "cost_model" if tile_free else "measured"
+            if (rep["skipped"] or rep["source"] != want
+                    or (n_first == 0) != tile_free or again != cfg
+                    or not hit["cache_hit"] or len(calls) != n_first):
+                raise AssertionError(f"autotune {op} {label}: {row}")
+    return rows
+
+
+def check_padded_host_ops() -> dict:
+    """(d) Host-side ops of one padded GEMM at deepseek-moe-16b's p64
+    routed shape: the aten ops it dispatches (and its eager ms) with the
+    plan cache's replay, against the same call building its plan anew
+    (``make_tile_plan``); bitwise the same output."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core import padding_baseline as pb
+    from repro_torch.kernels import plan as plan_mod
+    from repro_torch.kernels import ref
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            return func(*args, **(kwargs or {}))
+
+    sizes, m, k, n, bm = padded_cases()["ds_prefill_p64"]
+    g = sizes.numel()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    a8, sa = ref.quantize_tilewise_ref(
+        torch.randn((m, k), generator=gen, device="cuda"))
+    b8, sb = ref.quantize_blockwise_ref(
+        torch.randn((g, k, n), generator=gen, device="cuda") * k ** -0.5)
+    gs = sizes.cuda()
+    cfg = plan_mod.KernelConfig(block_m=bm)
+
+    def call(i=0):
+        return pb.grouped_gemm_fp8_padded(a8, sa, b8, sb, gs, config=cfg)
+    out, ops, ms = {}, {}, {}
+    real = pb.shared_plan
+    for way in ("plan_cache", "fresh_plan"):
+        if way == "fresh_plan":
+            pb.shared_plan = plan_mod.make_tile_plan
+        try:
+            out[way] = call()
+            with Count() as c:
+                call()
+            ops[way] = c.ops
+            ms[way] = cuda_ms(call, iters=20)
+        finally:
+            pb.shared_plan = real
+    torch.cuda.synchronize()
+    row = {"phase": "autotune_padded_host_ops", "case": "ds_prefill_p64",
+           "shape": [m, k, n], "groups": g, "aten_ops": ops,
+           "launches_per_call": 1, "eager_ms": ms,
+           "bitwise_equal": bool(torch.equal(out["plan_cache"],
+                                             out["fresh_plan"]))}
+    emit(row)
+    if not row["bitwise_equal"] or ops["plan_cache"] >= ops["fresh_plan"]:
+        raise AssertionError(f"padded host ops: {row}")
+    return row
+
+
+def phase_autotune() -> None:
+    """The tuning layer on the card: (a) the resource model against each
+    kernel's own query, (b) B2, B5 and B7 across block_m, (c) a measured
+    autotune and its cache hit, (d) the padded GEMM's host ops with the
+    plan cache.  The serve phase checks the rest: the plan builds of the
+    padded deepseek serve, and the MoE tokens of the selected decode
+    tiles against the fixed 16-row rule's."""
+    check_resources()
+    free_memory()
+    check_across_block_m()
+    free_memory()
+    check_autotune()
+    free_memory()
+    check_padded_host_ops()
+
+
+# ---------------------------------------------------------------------------
 # phase 3, continued: the padded baseline against the padding-free GEMM
 # ---------------------------------------------------------------------------
 
@@ -1692,7 +1974,8 @@ def phase_padded(full: bool) -> None:
     :func:`padded_cases`' shapes.  Gate: every owned row bitwise equal
     (the paper's equivalence claim).  With ``full``: CUDA-graph times,
     inputs rotated through HBM as the kernel table's, of the pad pass,
-    the padded plan, the padded GEMM, the unpad pass, their sum, the
+    the padded plan (the plan cache's replay, as the pipeline plans), the
+    padded GEMM, the unpad pass, their sum, the
     whole pipeline in one call, the padding-free plan and GEMM, and the
     GEMM over exactly the padded groups' rows (without the static bound's
     zero-filled tail); the peak memory of one call of each pipeline
@@ -1701,7 +1984,8 @@ def phase_padded(full: bool) -> None:
     from repro_torch.core import padding_baseline as pb
     from repro_torch.kernels import grouped_gemm_kernel as gk
     from repro_torch.kernels import ref
-    from repro_torch.kernels.plan import KernelConfig, make_tile_plan
+    from repro_torch.kernels.plan import KernelConfig, make_tile_plan, \
+        shared_plan
     gen = torch.Generator(device="cuda").manual_seed(5)
     for name, (sizes, m, k, n, bm) in padded_cases().items():
         g = sizes.numel()
@@ -1761,7 +2045,7 @@ def phase_padded(full: bool) -> None:
                 "pad": graph_ms(lambda i: pb.pad_groups(
                     cps[i % nc][0], cps[i % nc][1], gs, block_m=bm),
                     iters=iters),
-                "padded_plan": graph_ms(lambda i: make_tile_plan(
+                "padded_plan": graph_ms(lambda i: shared_plan(
                     p_sz, padded_m, block_m=bm, num_groups=g), iters=iters),
                 "gemm_padded": graph_ms(lambda i: gk.gmm_cuda(
                     pads[i % nc][0], pads[i % nc][1], cps[i % nc][2],
@@ -1916,41 +2200,110 @@ def path_name(base: str, variant: str) -> str:
     return base if variant == "fp8" else f"{base}_{variant}"
 
 
+def selecting_engine(model, params, batch, new: int):
+    """An Engine with no tile configs (the decode selection, checked:
+    exactly one ``decode_select`` for an MoE model, none for a dense one)
+    and an Engine pinned to the fixed rule decode ran before it (the
+    model's config with 16-row tiles).  One generate of the pinned one
+    is the warm-up; returns ``(engine, pinned, its tokens)``."""
+    import torch
+    from repro_torch.analysis import events
+    from repro_torch.kernels.plan import KernelConfig
+    from repro_torch.serve.engine import Engine
+    cfg = model.cfg
+    fixed_cfg = (cfg.resolved_kernel_config or KernelConfig()).with_(
+        block_m=16)
+    with events.capture() as evs:
+        engine = Engine(model, params, max_new_tokens=new)
+    selects = events.count(evs, "decode_select")
+    if cfg.moe is not None and (selects != 1
+                                or engine.decode_config != fixed_cfg):
+        raise AssertionError(f"{cfg.name}: {selects} decode selections, "
+                             f"decode config {engine.decode_config}")
+    if cfg.moe is None and (selects or engine.decode_config is not None):
+        raise AssertionError(f"{cfg.name}: a dense model selected decode "
+                             f"tiles {engine.decode_config}")
+    fixed = Engine(model, params, max_new_tokens=new,
+                   decode_kernel_config=fixed_cfg)
+    tokens = fixed.generate(batch).tokens                  # warm-up
+    torch.cuda.synchronize()
+    return engine, fixed, tokens
+
+
+def decode_block_m(engine) -> int:
+    """The M tile an engine's decode steps run."""
+    from repro_torch.kernels.plan import get_default_config
+    cfg = (engine.decode_config or engine.model.cfg.resolved_kernel_config
+           or get_default_config())
+    return cfg.block_m
+
+
+@contextlib.contextmanager
+def counting_padded_gemms():
+    """Collect one entry per padded GEMM call."""
+    from repro_torch.core import padding_baseline as pb
+    real, calls = pb.grouped_gemm_fp8_padded, []
+
+    def count(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    pb.grouped_gemm_fp8_padded = count
+    try:
+        yield calls
+    finally:
+        pb.grouped_gemm_fp8_padded = real
+
+
 def serve_run(variant: str, params, batch, new: int, path: str, *,
               sync_check: bool = False):
     """One configuration serving ``batch`` on ``params``: a warm-up
-    generate, a timed one with its launch counts asserted, a timed
-    prefill, a profile of a prefill and of a decode step; with
+    generate (through an engine pinned to the fixed 16-row decode rule,
+    :func:`selecting_engine`), a timed one through the engine's own
+    decode selection with its launch counts asserted (an MoE model's
+    tokens bitwise the fixed rule's; under the padded baseline no plan
+    built after the warm-up, :data:`PLAN_CACHE` having built each static
+    padded shape once), a timed prefill, a profile of a prefill and of a
+    decode step (a dense model's also on the fixed rule's tiles); with
     ``sync_check`` one more generate under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises at any call
     that waits for the device.  Returns the launch counts and the
     generated tokens."""
     import torch
+    from repro_torch.analysis import events
     from repro_torch.core import quantization as q
+    from repro_torch.kernels.plan import PADDED_BASELINE, PLAN_CACHE
     from repro_torch.models.model_zoo import make_model
-    from repro_torch.serve.engine import Engine
     t_variant = time.perf_counter()
     batch_size, prompt = batch["tokens"].shape
     cfg = variant_config(variant)
     model = make_model(cfg, "cuda")
-    # no tile configs given: prefill runs the model's config, decode the
-    # same with 16-row tiles (fuse_producer and the backend carried over)
-    engine = Engine(model, params, max_new_tokens=new)
-    if engine.decode_config.block_m != 16 or (
-            engine.decode_config.fuse_producer != (variant == "fp8_fused")
-            or engine.decode_config.backend != cfg.gemm_backend):
-        raise AssertionError(f"serve {variant}: decode config "
-                             f"{engine.decode_config}")
-    engine.generate(batch)                   # warm-up
+    padded = cfg.gemm_backend == PADDED_BASELINE
+    if padded:
+        # the padded GEMMs plan through the plan cache: from empty, each
+        # static padded shape builds once, in the warm-up
+        PLAN_CACHE.clear()
+    # no tile configs given: prefill runs the model's config; an MoE
+    # model's decode the decode pool's selection (16-row tiles, the
+    # model's fuse_producer and backend), a dense model's the model's;
+    # the warm-up runs the fixed 16-row rule's engine, whose tokens the
+    # selection must give bit for bit on an MoE model
+    engine, fixed, fixed_tokens = selecting_engine(model, params, batch, new)
+    builds = PLAN_CACHE.builds
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    t0 = time.perf_counter()
-    res = engine.generate(batch)
-    torch.cuda.synchronize()
-    gen_s = time.perf_counter() - t0
+    with events.capture() as evs, counting_padded_gemms() as padded_calls:
+        t0 = time.perf_counter()
+        res = engine.generate(batch)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    plan_builds = {"warm_up": builds,
+                   "timed_generate": PLAN_CACHE.builds - builds,
+                   "timed_generate_events": events.count(evs, "plan_build"),
+                   "timed_padded_gemms": len(padded_calls)} \
+        if padded else None
     if sync_check:
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1982,6 +2335,10 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
                     lambda: engine.prefill(batch, prompt + new)),
                 "decode_step": profile_breakdown(
                     lambda: engine.decode_step(tok, cache))}
+        if cfg.moe is None:
+            # the same step on the fixed rule's 16-row tiles
+            prof["decode_step_block_m16"] = profile_breakdown(
+                lambda: fixed.decode_step(tok, cache))
     expect = serve_expected(variant, kernel_layers(cfg), prompt, new)
     toks = res.tokens
     ok_tokens = (tuple(toks.shape) == (batch_size, new)
@@ -1998,7 +2355,11 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
           "decode_ms_per_step": (gen_s - prefill_s) * 1e3 / (new - 1),
           "tok_per_s": batch_size * new / gen_s,
           "gemm_backend": cfg.gemm_backend,
-          "decode_block_m": engine.decode_config.block_m,
+          "decode_block_m": decode_block_m(engine),
+          "decode_selected": engine.decode_config is not None,
+          "tokens_equal_fixed_block_m16": torch.equal(res.tokens,
+                                                      fixed_tokens),
+          "plan_builds": plan_builds,
           "weight_quant_ms_per_forward": None if wq_layer_ms is None
           else wq_layer_ms * kernel_layers(cfg),
           "max_memory_allocated_gb": peak / 1e9,
@@ -2015,7 +2376,14 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
     if not ok_tokens or not torch.isfinite(last.float()).all():
         raise AssertionError(f"serve {path} produced malformed tokens "
                              "or logits")
-    del engine, model, cache
+    if cfg.moe is not None and not torch.equal(res.tokens, fixed_tokens):
+        raise AssertionError(f"serve {path}: the selected decode tiles' "
+                             "tokens differ from the fixed rule's")
+    if padded and (plan_builds["timed_generate"]
+                   or plan_builds["timed_generate_events"]
+                   or not 0 < builds <= plan_builds["timed_padded_gemms"]):
+        raise AssertionError(f"serve {path}: plan builds {plan_builds}")
+    del engine, fixed, model, cache
     return counts, toks
 
 
@@ -2214,12 +2582,14 @@ def phase_zoo_forward(variant: str):
 
 def phase_zoo_serve(variant: str) -> dict:
     """Batch, prompt and depth as ``ZOO_SERVE`` says, 16 new tokens,
-    greedy, seeded weights: a warm-up generate, a timed one (launch counts
-    asserted, peak memory), a timed prefill, a profile of a prefill and of
-    a decode step.  Returns the launch counts."""
+    greedy, seeded weights: a warm-up generate through an engine pinned
+    to the fixed 16-row decode rule, a timed one through the engine's own
+    config (a dense model decodes on the model's 128-row tiles; launch
+    counts asserted, peak memory, whether the tokens equal the fixed
+    rule's), a timed prefill, a profile of a prefill and of a decode step
+    on each engine's tiles.  Returns the launch counts."""
     import torch
     from repro_torch.models.model_zoo import make_model, synthetic_batch
-    from repro_torch.serve.engine import Engine
     batch_size, prompt, layers = ZOO_SERVE[variant]
     new = 16
     cfg = zoo_config(variant, **({} if layers is None
@@ -2232,9 +2602,7 @@ def phase_zoo_serve(variant: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batch = synthetic_batch(gen, cfg, prompt, batch_size)
-    engine = Engine(model, params, max_new_tokens=new)
-    engine.generate(batch)                   # warm-up
-    torch.cuda.synchronize()
+    engine, fixed, fixed_tokens = selecting_engine(model, params, batch, new)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -2253,7 +2621,10 @@ def phase_zoo_serve(variant: str) -> dict:
         prof = {"prefill": profile_breakdown(
                     lambda: engine.prefill(batch, prompt + extra + new)),
                 "decode_step": profile_breakdown(
-                    lambda: engine.decode_step(tok, cache))}
+                    lambda: engine.decode_step(tok, cache)),
+                # the same step on the fixed rule's 16-row tiles
+                "decode_step_block_m16": profile_breakdown(
+                    lambda: fixed.decode_step(tok, cache))}
     expect = zoo_expected(cfg, prompt, new)
     toks = res.tokens
     ok_tokens = (tuple(toks.shape) == (batch_size, new)
@@ -2269,6 +2640,8 @@ def phase_zoo_serve(variant: str) -> dict:
           "decode_ms_per_step": (gen_s - prefill_s) * 1e3 / (new - 1),
           "tok_per_s": batch_size * new / gen_s,
           "max_memory_allocated_gb": peak / 1e9,
+          "decode_block_m": decode_block_m(engine),
+          "tokens_equal_fixed_block_m16": torch.equal(toks, fixed_tokens),
           "launches": counts, "expected_launches": expect,
           "tokens_ok": ok_tokens, "sample": toks[0].tolist()})
     for name, br in prof.items():
@@ -2280,7 +2653,7 @@ def phase_zoo_serve(variant: str) -> dict:
     if not ok_tokens or not torch.isfinite(last.float()).all():
         raise AssertionError(f"serve {variant} produced malformed tokens "
                              "or logits")
-    del engine, model, params, cache
+    del engine, fixed, model, params, cache
     return counts
 
 
@@ -2675,7 +3048,7 @@ def phase_checkpoint() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
-                    help="probe, build and kernel checks only")
+                    help="probe, build, kernel and autotune checks only")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2683,7 +3056,12 @@ def main(argv=None) -> int:
         return 2
     from repro_torch import device
     from repro_torch.kernels import build
+    from repro_torch.kernels import plan as plan_mod
 
+    # every selection of this run (the engines' decode tiles included)
+    # goes to a cache file in the checkout's build/
+    os.environ.setdefault(plan_mod.CACHE_ENV, os.path.join(
+        HERE, "build", "tileplan_cache.json"))
     info = device.probe()
     emit({"phase": "probe", **info})
     t0 = time.perf_counter()
@@ -2700,6 +3078,9 @@ def main(argv=None) -> int:
     free_memory()
     with timed("padded"):
         phase_padded(full=not args.quick)
+    free_memory()
+    with timed("autotune"):
+        phase_autotune()
     if not args.quick:
         paths = {}
         for variant in (*VARIANTS, DENSE_VARIANT):

@@ -122,7 +122,8 @@ def _wgrad(operands, group_sizes, cfg: KernelConfig, plan: TilePlan,
     ``(a, dy)``, cast to bf16 here, or under fp8 wgrad ``(a8, s_a, d8,
     s_d)``."""
     kw = dict(num_groups=w.shape[0], block_n=cfg.block_n,
-              block_k=cfg.block_k, out_dtype=w.dtype, plan=plan)
+              block_k=cfg.block_k, n_span=cfg.n_span, k_span=cfg.k_span,
+              out_dtype=w.dtype, plan=plan)
     if cfg.wgrad_precision == "fp8":
         return wgrad_kernel.gmm_wgrad_fp8(*operands, group_sizes, **kw)
     a, dy = (t.to(torch.bfloat16).contiguous() for t in operands)

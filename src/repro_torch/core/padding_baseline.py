@@ -13,7 +13,10 @@ with DeepGEMM".  The pipeline, stage by stage:
 Every stage is tensor ops on the device of the group sizes: nothing reads
 them back to the host, so the baseline never waits for the device, as
 ``make_tile_plan`` never does.  The pad and unpad passes are plain
-PyTorch, as they are plain XLA in the JAX package.
+PyTorch, as they are plain XLA in the JAX package.  The padded GEMM plans
+through :func:`~repro_torch.kernels.plan.shared_plan`, as the JAX
+package's does: each static padded shape's fixed tensors are made once,
+and every call replays only the data-dependent ops.
 """
 from __future__ import annotations
 
@@ -22,8 +25,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import grouped_gemm_kernel
-from repro_torch.kernels.plan import KernelConfig, make_tile_plan, \
-    resolve_config
+from repro_torch.kernels.plan import KernelConfig, resolve_config, \
+    shared_plan
 
 
 def padded_group_sizes(group_sizes: torch.Tensor,
@@ -102,16 +105,16 @@ def grouped_gemm_fp8_padded(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
     ``config``; its ``block_m`` is the padding granularity.  The padded
     buffer's group offsets differ from the caller's, so a caller's
     :class:`~repro_torch.kernels.plan.TilePlan` never applies: the GEMM
-    plans over the padded sizes here.  Returns [M, N] ``out_dtype``
-    (default bf16).
+    plans over the padded sizes here, through the plan cache.  Returns
+    [M, N] ``out_dtype`` (default bf16).
     """
     cfg = resolve_config(config, out_dtype=out_dtype)
     a_p, s_p, psz, row_map = pad_groups(a_fp8, s_a, group_sizes,
                                         block_m=cfg.block_m,
                                         padded_m=padded_m)
     num_groups = group_sizes.shape[0]
-    plan = make_tile_plan(psz, a_p.shape[0], block_m=cfg.block_m,
-                          num_groups=num_groups)
+    plan = shared_plan(psz, a_p.shape[0], block_m=cfg.block_m,
+                       num_groups=num_groups)
     c_p = grouped_gemm_kernel.gmm(
         a_p, s_p, b_fp8, s_b, psz, num_groups=num_groups,
         block_m=cfg.block_m, block_n=cfg.block_n, block_k=cfg.block_k,

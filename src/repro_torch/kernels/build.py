@@ -129,6 +129,25 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
 
 
+#: what each library's ``kernel_resources`` query reports, in its order
+#: (``csrc/resources.cuh``)
+RESOURCE_FIELDS = ("registers", "max_dynamic_smem", "smem", "threads",
+                   "static_smem", "ctas_per_sm")
+
+
+def resources(name: str, a: int = 0, b: int = 0, c: int = 0) -> dict:
+    """What the card holds for one built variant of ``csrc/<name>.cu``'s
+    kernel, as its launch runs it: registers a thread, the dynamic shared
+    memory allowed and asked, threads a CTA, static shared memory and
+    CTAs an SM (``a``, ``b``, ``c`` pick the variant; each source says
+    how).  Launches nothing."""
+    out = (ctypes.c_int * len(RESOURCE_FIELDS))()
+    fn = function(name, "kernel_resources", [ctypes.c_int] * 3
+                  + [ctypes.c_void_p])
+    check(fn(a, b, c, ctypes.addressof(out)), f"{name} kernel_resources")
+    return dict(zip(RESOURCE_FIELDS, out))
+
+
 def stream_ptr(device) -> int:
     """The current PyTorch stream on ``device``, as the C side takes it."""
     import torch

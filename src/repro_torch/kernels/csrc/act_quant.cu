@@ -31,6 +31,7 @@
 
 #include "fp8.cuh"
 #include "tile_quant.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -182,6 +183,32 @@ extern "C" int act_quantize(const void* g, const void* u, const void* sg,
       return launch_act<__nv_bfloat16>(g, u, sg, su, q, s, M, K, act, st);
     case 2:
       return launch_act<uint8_t>(g, u, sg, su, q, s, M, K, act, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The resources of one variant (resources.cuh): a = in_kind (0 f32, 1
+// bf16, 2 e4m3), b = act (0 silu_mul, 1 gelu); c is unused.
+namespace {
+
+template <typename T>
+int query_act(int act, int* out) {
+  if (act == 0)
+    return repro::query_resources(act_quantize_kernel<T, 0>, kThreads, 0, out);
+  return repro::query_resources(act_quantize_kernel<T, 1>, kThreads, 0, out);
+}
+
+}  // namespace
+
+extern "C" int kernel_resources(int in_kind, int act, int, int* out) {
+  switch (in_kind) {
+    case 0:
+      return query_act<float>(act, out);
+    case 1:
+      return query_act<__nv_bfloat16>(act, out);
+    case 2:
+      return query_act<uint8_t>(act, out);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -52,6 +52,7 @@
 #include <string.h>
 
 #include "hopper.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -401,3 +402,15 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   return launch<64>(maps, st, B * Hq, Hq, Hkv, S, causal, scale);
 }
 
+
+// The resources of one variant (resources.cuh): a = the head dim (64 or
+// 128); b and c are unused.
+extern "C" int kernel_resources(int d, int, int, int* out) {
+  if (d == 128)
+    return repro::query_resources(flash_attention_kernel<128>, kThreads,
+                                  Cfg<128>::kSmem, out);
+  if (d == 64)
+    return repro::query_resources(flash_attention_kernel<64>, kThreads,
+                                  Cfg<64>::kSmem, out);
+  return (int)cudaErrorInvalidValue;
+}

@@ -67,6 +67,7 @@
 #include <string.h>
 
 #include "hopper.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -348,3 +349,30 @@ extern "C" int gmm_bf16(const void* a, const void* b, const void* group_offsets,
                                               m_tile_ids, M, K, G);
 }
 
+
+// The resources of one variant (resources.cuh): a = block_m (16 or 128),
+// b = 1 for an f32 output, c = 1 for a K-contiguous w.
+namespace {
+
+template <int BM, int NC, typename OutT>
+int query_bf16(int k_major_b, int* out) {
+  constexpr int smem = smem_bytes<BM, NC, OutT>();
+  if (k_major_b)
+    return repro::query_resources(gmm_bf16_tma_kernel<BM, NC, OutT, true>,
+                                  128 * NC + 32, smem, out);
+  return repro::query_resources(gmm_bf16_tma_kernel<BM, NC, OutT, false>,
+                                128 * NC + 32, smem, out);
+}
+
+}  // namespace
+
+extern "C" int kernel_resources(int block_m, int out_f32, int k_major_b,
+                                int* out) {
+  if (block_m == 16)
+    return out_f32 ? query_bf16<16, 1, float>(k_major_b, out)
+                   : query_bf16<16, 1, __nv_bfloat16>(k_major_b, out);
+  if (block_m == 128)
+    return out_f32 ? query_bf16<128, 2, float>(k_major_b, out)
+                   : query_bf16<128, 2, __nv_bfloat16>(k_major_b, out);
+  return (int)cudaErrorInvalidValue;
+}

@@ -105,6 +105,7 @@
 #include "fp8.cuh"
 #include "hopper.cuh"
 #include "tile_quant.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -688,4 +689,24 @@ extern "C" int gmm_fp8_quant(const void* a, const void* sa, const void* b,
   return launch_bm<kQuant, __nv_bfloat16>(block_m, maps, T, N, st, sa, sb,
                                           group_offsets, group_ids, m_tile_ids,
                                           s, M, K, G);
+}
+
+// The resources of one variant (resources.cuh): a = block_m (16 or 128),
+// b = 1 for an f32 output (B2) or rounding (B7), c = 1 for B7.
+extern "C" int kernel_resources(int block_m, int out_f32, int quant, int* out) {
+  if (block_m != 16 && block_m != 128) return (int)cudaErrorInvalidValue;
+  const int smem = block_m == 16 ? Shape<16>::kSmem : Shape<128>::kSmem;
+  auto q = [&](auto kernel) {
+    return repro::query_resources(kernel, kThreads, smem, out);
+  };
+  if (block_m == 16) {
+    if (quant) return out_f32 ? q(gmm_fp8_tma_kernel<16, kQuant, float>)
+                              : q(gmm_fp8_tma_kernel<16, kQuant, __nv_bfloat16>);
+    return out_f32 ? q(gmm_fp8_tma_kernel<16, kStore, float>)
+                   : q(gmm_fp8_tma_kernel<16, kStore, __nv_bfloat16>);
+  }
+  if (quant) return out_f32 ? q(gmm_fp8_tma_kernel<128, kQuant, float>)
+                            : q(gmm_fp8_tma_kernel<128, kQuant, __nv_bfloat16>);
+  return out_f32 ? q(gmm_fp8_tma_kernel<128, kStore, float>)
+                 : q(gmm_fp8_tma_kernel<128, kStore, __nv_bfloat16>);
 }

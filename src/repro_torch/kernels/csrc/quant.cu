@@ -12,6 +12,7 @@
 #include <cuda_runtime.h>
 
 #include "tile_quant.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -40,4 +41,9 @@ extern "C" int quantize_tilewise_f32(const void* x, void* q, void* s, int M,
                              (cudaStream_t)stream>>>(
       (const float*)x, (uint8_t*)q, (float*)s, tiles, K);
   return (int)cudaGetLastError();
+}
+
+// The resources of the kernel (resources.cuh); a, b and c are unused.
+extern "C" int kernel_resources(int, int, int, int* out) {
+  return repro::query_resources(quantize_tilewise_kernel, 256, 0, out);
 }

@@ -66,6 +66,7 @@
 #include "fp8.cuh"
 #include "hopper.cuh"
 #include "wgrad_tile.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -370,4 +371,14 @@ extern "C" int wgrad_fp8(const void* x, const void* sx, const void* dy,
   return wgrad::launch_persistent<wgrad_fp8_kernel<__nv_bfloat16>>(
       kThreads, smem_bytes<__nv_bfloat16>(), tiles, st, maps, s_x, s_dy, offs,
       M, K, N, G);
+}
+
+// The resources of one variant (resources.cuh): b = 1 for an f32 dw; a
+// and c are unused.
+extern "C" int kernel_resources(int, int out_f32, int, int* out) {
+  if (out_f32)
+    return repro::query_resources(wgrad_fp8_kernel<float>, kThreads,
+                                  smem_bytes<float>(), out);
+  return repro::query_resources(wgrad_fp8_kernel<__nv_bfloat16>, kThreads,
+                                smem_bytes<__nv_bfloat16>(), out);
 }

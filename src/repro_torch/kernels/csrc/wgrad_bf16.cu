@@ -58,6 +58,7 @@
 
 #include "hopper.cuh"
 #include "wgrad_tile.cuh"
+#include "resources.cuh"
 
 namespace {
 
@@ -211,3 +212,13 @@ extern "C" int wgrad_bf16(const void* x, const void* dy, const void* offsets,
       G);
 }
 
+
+// The resources of one variant (resources.cuh): b = 1 for an f32 dw; a
+// and c are unused.
+extern "C" int kernel_resources(int, int out_f32, int, int* out) {
+  if (out_f32)
+    return repro::query_resources(wgrad_bf16_kernel<float>, kThreads,
+                                  smem_bytes<float>(), out);
+  return repro::query_resources(wgrad_bf16_kernel<__nv_bfloat16>, kThreads,
+                                smem_bytes<__nv_bfloat16>(), out);
+}

@@ -20,6 +20,11 @@ Two operand precisions:
     in the kernel (arXiv 2505.20524's all-fp8 step); its kernel too
     writes dw in f32 or bf16.
 
+``n_span`` / ``k_span`` are a :class:`KernelConfig`'s multi-tile wgrad
+spans: K and N must be multiples of the span-widened tiles, the plain
+versions compute the same dw for any span, and the CUDA kernels, which
+have no spans, raise on a span > 1 rather than run span 1 in its place.
+
 Each public function chooses by the tensor's device: a CPU tensor goes
 to the plain version, a CUDA tensor to the ``*_cuda`` wrapper, which
 launches the kernel or raises.
@@ -40,14 +45,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _prepare(m, k, m2, n, group_sizes, num_groups, block_m, block_n,
-             block_k, plan):
-    """Shape checks; returns ``(num_groups, offsets [G+1] int32)``."""
+             block_k, plan, n_span=1, k_span=1):
+    """Shape checks (K and N multiples of the span-widened tiles); returns
+    ``(num_groups, offsets [G+1] int32)``."""
     if m != m2:
         raise ValueError(f"x and dy disagree on M: x is [M={m}, K={k}] but "
                          f"dy is [M={m2}, N={n}]")
     num_groups = num_groups or group_sizes.shape[0]
-    KernelConfig(block_m=block_m, block_n=block_n,
-                 block_k=block_k).validate(m, k, n, family="wgrad")
+    KernelConfig(block_m=block_m, block_n=block_n, block_k=block_k,
+                 n_span=n_span, k_span=k_span).validate(m, k, n,
+                                                        family="wgrad")
     if plan is not None:
         plan.check_against(m, plan.block_m, num_groups)
         return num_groups, plan.group_offsets
@@ -71,13 +78,14 @@ def gmm_wgrad_plain(x, dy, group_sizes, *, num_groups: Optional[int] = None,
                     block_m: int = 128, block_n: int = 128,
                     block_k: int = 128,
                     out_dtype: torch.dtype = torch.float32,
-                    plan: Optional[TilePlan] = None) -> torch.Tensor:
+                    plan: Optional[TilePlan] = None, n_span: int = 1,
+                    k_span: int = 1) -> torch.Tensor:
     """The kernel's function in PyTorch ops: the checks of
     :func:`gmm_wgrad` around :func:`~repro_torch.kernels.ref.wgrad_exact_ref`
     (one f32 product per group).  Same signature as :func:`gmm_wgrad`."""
     (m, k), (m2, n) = x.shape, dy.shape
     num_groups, _ = _prepare(m, k, m2, n, group_sizes, num_groups,
-                             block_m, block_n, block_k, plan)
+                             block_m, block_n, block_k, plan, n_span, k_span)
     return wgrad_exact_ref(x, dy, group_sizes, num_groups=num_groups,
                            out_dtype=out_dtype)
 
@@ -86,7 +94,8 @@ def gmm_wgrad_fp8_plain(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
                         num_groups: Optional[int] = None, block_m: int = 128,
                         block_n: int = 128, block_k: int = 128,
                         out_dtype: torch.dtype = torch.float32,
-                        plan: Optional[TilePlan] = None) -> torch.Tensor:
+                        plan: Optional[TilePlan] = None, n_span: int = 1,
+                        k_span: int = 1) -> torch.Tensor:
     """The fp8 kernel's function in PyTorch ops: the checks of
     :func:`gmm_wgrad_fp8` around
     :func:`~repro_torch.kernels.ref.wgrad_fp8_exact_ref` (both operands
@@ -94,16 +103,20 @@ def gmm_wgrad_fp8_plain(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
     :func:`gmm_wgrad_fp8`."""
     (m, k), (m2, n) = x_fp8.shape, dy_fp8.shape
     num_groups, _ = _prepare(m, k, m2, n, group_sizes, num_groups,
-                             block_m, block_n, block_k, plan)
+                             block_m, block_n, block_k, plan, n_span, k_span)
     _check_scales(m, k, n, s_x, s_dy)
     return wgrad_fp8_exact_ref(x_fp8, s_x, dy_fp8, s_dy, group_sizes,
                                num_groups=num_groups, out_dtype=out_dtype)
 
 
-def _check_cuda(block_n, block_k, operands):
+def _check_cuda(block_n, block_k, n_span, k_span, operands):
     if block_n != 128 or block_k != 128:
         raise ValueError(f"the CUDA wgrad tiles K and N at 128, got "
                          f"block_n={block_n}, block_k={block_k}")
+    if (n_span, k_span) != (1, 1):
+        # never drop to span 1 quietly: a tuned span would then lie
+        raise ValueError(f"the CUDA wgrad has no multi-tile spans, got "
+                         f"n_span={n_span}, k_span={k_span}")
     dev = operands[0][1].device
     for name, t, dt in operands:
         if not t.is_cuda or t.device != dev:
@@ -138,7 +151,8 @@ def gmm_wgrad_cuda(x, dy, group_sizes, *, num_groups: Optional[int] = None,
                    block_m: int = 128, block_n: int = 128,
                    block_k: int = 128,
                    out_dtype: torch.dtype = torch.float32,
-                   plan: Optional[TilePlan] = None) -> torch.Tensor:
+                   plan: Optional[TilePlan] = None, n_span: int = 1,
+                   k_span: int = 1) -> torch.Tensor:
     """Launch B4 (one launch for every group) on bf16 CUDA tensors.  The
     kernel writes dw in ``out_dtype``, f32 or bf16: its f32 sum rounded
     once to nearest."""
@@ -147,8 +161,9 @@ def gmm_wgrad_cuda(x, dy, group_sizes, *, num_groups: Optional[int] = None,
                         f"not {out_dtype}")
     (m, k), (m2, n) = x.shape, dy.shape
     num_groups, offsets = _prepare(m, k, m2, n, group_sizes, num_groups,
-                                   block_m, block_n, block_k, plan)
-    dev = _check_cuda(block_n, block_k, (
+                                   block_m, block_n, block_k, plan, n_span,
+                                   k_span)
+    dev = _check_cuda(block_n, block_k, n_span, k_span, (
         ("x", x, torch.bfloat16), ("dy", dy, torch.bfloat16),
         ("group offsets", offsets, torch.int32)))
     dw, launched = _launch(
@@ -167,7 +182,8 @@ def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
                        num_groups: Optional[int] = None, block_m: int = 128,
                        block_n: int = 128, block_k: int = 128,
                        out_dtype: torch.dtype = torch.float32,
-                       plan: Optional[TilePlan] = None) -> torch.Tensor:
+                       plan: Optional[TilePlan] = None, n_span: int = 1,
+                       k_span: int = 1) -> torch.Tensor:
     """Launch B6 (one launch for every group) on e4m3 CUDA tensors and
     their f32 1x128 scales.  The kernel writes dw in ``out_dtype``, f32 or
     bf16: its f32 sum rounded once to nearest."""
@@ -176,9 +192,10 @@ def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
                         f"not {out_dtype}")
     (m, k), (m2, n) = x_fp8.shape, dy_fp8.shape
     num_groups, offsets = _prepare(m, k, m2, n, group_sizes, num_groups,
-                                   block_m, block_n, block_k, plan)
+                                   block_m, block_n, block_k, plan, n_span,
+                                   k_span)
     _check_scales(m, k, n, s_x, s_dy)
-    dev = _check_cuda(block_n, block_k, (
+    dev = _check_cuda(block_n, block_k, n_span, k_span, (
         ("x_fp8", x_fp8, FP8), ("s_x", s_x, torch.float32),
         ("dy_fp8", dy_fp8, FP8), ("s_dy", s_dy, torch.float32),
         ("group offsets", offsets, torch.int32)))
@@ -198,7 +215,8 @@ gmm_wgrad_fp8_cuda.launches = 0
 def gmm_wgrad(x, dy, group_sizes, *, num_groups: Optional[int] = None,
               block_m: int = 128, block_n: int = 128, block_k: int = 128,
               out_dtype: torch.dtype = torch.float32,
-              plan: Optional[TilePlan] = None) -> torch.Tensor:
+              plan: Optional[TilePlan] = None, n_span: int = 1,
+              k_span: int = 1) -> torch.Tensor:
     """Padding-free ragged-contraction grouped GEMM, bf16 operands.
 
     x [M, K], dy [M, N], group_sizes [G] int with ``sum <= M``; rows
@@ -211,18 +229,19 @@ def gmm_wgrad(x, dy, group_sizes, *, num_groups: Optional[int] = None,
     fn = gmm_wgrad_cuda if x.is_cuda else gmm_wgrad_plain
     return fn(x, dy, group_sizes, num_groups=num_groups, block_m=block_m,
               block_n=block_n, block_k=block_k, out_dtype=out_dtype,
-              plan=plan)
+              plan=plan, n_span=n_span, k_span=k_span)
 
 
 def gmm_wgrad_fp8(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
                   num_groups: Optional[int] = None, block_m: int = 128,
                   block_n: int = 128, block_k: int = 128,
                   out_dtype: torch.dtype = torch.float32,
-                  plan: Optional[TilePlan] = None) -> torch.Tensor:
+                  plan: Optional[TilePlan] = None, n_span: int = 1,
+                  k_span: int = 1) -> torch.Tensor:
     """:func:`gmm_wgrad` on e4m3 operands: x_fp8 [M, K] with s_x [M, K/128]
     and dy_fp8 [M, N] with s_dy [M, N/128], each row dequantized by its
     own 1x128 scales before the f32-accumulated contraction."""
     fn = gmm_wgrad_fp8_cuda if x_fp8.is_cuda else gmm_wgrad_fp8_plain
     return fn(x_fp8, s_x, dy_fp8, s_dy, group_sizes, num_groups=num_groups,
               block_m=block_m, block_n=block_n, block_k=block_k,
-              out_dtype=out_dtype, plan=plan)
+              out_dtype=out_dtype, plan=plan, n_span=n_span, k_span=k_span)

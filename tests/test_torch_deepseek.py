@@ -46,7 +46,7 @@ from repro_torch.analysis import events
 from repro_torch.configs import PORTED, get_config, smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
-from repro_torch.kernels.plan import KernelConfig
+from repro_torch.kernels.plan import PLAN_CACHE, KernelConfig
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as tlaunch
 from repro_torch.models.model_zoo import make_model
@@ -187,10 +187,11 @@ def test_prefill_decode_and_generate_match_jax(jax_params, backend):
 
 def test_padded_model_equals_the_padding_free_one():
     """Inside the port the baseline moves no bit of the logits or the
-    tokens; each padded GEMM plans over its padded sizes, so a padded
-    forward builds one plan a GEMM (the dense first layer's three, each
-    MoE layer's routed and shared three) where the padding-free one
-    builds one a layer (the dense layer: one a GEMM)."""
+    tokens; the padding-free forward builds one plan a layer (the dense
+    layer: one a GEMM), and each padded GEMM plans over its padded sizes
+    through the plan cache, so a padded forward builds one plan a static
+    padded shape: the routed GEMMs', and the G = 1 GEMMs' (the dense
+    layer's and the shared experts', over the same tokens)."""
     cfg = smoke_config(NAME)
     params = make_model(cfg, "cpu").init_params(torch.Generator()
                                                 .manual_seed(0))
@@ -200,6 +201,7 @@ def test_padded_model_equals_the_padding_free_one():
     for backend in BACKENDS:
         model = make_model(dataclasses.replace(cfg, gemm_backend=backend),
                            "cpu")
+        PLAN_CACHE.clear()
         with events.capture() as evs, torch.inference_mode():
             logits, _ = model.prefill(params, {"tokens": tokens})
         plans[backend] = events.count(evs, "plan_build")
@@ -210,7 +212,7 @@ def test_padded_model_equals_the_padding_free_one():
     assert torch.equal(out[None][1], out["padded_baseline"][1])
     n_moe = cfg.num_layers - cfg.moe.first_dense_layers
     assert plans[None] == 3 + 2 * n_moe
-    assert plans["padded_baseline"] == 3 + 6 * n_moe
+    assert plans["padded_baseline"] == 2
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
