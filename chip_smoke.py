@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # every phase, one card
-    python3 chip_smoke.py --quick    # probe, build, kernel, autotune checks
+    python3 chip_smoke.py --quick    # probe, build, kernel, autotune,
+                                     # analysis checks
 
 Eight configurations at full width are driven, built with
 ``dataclasses.replace`` on the registry's configs.  Of qwen2-moe-a2.7b:
@@ -65,7 +66,14 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              skipped, then a cache hit that measures nothing; the aten
              ops and eager ms of one padded GEMM with the plan cache
              against a fresh plan;
-  5. forward each configuration cut to 2 layers (deepseek-moe-16b: its
+  5. analysis  the kernel contract checker (``repro_torch.analysis``):
+             its command line's every layer in process on the card, a
+             line a layer with its findings; each contract alone on the
+             card (event counts, the kernels it launched: B1, B2, B3, B4,
+             B6 and B7 must) and on the CPU, the counts equal; the padded
+             baseline reporting REPRO-C03 on the card; no live finding
+             (runs with --quick too);
+  6. forward each configuration cut to 2 layers (deepseek-moe-16b: its
              dense layer and one MoE layer): prefill logits through the
              kernels against the plain versions (prompt 64, and 128 for
              the flash configurations); ``ds_fp8_padded``'s logits
@@ -76,7 +84,7 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              over 1500 frames at 128; the others 2 layers), logits at
              the same bounds, launch counts exact, whisper's fused
              quantizer in gelu mode;
-  6. serve   batch 4, 16 new tokens, greedy, random weights: the 24-layer
+  7. serve   batch 4, 16 new tokens, greedy, random weights: the 24-layer
              qwen2-moe-a2.7b on one param tree, at prompt 64 in ``fp8``,
              ``fp8_fused`` and ``bf16``, at prompt 512 in ``fp8`` and
              ``fp8_flash`` (attention the only difference); then the
@@ -90,7 +98,10 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              p128, recurrentgemma-2b batch 2 p2304, xlstm-350m p512,
              whisper-tiny 1500 frames + p128; every other one whole),
              each on a tree of its own, with a profile of a prefill and
-             of a decode step; the launch counts of each run are
+             of a decode step; the qwen2-moe fp8 p64 generate (and its
+             engine's construction) under the engine contract scaled to
+             24 layers (one decode selection, 2 x 24 x 16 plan builds,
+             the decode ones on 16 rows); the launch counts of each run are
              asserted; every engine selects its decode tiles (an MoE
              model once, 16 rows, its tokens bitwise those of an engine
              pinned to the fixed 16-row rule; a dense model none, on the
@@ -100,11 +111,11 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              window gate: recurrentgemma-2b, one
              cycle, bf16, decoding position 2305 after a prefill of 2304
              (a ring cache) gives the prefill-of-2305 logits;
-  7. train-parity  each configuration cut to 2 layers, batch 2, seq 256:
+  8. train-parity  each configuration cut to 2 layers, batch 2, seq 256:
              loss and gradients of one train step through the kernels
              against the plain versions; ``ds_fp8_padded``'s loss
              bitwise ``ds_fp8``'s, and which gradients are bitwise;
-  8. train   batch 8, seq 512: the MoE configurations cut to 4 layers (the
+  9. train   batch 8, seq 512: the MoE configurations cut to 4 layers (the
              depth one card's 80 GB holds with bf16 params and f32 AdamW
              state; deepseek-moe-16b's dense layer and 3 MoE layers),
              qwen3-1.7b at its full 28 layers: 8 steps through
@@ -116,7 +127,7 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              and grad norm within 1e-3); for ``fp8`` and ``ds_fp8`` then
              the same 8 steps with the fp8 wgrad (launch counts asserted,
              a profile of one step);
-  9. checkpoint  ``ds_fp8`` cut to 2 layers trained 4 steps through
+  10. checkpoint  ``ds_fp8`` cut to 2 layers trained 4 steps through
              ``train`` with a checkpoint after the last, under ``build/``:
              restored into a fresh tree, every leaf equal to the live
              state and the next batch's loss bitwise the live params';
@@ -1915,6 +1926,89 @@ def phase_autotune() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the kernel contract checker on the card
+# ---------------------------------------------------------------------------
+
+# the kernels the contracts must launch (B1, B2, B3, B4, B6, B7)
+ANALYSIS_KERNELS = ("quantize_tilewise", "gmm", "act_quantize", "wgrad",
+                    "wgrad_fp8", "gmm_quant")
+
+
+def phase_analysis(info: dict) -> None:
+    """``repro_torch.analysis`` on the card: (a) the command line's every
+    layer in process (``--all --json``: the contracts and the prepare-once
+    contracts launch the kernels), a line a layer with its findings; then
+    each contract alone, a line with its event counts and the kernels it
+    launched; (b) each contract again on the CPU (the plain versions),
+    whose event counts must be the card's; (c) the coverage check: the
+    padded baseline under ``grouped_linear.fp8.fwd`` reports REPRO-C03.
+    Any live finding raises.  The serve phase checks the engine contract
+    at full width."""
+    import io
+    from collections import Counter
+
+    import torch
+    from repro_torch.analysis import contracts, events
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.core import grouped_gemm as gg
+    from repro_torch.kernels.plan import KernelConfig
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = analysis_main(["--all", "--json"])
+    torch.cuda.synchronize()
+    report = json.loads(out.getvalue())
+    for layer, n in report["layers"].items():
+        emit({"phase": "analysis", "layer": layer, "findings": n})
+    emit({"phase": "analysis", "cli_exit": rc,
+          "live_findings": report["findings"],
+          "resources_pruned": report["resources_pruned"],
+          "launches": {k: v for k, v in read_counts().items() if v}})
+    if rc or report["findings"]:
+        raise AssertionError(f"analysis: live findings {report['findings']}")
+    launched = Counter()
+    for name, c in sorted(contracts.load_registered().items()):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            reset_counts()
+            with events.capture() as evs:
+                fs = contracts.run_contract(c, dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[dev] = (dict(Counter(e.kind for e in evs)),
+                         {k: v for k, v in read_counts().items() if v},
+                         [f.format() for f in fs])
+        (card, launches, fs), (cpu, cpu_launches, cpu_fs) = \
+            runs["cuda"], runs["cpu"]
+        launched.update(launches)
+        emit({"phase": "analysis_contract", "contract": name,
+              "events": card, "launches": launches, "findings": fs,
+              "cpu_events": cpu, "cpu_findings": cpu_fs,
+              "events_equal": card == cpu})
+        if fs or cpu_fs or card != cpu or cpu_launches:
+            raise AssertionError(f"analysis {name}: card {card} {fs}, cpu "
+                                 f"{cpu} {cpu_fs} {cpu_launches}")
+    missing = [k for k in ANALYSIS_KERNELS if not launched[k]]
+    if missing:
+        raise AssertionError(f"analysis: the contracts never launched "
+                             f"{missing}")
+    c = contracts.load_registered()["grouped_linear.fp8.fwd"]
+    fn, args = gg._build_linear_fwd(torch.device("cuda"),
+                                    KernelConfig(backend="padded_baseline"))
+    c03 = [f.message for f in contracts.check_contract(fn, c, *args)
+           if f.rule_id == "REPRO-C03"]
+    emit({"phase": "analysis_coverage", "contract": c.name,
+          "backend": "padded_baseline", "c03": c03})
+    if not c03:
+        raise AssertionError("analysis: the padded baseline did not fire "
+                             "REPRO-C03 on the card")
+    emit({"phase": "analysis", "seconds": time.perf_counter() - t0,
+          "contract_launches": dict(launched),
+          "nvidia_smi": info["nvidia_smi"]})
+
+
+# ---------------------------------------------------------------------------
 # phase 3, continued: the padded baseline against the padding-free GEMM
 # ---------------------------------------------------------------------------
 
@@ -2076,7 +2170,7 @@ def phase_padded(full: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the model
+# phases 6 and 7: the model
 # ---------------------------------------------------------------------------
 
 def phase_forward(variant: str):
@@ -2255,7 +2349,7 @@ def counting_padded_gemms():
 
 
 def serve_run(variant: str, params, batch, new: int, path: str, *,
-              sync_check: bool = False):
+              sync_check: bool = False, contract=None):
     """One configuration serving ``batch`` on ``params``: a warm-up
     generate (through an engine pinned to the fixed 16-row decode rule,
     :func:`selecting_engine`), a timed one through the engine's own
@@ -2266,10 +2360,14 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
     decode step (a dense model's also on the fixed rule's tiles); with
     ``sync_check`` one more generate under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises at any call
-    that waits for the device.  Returns the launch counts and the
-    generated tokens."""
+    that waits for the device.  With ``contract`` (the engine contract
+    scaled to the model), the timed generate and the construction of its
+    engine run inside ``check_contract``, whose findings raise.  Returns
+    the launch counts and the generated tokens."""
     import torch
     from repro_torch.analysis import events
+    from repro_torch.analysis.contracts import check_contract
+    from repro_torch.serve.engine import Engine
     from repro_torch.core import quantization as q
     from repro_torch.kernels.plan import PADDED_BASELINE, PLAN_CACHE
     from repro_torch.models.model_zoo import make_model
@@ -2292,11 +2390,28 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with events.capture() as evs, counting_padded_gemms() as padded_calls:
+
+    timed = {}
+
+    def timed_generate():
+        nonlocal engine
+        if contract is not None:
+            # the contract counts this engine's decode selection too
+            engine = Engine(model, params, max_new_tokens=new)
         t0 = time.perf_counter()
-        res = engine.generate(batch)
+        timed["res"] = engine.generate(batch)
         torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
+        timed["gen_s"] = time.perf_counter() - t0
+        return engine, timed["res"]
+
+    findings = None
+    with events.capture() as evs, counting_padded_gemms() as padded_calls:
+        if contract is None:
+            timed_generate()
+        else:
+            findings = [f.format() for f in
+                        check_contract(timed_generate, contract)]
+    res, gen_s = timed["res"], timed["gen_s"]
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     plan_builds = {"warm_up": builds,
@@ -2360,6 +2475,9 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
           "tokens_equal_fixed_block_m16": torch.equal(res.tokens,
                                                       fixed_tokens),
           "plan_builds": plan_builds,
+          "plan_build_events": events.count(evs, "plan_build"),
+          "contract": None if contract is None else contract.name,
+          "contract_findings": findings,
           "weight_quant_ms_per_forward": None if wq_layer_ms is None
           else wq_layer_ms * kernel_layers(cfg),
           "max_memory_allocated_gb": peak / 1e9,
@@ -2373,6 +2491,8 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
     if counts != expect:
         raise AssertionError(f"serve {path}: launch counts {counts} "
                              f"!= expected {expect}")
+    if findings:
+        raise AssertionError(f"serve {path}: {contract.name}: {findings}")
     if not ok_tokens or not torch.isfinite(last.float()).all():
         raise AssertionError(f"serve {path} produced malformed tokens "
                              "or logits")
@@ -2398,6 +2518,7 @@ def phase_serve():
     counts by path name."""
     import torch
     from repro_torch.models.model_zoo import make_model, synthetic_batch
+    from repro_torch.serve.engine import decode_plan_contract
     batch_size, new = 4, 16
     paths = {}
     for arch_variant, runs in (
@@ -2423,7 +2544,10 @@ def phase_serve():
                     path = path_name(f"serve_p{prompt}", variant)
                 paths[path], tokens[variant] = serve_run(
                     variant, params, batch, new, path,
-                    sync_check=variant == "ds_fp8_padded" and prompt == 64)
+                    sync_check=variant == "ds_fp8_padded" and prompt == 64,
+                    contract=decode_plan_contract(
+                        moe_layers=kernel_layers(cfg), batch=batch_size,
+                        new=new) if path == "serve" else None)
             if set(DS_VARIANTS) <= set(tokens):
                 same = torch.equal(*(tokens[v] for v in DS_VARIANTS))
                 emit({"phase": "serve_padded_vs_padding_free",
@@ -3048,7 +3172,8 @@ def phase_checkpoint() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
-                    help="probe, build, kernel and autotune checks only")
+                    help="probe, build, kernel, autotune and analysis "
+                         "checks only")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3081,6 +3206,9 @@ def main(argv=None) -> int:
     free_memory()
     with timed("autotune"):
         phase_autotune()
+    free_memory()
+    with timed("analysis"):
+        phase_analysis(info)
     if not args.quick:
         paths = {}
         for variant in (*VARIANTS, DENSE_VARIANT):

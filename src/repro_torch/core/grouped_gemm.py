@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import events as _events
 from repro_torch.core import padding_baseline
 from repro_torch.core import quantization as q
 from repro_torch.kernels import grouped_gemm_kernel, quant_kernel, \
@@ -84,6 +85,9 @@ def _gemm_quant(a8, sa, w, group_sizes, cfg: KernelConfig, plan: TilePlan,
     payload and 1x128 scales of the product rounded through
     ``round_dtype``.  Under the padded baseline: the padded GEMM, then
     the tilewise quantizer (bitwise what the quantizing GEMM stores)."""
+    # one event per producer-GEMM dispatch, under every backend: the
+    # producer-fusion contracts (REPRO-C05) pin the gate/up routing count
+    _events.emit("gemm_quant", m=a8.shape[0], n=w.shape[2])
     if cfg.backend == PADDED_BASELINE:
         y = _gemm(a8, sa, w, group_sizes, cfg, plan, round_dtype)
         return quant_kernel.quantize_tilewise(y.float())
@@ -479,3 +483,213 @@ def dense_ffn_fp8(x: torch.Tensor, w_gate: Optional[torch.Tensor],
         w_down[None], gs, act=act, out_dtype=out_dtype, config=config,
         plan=plan, quantized=quantized)
     return y.reshape(*lead, w_down.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Kernel contracts (repro_torch.analysis layer 1)
+# ---------------------------------------------------------------------------
+# Declarative invariants for every public fp8 path in this module, checked
+# by ``python -m repro_torch.analysis --contracts`` on the aten ops a call
+# dispatches.  The contracts, their operands and their counts are the JAX
+# package's.  The build functions take the device and run only when a
+# contract is checked: registration costs nothing at import.
+
+from repro_torch.analysis.contracts import register_contract as \
+    _register_contract  # noqa: E402
+
+
+def _contract_operands(device):
+    """Shared example problem: G=3 with an empty group and a ragged tail
+    (sum(gs)=190 < M=256), the shapes every padding-free claim is about;
+    the JAX package's numpy draws."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+    x, w = t((256, 128)), t((3, 128, 128))
+    gu, wd = t((2, 256, 256)), t((3, 256, 128))
+    gs = torch.tensor([60, 0, 130], dtype=torch.int32, device=device)
+    return x, w, gu, wd, gs
+
+
+def _ffn_weights(device):
+    """The FFN contracts' gate, up and down weights (numpy seed 1)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(device) for s in ((3, 128, 256), (3, 128, 256),
+                                       (3, 256, 128)))
+
+
+def _grad_of(loss):
+    """``fn(*args)`` -> the gradients of ``loss(*args)`` w.r.t. every
+    argument, as the JAX package's ``jax.grad(loss, argnums=all)``."""
+    def grads(*args):
+        args = [a.detach().requires_grad_() for a in args]
+        return torch.autograd.grad(loss(*args), args)
+    return grads
+
+
+def _build_linear_fwd(device, config: Optional[KernelConfig] = None):
+    x, w, _, _, gs = _contract_operands(device)
+    cfg = config or KernelConfig()
+    return (lambda x, w: grouped_linear(x, w, gs, precision="fp8",
+                                        config=cfg)), (x, w)
+
+
+def _build_linear_grad(device):
+    x, w, _, _, gs = _contract_operands(device)
+    cfg = KernelConfig()
+
+    def loss(x, w):
+        y = grouped_linear(x, w, gs, precision="fp8", config=cfg)
+        return torch.sum(y.float() ** 2)
+    return _grad_of(loss), (x, w)
+
+
+def _build_fused_fwd(device):
+    _, _, gu, wd, gs = _contract_operands(device)
+    cfg = KernelConfig()
+    return (lambda g, u: grouped_linear_fused(g, u, wd, gs, act="silu_mul",
+                                              config=cfg)), (gu[0], gu[1])
+
+
+def _build_fused_grad(device):
+    _, _, gu, wd, gs = _contract_operands(device)
+    cfg = KernelConfig()
+
+    def loss(g, u, w):
+        y = grouped_linear_fused(g, u, w, gs, act="silu_mul", config=cfg)
+        return torch.sum(y.float() ** 2)
+    return _grad_of(loss), (gu[0], gu[1], wd)
+
+
+def _build_ffn_fwd(device):
+    x, _, _, _, gs = _contract_operands(device)
+    wg, wu, wd = _ffn_weights(device)
+    cfg = KernelConfig()
+    return (lambda x: grouped_linear_ffn(x, wg, wu, wd, gs, act="silu_mul",
+                                         config=cfg)), (x,)
+
+
+def _build_ffn_grad(device):
+    x, _, _, _, gs = _contract_operands(device)
+    cfg = KernelConfig(wgrad_precision="fp8")
+
+    def loss(x, wg, wu, wd):
+        y = grouped_linear_ffn(x, wg, wu, wd, gs, act="silu_mul",
+                               config=cfg)
+        return torch.sum(y.float() ** 2)
+    return _grad_of(loss), (x, *_ffn_weights(device))
+
+
+_register_contract(
+    "grouped_linear.fp8.fwd",
+    description="fp8 forward: ONE standalone quantize (x), one plan "
+                "build, zero padding copies",
+    build=_build_linear_fwd,
+    quantize_count=1, quantize_shapes=((256, 128),),
+    plan_builds=1, forbid_padding=True)
+
+_register_contract(
+    "grouped_linear.fp8.grad",
+    description="fp8 fwd+bwd: quantizes exactly {x, dy}; the forward's "
+                "TilePlan serves the dgrad and wgrad (one build total)",
+    build=_build_linear_grad,
+    quantize_count=2, quantize_shapes=((256, 128), (256, 128)),
+    plan_builds=1, forbid_padding=True)
+
+_register_contract(
+    "grouped_linear_fused.fp8.fwd",
+    description="fused epilogue forward: ZERO standalone quantizes (the "
+                "act_quant pass owns h), no wide h materialization",
+    build=_build_fused_fwd,
+    quantize_count=0, plan_builds=1, forbid_padding=True,
+    forbid_wide_shapes=((256, 256),))
+
+_register_contract(
+    "grouped_linear_fused.fp8.grad",
+    description="fused epilogue fwd+bwd: quantizes exactly {dy}; one "
+                "plan build serves forward, dgrad, and wgrad",
+    build=_build_fused_grad,
+    quantize_count=1, quantize_shapes=((256, 128),),
+    plan_builds=1, forbid_padding=True)
+
+_register_contract(
+    "grouped_linear_ffn.fp8.fwd",
+    description="producer-fused FFN forward: ONE standalone quantize "
+                "(x), gate/up through the quantizing GEMM, g/u/h never "
+                "wider than fp8",
+    build=_build_ffn_fwd,
+    quantize_count=1, quantize_shapes=((256, 128),),
+    plan_builds=1, gemm_quant_calls=2, forbid_padding=True,
+    forbid_wide_shapes=((256, 256),))
+
+_register_contract(
+    "grouped_linear_ffn.fp8.grad",
+    description="producer-fused FFN fwd+bwd (all-fp8 wgrad): quantizes "
+                "exactly {x, dy, dg, du}, never g/u/h",
+    build=_build_ffn_grad,
+    quantize_count=4,
+    quantize_shapes=((256, 128), (256, 128), (256, 256), (256, 256)),
+    plan_builds=1, gemm_quant_calls=2, forbid_padding=True)
+
+
+# ---------------------------------------------------------------------------
+# Compile contracts (repro_torch.analysis layer 5: REPRO-T01)
+# ---------------------------------------------------------------------------
+# Three steps with DIFFERENT routings (new group_sizes values, same shapes)
+# prepare nothing after the first: no kernel build or load, no plan-cache
+# shape, no autotune measurement.  The port plans per routing decision
+# with tensor ops (make_tile_plan), which is no preparation.
+
+from repro_torch.analysis.retrace import PREPARES as _PREPARES  # noqa: E402
+from repro_torch.analysis.retrace import \
+    register_compile_contract as _register_compile_contract  # noqa: E402
+
+
+def _routing_steps(device, step, args, routings):
+    calls = [(*args, torch.tensor(r, dtype=torch.int32, device=device))
+             for r in routings]
+    return step, calls
+
+
+def _build_linear_retrace(device):
+    x, w, _, _, _ = _contract_operands(device)
+    cfg = KernelConfig()
+
+    def linear_step(x, w, gs):
+        return _grad_of(lambda x, w: torch.sum(grouped_linear(
+            x, w, gs, precision="fp8", config=cfg).float() ** 2))(x, w)
+    return _routing_steps(device, linear_step, (x, w),
+                          ([60, 0, 130], [100, 50, 40], [0, 0, 256]))
+
+
+def _build_ffn_retrace(device):
+    x, _, _, _, _ = _contract_operands(device)
+    cfg = KernelConfig(wgrad_precision="fp8")
+
+    def ffn_step(x, wg, wu, wd, gs):
+        return _grad_of(lambda *a: torch.sum(grouped_linear_ffn(
+            *a, gs, act="silu_mul", config=cfg).float() ** 2))(
+                x, wg, wu, wd)
+    return _routing_steps(device, ffn_step, (x, *_ffn_weights(device)),
+                          ([60, 0, 130], [100, 50, 40], [256, 0, 0]))
+
+
+_register_compile_contract(
+    "grouped_linear.fp8.retrace",
+    description="fp8 fwd+bwd step prepares nothing after the first of "
+                "three routing changes of the same shape",
+    build=_build_linear_retrace,
+    expected=dict.fromkeys(_PREPARES, 0), warmup=1, rule="REPRO-T01")
+
+_register_compile_contract(
+    "grouped_linear_ffn.fp8.retrace",
+    description="producer-fused FFN fwd+bwd step (all-fp8 wgrad) "
+                "prepares nothing after the first of three routing "
+                "changes of the same shape",
+    build=_build_ffn_retrace,
+    expected=dict.fromkeys(_PREPARES, 0), warmup=1, rule="REPRO-T01")

@@ -297,3 +297,93 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
         "expert_ids": ids,
     }
     return out.to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Kernel contracts (repro_torch.analysis layer 1)
+# ---------------------------------------------------------------------------
+# The MoE layer's invariants, the JAX package's: quantize-once (4
+# standalone quantizes per fwd+bwd, two of them xs-shaped), producer
+# fusion (forward = exactly the shared xs, gate/up through the quantizing
+# GEMM) and plan-once (one schedule build per routing decision).  32 tokens
+# top-2 give 64 packed slots.
+
+from repro_torch.analysis.contracts import register_contract as \
+    _register_contract  # noqa: E402
+
+
+def _contract_cfg(fuse_producer=False):
+    return MoEConfig(num_experts=4, top_k=2, d_model=128, d_ff_expert=256,
+                     precision="fp8",
+                     kernel_config=KernelConfig(wgrad_precision="fp8",
+                                                fuse_producer=fuse_producer))
+
+
+def _contract_inputs(cfg, device):
+    """Seeded params and 32 tokens on ``device`` (the JAX package draws
+    them from its own PRNG; the tests feed those through
+    ``convert.tree_from_numpy``)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_moe_params(cfg, generator=gen, device=device)
+    xt = torch.randn((32, cfg.d_model), generator=gen, device=device)
+    return params, xt
+
+
+def _moe_grad(cfg):
+    """Gradients of the mean squared output w.r.t. every param and x, as
+    ``jax.grad(loss, argnums=(0, 1))``."""
+    def grads(params, x):
+        p = {k: v.detach().requires_grad_() for k, v in params.items()}
+        x = x.detach().requires_grad_()
+        loss = torch.mean(moe_apply(p, x, cfg)[0].float() ** 2)
+        return torch.autograd.grad(loss, [*p.values(), x])
+    return grads
+
+
+def _build_moe(fuse_producer, grad):
+    def build(device):
+        cfg = _contract_cfg(fuse_producer)
+        fn = _moe_grad(cfg) if grad else \
+            (lambda p, x: moe_apply(p, x, cfg)[0])
+        return fn, _contract_inputs(cfg, device)
+    return build
+
+
+_register_contract(
+    "moe_apply.fp8.fwd",
+    description="MoE forward: ONE standalone quantize of the packed xs "
+                "serves the gate AND up GEMMs; one plan build per "
+                "routing decision; no padding of the token buffer",
+    build=_build_moe(False, False),
+    quantize_count=1, quantize_shapes=((64, 128),),
+    plan_builds=1, forbid_padding=True)
+
+_register_contract(
+    "moe_apply.fp8.grad",
+    description="quantize-once over fwd+bwd: exactly {xs, down-dy, dg, "
+                "du}, 4 calls, two xs-shaped; h never standalone-"
+                "quantized (the fused epilogue owns it)",
+    build=_build_moe(False, True),
+    quantize_count=4,
+    quantize_shapes=((64, 128), (64, 128), (64, 256), (64, 256)),
+    plan_builds=1, forbid_padding=True)
+
+_register_contract(
+    "moe_apply.fused_producer.fwd",
+    description="producer-fused forward: the ONLY standalone quantize is "
+                "the shared xs; gate/up route through the quantizing GEMM "
+                "(2 dispatches); g/u/h never exist wider than fp8",
+    build=_build_moe(True, False),
+    quantize_count=1, quantize_shapes=((64, 128),),
+    plan_builds=1, gemm_quant_calls=2, forbid_padding=True,
+    forbid_wide_shapes=((64, 256),))
+
+_register_contract(
+    "moe_apply.fused_producer.grad",
+    description="producer-fused fwd+bwd: same 4-quantize floor {xs, "
+                "down-dy, dg, du}, gate/up still through the quantizing "
+                "GEMM, one plan build",
+    build=_build_moe(True, True),
+    quantize_count=4,
+    quantize_shapes=((64, 128), (64, 128), (64, 256), (64, 256)),
+    plan_builds=1, gemm_quant_calls=2, forbid_padding=True)

@@ -131,3 +131,58 @@ def padding_overhead_bytes(group_sizes, k: int, kb: int,
     pad_rows = int(((gs + block_m - 1) // block_m * block_m - gs).sum())
     return {"pad_rows": pad_rows, "a_bytes": pad_rows * k,
             "sa_bytes": pad_rows * kb * 4}
+
+
+# ---------------------------------------------------------------------------
+# Compile contracts (repro_torch.analysis layer 5: REPRO-T03)
+# ---------------------------------------------------------------------------
+# The padded buffer's static shape is what the baseline amortizes: one
+# PLAN_CACHE shape per padded_m bucket.  Two routings in one bucket share
+# a shape; a new bucket builds exactly one more.  The JAX package's calls.
+
+from repro_torch.analysis.retrace import \
+    register_compile_contract as _register_compile_contract  # noqa: E402
+
+
+def _build_baseline_retrace(device):
+    import numpy as np
+    from repro_torch.kernels import plan as plan_mod
+    from repro_torch.kernels import ref as kref
+
+    rng = np.random.default_rng(0)
+    k = n = 128
+    g = 3
+
+    def randn(r, shape):
+        return torch.from_numpy(r.standard_normal(shape).astype(
+            np.float32)).to(device)
+
+    def operands(m, seed):
+        a8, sa = kref.quantize_tilewise_ref(
+            randn(np.random.default_rng(seed), (m, k)))
+        b8, sb = kref.quantize_blockwise_ref(randn(rng, (g, k, n)))
+        return a8, sa, b8, sb
+
+    # from an empty cache, the counted builds are exactly this sequence's
+    plan_mod.PLAN_CACHE.clear()
+    cfg = KernelConfig()
+
+    def baseline_step(m, gs_vals, seed, bucket):
+        gs = torch.tensor(gs_vals, dtype=torch.int32, device=device)
+        return grouped_gemm_fp8_padded(*operands(m, seed), gs, config=cfg,
+                                       padded_m=bucket)
+
+    # two same-bucket calls (different routings) + one new bucket
+    calls = [(256, [60, 0, 130], 2, 640),
+             (256, [100, 50, 40], 3, 640),
+             (512, [200, 12, 44], 4, 896)]
+    return baseline_step, calls
+
+
+_register_compile_contract(
+    "padding_baseline.bucket.retrace",
+    description="the padded pipeline builds one plan-cache shape per "
+                "(padded_m) M-bucket: two same-bucket routings share one, "
+                "a new bucket adds exactly one",
+    build=_build_baseline_retrace,
+    expected={"plan_cache_build": 2}, rule="REPRO-T03")

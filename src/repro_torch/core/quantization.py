@@ -23,6 +23,8 @@ from repro_torch.analysis import events as _events
 from repro_torch.kernels import epilogue_kernel, quant_kernel
 from repro_torch.kernels import ref as kref
 
+QUANT_BLOCK = 128  # the paper's 1x128 / 128x128 quantization granularity
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantizedActivation:

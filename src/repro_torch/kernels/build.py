@@ -20,6 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from repro_torch.analysis import events as _events
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -72,6 +74,7 @@ def build_all() -> Path:
     if all((out_dir / f"lib{s.stem}.so").is_file() for s in srcs):
         return out_dir
     nvcc = nvcc_path()
+    _events.emit("kernel_build", dir=out_dir.name)
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=BUILD_ROOT))
     t0 = time.perf_counter()
@@ -105,6 +108,7 @@ def load(name: str) -> ctypes.CDLL:
     first use."""
     lib = _LIBS.get(name)
     if lib is None:
+        _events.emit("kernel_load", name=name)
         lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
         _LIBS[name] = lib
     return lib

@@ -68,26 +68,33 @@ QUANT_BLOCK = 128  # the paper's 1x128 / 128x128 quantization granularity
 #: run the same grouped GEMM over the padded buffer, unpad
 #: (:mod:`repro_torch.core.padding_baseline`)
 PADDED_BASELINE = "padded_baseline"
-#: the JAX package's other registry names (and the ``xla`` alias); the
-#: port has no operator registry yet, so these raise
+#: the JAX package's other registry names (and the ``xla`` alias): the
+#: port's registry (``kernels/dispatch.py``) has its own, so these raise
 UNPORTED_BACKENDS = ("pallas", "pallas_interpret", "xla_ragged", "xla_exact",
                      "xla", "ref")
 
 
 def check_backend(backend: Optional[str]) -> None:
-    """Pass the backends the port runs: ``None`` (its own kernels on the
-    card, their plain versions on the CPU) and ``"padded_baseline"``.  A
-    registry name of the JAX package (also spelled with ``_fp8``) raises
-    ``NotImplementedError``, any other name ``ValueError``."""
+    """Pass the backends a config takes: ``None`` (the kernels on the card,
+    their plain versions on the CPU, by the tensor's device) and
+    ``"padded_baseline"``.  A registry name of the JAX package (also
+    spelled with ``_fp8``) raises ``NotImplementedError`` naming the
+    port's registry, any other name ``ValueError``."""
     if backend is None or backend == PADDED_BASELINE:
         return
+    # deferred: the registry imports the kernel modules, which import this
+    from repro_torch.kernels import dispatch
+    names = dispatch.registry_names()
     base = backend[:-len("_fp8")] if backend.endswith("_fp8") else backend
     if base in UNPORTED_BACKENDS:
         raise NotImplementedError(
-            f"backend {backend!r}: the operator registry "
-            "(kernels/dispatch.py) is not ported to repro_torch yet "
-            f"(ROADMAP A13); the port runs None and {PADDED_BASELINE!r}")
-    raise ValueError(f"unknown backend {backend!r}; the port runs None and "
+            f"backend {backend!r} is a JAX-package registry name; the "
+            f"port's registry (kernels/dispatch.py) has {names}, and a "
+            f"KernelConfig takes None (cuda or plain by the tensor's "
+            f"device) or {PADDED_BASELINE!r}")
+    raise ValueError(f"unknown backend {backend!r}; a KernelConfig takes "
+                     f"None (cuda or plain by the tensor's device: "
+                     f"kernels/dispatch.py has {names}) or "
                      f"{PADDED_BASELINE!r}")
 
 
@@ -512,8 +519,10 @@ class PlanCache:
         static = self._static.get(key)
         if static is None:
             self.builds += 1
+            # ``shared`` tells a cached shape's build (what the
+            # prepare-once contracts count) from a per-call one
             _events.emit("plan_build", m=m, block_m=block_m,
-                         num_groups=num_groups)
+                         num_groups=num_groups, shared=True)
             static = _static_tensors(m, block_m, num_groups,
                                      group_sizes.device)
             self._static[key] = static
@@ -1117,6 +1126,7 @@ def autotune(m: int, k: int, n: int, g: int, *,
     skipped: "list[tuple[KernelConfig, str]]" = []
     measured: "dict[KernelConfig, float]" = {}
     if measure and not tile_free:
+        _events.emit("autotune_measure", op=op, key=key)
         # a candidate that fails to launch or measure is recorded and
         # skipped; it must not abort the sweep
         for c in ranked[:max_candidates]:

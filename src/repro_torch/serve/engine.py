@@ -28,7 +28,9 @@ it raises.  Everything runs under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -140,3 +142,145 @@ class Engine:
         num = torch.full((tokens.shape[0],), tokens.shape[1],
                          dtype=torch.int32, device=tokens.device)
         return GenerationResult(tokens=tokens, num_generated=num)
+
+
+# ---------------------------------------------------------------------------
+# Kernel contracts (repro_torch.analysis layer 1)
+# ---------------------------------------------------------------------------
+# Decode plan discipline, checked by a REAL smoke generate (mode="run"):
+# one decode-config pool selection per Engine, block_m <= 16, and one plan
+# build per expert group (routed + shared) per MoE layer per forward, the
+# decode forwards' on the decode config's tile height.  The JAX package
+# traces its decode loop once over stacked layers and counts one build per
+# phase per group (4); the port runs every layer of every forward eagerly,
+# so it counts 2 x MoE layers x (1 + decode forwards): 2 x 2 x 6 = 24 for
+# the smoke generate of 6 tokens.
+
+from repro_torch.analysis.contracts import CONTRACTS as _CONTRACTS  # noqa: E402
+from repro_torch.analysis.contracts import register_contract as \
+    _register_contract  # noqa: E402
+
+
+@contextlib.contextmanager
+def _scratch_tileplan_cache():
+    """Route the decode selection's cache writes to a throwaway file,
+    never the user's cache."""
+    import os
+    import tempfile
+    prev = os.environ.get(plan_mod.CACHE_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[plan_mod.CACHE_ENV] = os.path.join(
+            tmp, "tileplan_cache.json")
+        try:
+            yield
+        finally:
+            if prev is None:
+                os.environ.pop(plan_mod.CACHE_ENV, None)
+            else:
+                os.environ[plan_mod.CACHE_ENV] = prev
+
+
+def _smoke_engine_inputs(device):
+    """The smoke qwen2-moe-a2.7b in fp8 (2 MoE layers), seeded params and
+    a batch of 2 prompts of 16 tokens."""
+    from repro_torch.configs import smoke_config
+    cfg = dataclasses.replace(smoke_config("qwen2-moe-a2.7b"),
+                              precision="fp8")
+    model = model_zoo.make_model(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init_params(gen)
+    batch = model_zoo.synthetic_batch(gen, cfg, 16, 2)
+    return model, params, batch
+
+
+def _build_engine_contract(device):
+    model, params, batch = _smoke_engine_inputs(device)
+
+    def fn():
+        with _scratch_tileplan_cache():
+            engine = Engine(model, params, max_new_tokens=6,
+                            decode_batch_size=2, device=device)
+        return engine, engine.generate(batch)
+    return fn, ()
+
+
+def _check_engine_contract(result, events, *, batch, new, moe_layers):
+    engine, res = result
+    msgs = []
+    dc = engine.decode_config
+    if dc is None:
+        msgs.append("engine resolved no decode config for an MoE model")
+    elif dc.block_m > 16:
+        msgs.append(f"decode config block_m={dc.block_m} > 16: not a "
+                    f"decode-pool entry")
+    if tuple(res.tokens.shape) != (batch, new):
+        msgs.append(f"generate returned tokens of shape "
+                    f"{tuple(res.tokens.shape)}, expected {(batch, new)}")
+    builds = [e for e in events if e.kind == "plan_build"]
+    # the prefill's builds (routed and shared, each MoE layer) use the
+    # prefill tile height, every later one the decode config's
+    prefill = 2 * moe_layers
+    bad = [e.data["block_m"] for e in builds[prefill:]
+           if dc is not None and e.data["block_m"] != dc.block_m]
+    if bad:
+        msgs.append(f"{len(bad)} decode-phase plan build(s) used block_m "
+                    f"{sorted(set(bad))}, not the decode config's "
+                    f"{dc.block_m}")
+    return msgs
+
+
+def _decode_plan_fields(*, moe_layers: int, batch: int, new: int) -> dict:
+    return dict(decode_selects=1, plan_builds=2 * moe_layers * new,
+                extra=functools.partial(_check_engine_contract, batch=batch,
+                                        new=new, moe_layers=moe_layers))
+
+
+_register_contract(
+    "engine.generate.decode_plan",
+    description="one decode-config selection per Engine; every forward "
+                "of a generate (prefill + 5 decode steps) builds plan "
+                "metadata once per expert group per MoE layer; decode "
+                "tiles block_m<=16",
+    build=_build_engine_contract, mode="run",
+    **_decode_plan_fields(moe_layers=2, batch=2, new=6))
+
+
+def decode_plan_contract(*, moe_layers: int, batch: int, new: int):
+    """The engine contract scaled to a model of ``moe_layers`` MoE layers
+    generating ``new`` tokens for ``batch`` prompts (for example the
+    full-width qwen2-moe-a2.7b: 24 layers, 2 x 24 x 16 plan builds), to
+    check with ``check_contract(fn, contract)`` where ``fn()`` builds the
+    Engine and returns ``(engine, engine.generate(batch))``."""
+    return dataclasses.replace(
+        _CONTRACTS["engine.generate.decode_plan"], build=None,
+        **_decode_plan_fields(moe_layers=moe_layers, batch=batch, new=new))
+
+
+# ---------------------------------------------------------------------------
+# Compile contracts (repro_torch.analysis layer 5: REPRO-T02)
+# ---------------------------------------------------------------------------
+# A second same-shape generate prepares nothing: the selection ran once at
+# construction, and no kernel library is built or loaded again.
+
+from repro_torch.analysis.retrace import PREPARES as _PREPARES  # noqa: E402
+from repro_torch.analysis.retrace import \
+    register_compile_contract as _register_compile_contract  # noqa: E402
+
+
+def _build_engine_retrace(device):
+    model, params, batch = _smoke_engine_inputs(device)
+    with _scratch_tileplan_cache():
+        engine = Engine(model, params, max_new_tokens=6,
+                        decode_batch_size=2, device=device)
+
+    def generate(seed):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return engine.generate(batch, generator=gen)
+    return generate, [(42,), (43,)]
+
+
+_register_compile_contract(
+    "engine.generate.retrace",
+    description="a second same-shape generate prepares nothing",
+    build=_build_engine_retrace,
+    expected=dict.fromkeys(_PREPARES, 0), warmup=1, rule="REPRO-T02")

@@ -206,7 +206,9 @@ def test_default_seam():
 
 
 def test_check_backend_points_at_the_registry_item():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A13\)"):
+    with pytest.raises(NotImplementedError,
+                       match=r"kernels/dispatch.py\) has \('cuda', 'plain', "
+                             r"'padded_baseline'\)"):
         KernelConfig(backend="pallas")
 
 
