@@ -132,7 +132,25 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              restored into a fresh tree, every leaf equal to the live
              state and the next batch's loss bitwise the live params';
              then ``train`` resumes from it and runs one more step; the
-             bytes written and the save and restore seconds.
+             bytes written and the save and restore seconds;
+  11. distributed  expert and data parallelism on 4 ranks that share the
+             card over gloo (NCCL takes one rank a device): B2 at the EP 4
+             shapes beside the whole layer's (one process); the whole
+             28-layer deepseek-moe-16b served under EP 4 on a (1, 4)
+             mesh, batch 4, prompt 64, 16 tokens, its prefill logits and
+             each token (teacher-forced) held against one process's at
+             15% of the largest logit, tokens equal on every rank, the
+             packed rows past sum(group_sizes) zero; its 2-layer cut
+             trained 4 steps under EP 2 x DP 2 on (2, 2) through
+             ``train`` (step 0's loss and grad norm within 1e-3 of one
+             process's, the later grad norms within 1e-2, loss falling),
+             its params saved as full arrays, the next batch's loss from
+             them within 1e-3 of one process's and of 2 ranks' that
+             restore them on (1, 2) (every leaf bitwise the file); then
+             one rank
+             under NCCL (world size 1) trains a step, its loss bitwise
+             one process's; each rank's launch counts exact, peak memory,
+             CUDA-event ms and collective calls and bytes.
 Each phase's seconds are printed.  Then the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises and the script exits non-zero.
@@ -3169,6 +3187,553 @@ def phase_checkpoint() -> None:
                              f"{resumed_log}, ran {resumed_steps}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: expert and data parallelism on ranks that share the card
+# ---------------------------------------------------------------------------
+
+# serving: the whole 28-layer deepseek-moe-16b under EP 4 on a (1, 4)
+# mesh; training: its 2-layer cut (the dense layer and one MoE layer)
+# under EP 2 x DP 2 on (2, 2), then its params restored on (1, 2)
+DIST_SERVE = {"batch": 4, "prompt": 64, "new": 16}
+DIST_TRAIN = {"layers": 2, "batch": 8, "seq": 512, "steps": 4}
+DIST_WHY = ("one card: NCCL takes one rank a device, so the ranks share "
+            "cuda:0 over gloo; this drives the sharding, the EP packing, "
+            "the kernels at the EP shapes and the collectives with their "
+            "gradients, not NCCL between cards")
+# under EP 4 deepseek's shared experts are sliced to 2816 / 4 = 704
+# columns, no multiple of 128: every rank runs them as plain bf16
+# matmuls, as the reference's shard_map does, and they launch nothing
+SERVE_PER_LAYER["ds_fp8_ep4"] = {"quantize_tilewise": 1, "act_quantize": 1,
+                                 "gmm": 3}
+DS_LOGIT_TOL = 0.15        # deepseek's whole-model fp8 bound (ROADMAP C)
+# the (2, 2) train against one process, within the padded train check's
+# 1e-3: each step's loss and grad norm against one process's at the
+# params the (2, 2) step started from (step 0: the same init; steps 1-3:
+# the run's own params, gathered), and the next batch's loss from the
+# saved params
+DIST_TRAIN_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def packed_tails():
+    """Record, for every routed down GEMM the MoE layer runs, its packed
+    rows, ``sum(group_sizes)`` and the nonzero elements past it."""
+    from repro_torch.core import moe
+    real, seen = moe.grouped_linear_fused, []
+
+    def fused(g, u, w, gs, **kw):
+        y = real(g, u, w, gs, **kw)
+        total = int(gs.sum())
+        seen.append((y.shape[0], total, int((y[total:] != 0).sum())))
+        return y
+    moe.grouped_linear_fused = fused
+    try:
+        yield seen
+    finally:
+        moe.grouped_linear_fused = real
+
+
+@contextlib.contextmanager
+def step_params(keep):
+    """Record on the host, into the list ``keep``, the params each step
+    of ``launch.train.train`` after the first starts from (None: record
+    nothing): copies into pinned buffers, queued on the stream before
+    the step's update (the buffers' allocation falls inside the step's
+    timed span; synchronize before reading them)."""
+    import torch
+    from repro_torch.launch import train as launch
+    from repro_torch.tree import tree_map
+    real = launch.make_train_step
+
+    def pinned(x):
+        return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(
+            x.detach(), non_blocking=True)
+
+    def make(*args, **kw):
+        step, calls = real(*args, **kw), []
+
+        def recorded(params, opt_state, batch):
+            if keep is not None and calls:
+                keep.append(tree_map(pinned, params))
+            calls.append(1)
+            return step(params, opt_state, batch)
+        return recorded
+    launch.make_train_step = make
+    try:
+        yield
+    finally:
+        launch.make_train_step = real
+
+
+def one_process_at(snaps, cfg, data, pspecs, mesh) -> list:
+    """``[(loss, grad_norm)]`` of one process (no mesh) at each of
+    ``snaps`` (this rank's slices of the params steps 1, 2, ... started
+    from, on the host), on that step's batch: the ranks of the first
+    data row gather each snapshot on the host, rank 0 computes; the
+    others return [].  Also the seconds spent gathering and computing."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.models.model_zoo import make_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import make_grad_fn
+    from repro_torch.tree import tree_map
+    out, secs = [], {"gather": 0.0, "compute": 0.0}
+    grad_fn = make_grad_fn(make_model(cfg, "cuda").loss)
+    for i, snap in enumerate(snaps, start=1):
+        t0 = time.perf_counter()
+        full = sharding.gather_tree(snap, pspecs, mesh)
+        secs["gather"] += time.perf_counter() - t0
+        if mesh.rank == 0:
+            t0 = time.perf_counter()
+            full = tree_map(lambda x: x.to("cuda"), full)
+            (loss, _), grads = grad_fn(full, data.batch_at(i))
+            out.append((float(loss), float(adamw.global_norm(grads))))
+            secs["compute"] += time.perf_counter() - t0
+            del grads
+        del full
+    dist.barrier()
+    return out, secs
+
+
+def mesh_loss(model, params, batch, mesh) -> float:
+    """The loss of the global ``batch`` (no gradient) on ``mesh``: each
+    data rank's rows, averaged over the data group."""
+    import torch
+    from repro_torch.distributed import context as dctx
+    from repro_torch.train.trainer import data_rows
+    with torch.no_grad():
+        loss = model.loss(params, data_rows(batch, mesh))[0].float()
+    return float(dctx.all_reduce(loss, mesh.group("data"))
+                 / mesh.shape["data"])
+
+
+def leaves_equal_file(ckpt_dir: str, step: int, leaves) -> int:
+    """How many of ``leaves`` differ from the checkpoint's arrays."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpointer import _from_numpy
+    bad = 0
+    with np.load(os.path.join(ckpt_dir, f"step_{step}", "arrays.npz")) as f:
+        for i, x in enumerate(leaves):
+            bad += not torch.equal(_from_numpy(f[f"a{i}"]).to(x.device), x)
+    return bad
+
+
+def event_ms(fn):
+    """``fn()``'s result and its CUDA-event milliseconds on this rank's
+    stream (ranks that share the card also wait on each other)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def dist_rank(rank: int, world: int, ckpt_dir: str) -> dict:
+    """One of 4 ranks on cuda:0: the EP 4 serve on (1, 4), then the
+    EP 2 x DP 2 train on (2, 2), whose params it saves (full logical
+    arrays) with the next batch's loss."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import plan as plan_mod
+    from repro_torch.launch.mesh import make_mesh, make_mesh_for
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import make_model, synthetic_batch
+    from repro_torch.models.transformer import storage_specs
+    from repro_torch.serve.engine import Engine
+    from repro_torch.tree import tree_leaves
+    torch.cuda.set_device(0)
+    os.environ[plan_mod.CACHE_ENV] = os.path.join(
+        HERE, "build", f"tileplan_cache_rank{rank}.json")
+    out = {}
+
+    # serve: EP 4, 16 experts a rank, all 28 layers
+    mesh = make_mesh((1, world), ("data", "model"))
+    cfg = variant_config("ds_fp8")
+    s = DIST_SERVE
+    model = make_model(cfg, "cuda", mesh)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(gen)
+    batch = synthetic_batch(gen, cfg, s["prompt"], s["batch"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cap = s["prompt"] + s["new"]
+    engine = Engine(model, params, max_new_tokens=s["new"])
+    with torch.inference_mode():
+        engine.prefill(batch, cap)                              # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    dctx.reset_collectives()
+    reset_counts()
+    res, gen_ms = event_ms(lambda: engine.generate(batch))
+    counts = read_counts()
+    colls = dict(dctx.COLLECTIVES)
+    with torch.inference_mode():
+        (last, _), prefill_ms = event_ms(lambda: engine.prefill(batch, cap))
+        with packed_tails() as tails:
+            engine.prefill(batch, cap)
+    out["serve"] = {
+        "mesh": list(mesh.sizes), "coords": mesh.coords,
+        "experts_here": params["layers"][1]["moe"]["w_gate"].shape[0],
+        "init_s": init_s, "generate_ms": gen_ms, "prefill_ms": prefill_ms,
+        "decode_ms_per_step": (gen_ms - prefill_ms) / (s["new"] - 1),
+        "collectives": colls, "launches": counts,
+        "expected_launches": serve_expected("ds_fp8_ep4",
+                                            kernel_layers(cfg), s["prompt"],
+                                            s["new"]),
+        "decode_block_m": decode_block_m(engine),
+        "tail_checks": len(tails),
+        "tail_nonzero": sum(t[2] for t in tails),
+        "packed": [t[:2] for t in tails[:3]],
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tokens": res.tokens.cpu()}
+    if rank == 0:
+        out["serve"]["last_logits"] = last.float().cpu()
+    del engine, params, model, res, last, batch
+    free_memory()
+    dist.barrier()
+
+    # train: EP 2 x DP 2, the 2-layer cut, through launch/train.py's train
+    t = DIST_TRAIN
+    mesh = make_mesh_for(world, model_parallel=2)
+    cfg = variant_config("ds_fp8", num_layers=t["layers"])
+    torch.cuda.reset_peak_memory_stats()
+    dctx.reset_collectives()
+    reset_counts()
+    snaps = []
+    with step_params(snaps if mesh.coord("data") == 0 else None):
+        run = train(cfg, steps=t["steps"], batch=t["batch"], seq=t["seq"],
+                    seed=0, device="cuda", mesh=mesh, log=lambda line: None)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    colls = dict(dctx.COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated()
+    state = {"params": run.params}
+    pspecs = storage_specs(run.params, cfg, mesh)
+    specs = sharding.tree_specs(state, pspecs)
+    experts_here = run.params["layers"][1]["moe"]["w_gate"].shape[0]
+    t0 = time.perf_counter()
+    ckpt.save(ckpt_dir, t["steps"] - 1, state, mesh=mesh, specs=specs)
+    save_s = time.perf_counter() - t0
+    full = sharding.gather_tree(state, specs, mesh)
+    unequal = leaves_equal_file(ckpt_dir, t["steps"] - 1,
+                                tree_leaves(full)) if rank == 0 else None
+    del full
+    model = make_model(cfg, "cuda", mesh)
+    next_loss = mesh_loss(model, run.params, run.data.batch_at(t["steps"]),
+                          mesh)
+    history, data = run.history, run.data
+    del run, state, model
+    free_memory()
+    at_own, at_own_s = one_process_at(snaps, cfg, data, pspecs, mesh)
+    del snaps
+    out["train"] = {
+        "mesh": list(mesh.sizes), "coords": mesh.coords,
+        "experts_here": experts_here,
+        "history": [(h["loss"], h["grad_norm"], h["step_ms"])
+                    for h in history],
+        "one_process_at_own_params": at_own, "one_process_s": at_own_s,
+        "launches": counts,
+        "expected_launches": expected(TRAIN_PER_LAYER["ds_fp8"],
+                                      kernel_layers(cfg) * t["steps"]),
+        "collectives": colls, "peak_gb": peak / 1e9, "save_s": save_s,
+        "saved_leaves_unequal": unequal, "next_loss": next_loss}
+    return out
+
+
+def elastic_rank(rank: int, world: int, ckpt_dir: str,
+                 single_loss0: float) -> dict:
+    """One of 2 ranks on cuda:0: restore the (2, 2) run's params onto
+    (1, 2), check them against the file, and take the next batch's loss;
+    then rank 0 alone runs one train step under NCCL (world size 1)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import make_model
+    from repro_torch.models.transformer import storage_specs
+    from repro_torch.tree import tree_leaves
+    torch.cuda.set_device(0)
+    t = DIST_TRAIN
+    mesh = make_mesh_for(world, model_parallel=2)
+    cfg = variant_config("ds_fp8", num_layers=t["layers"])
+    model = make_model(cfg, "cuda", mesh)
+    state = {"params": model.init_params(
+        torch.Generator(device="cuda").manual_seed(1))}
+    specs = sharding.tree_specs(state, storage_specs(state["params"], cfg,
+                                                      mesh))
+    t0 = time.perf_counter()
+    _, meta, step = ckpt.restore_latest(ckpt_dir, state, mesh=mesh,
+                                        specs=specs)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    full = sharding.gather_tree(state, specs, mesh)
+    unequal = leaves_equal_file(ckpt_dir, step, tree_leaves(full))
+    del full
+    data = SyntheticLM(DataConfig(seed=0, batch_size=t["batch"],
+                                  seq_len=t["seq"]), cfg, device="cuda")
+    out = {"mesh": list(mesh.sizes), "step": step,
+           "experts_here":
+               state["params"]["layers"][1]["moe"]["w_gate"].shape[0],
+           "restore_s": restore_s, "leaves_unequal": unequal,
+           "next_loss": mesh_loss(model, state["params"],
+                                  data.batch_at(t["steps"]), mesh)}
+    del state, model
+    free_memory()
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank != 0:
+        return out
+    # one rank under NCCL: the production backend's device placement
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(
+                                ckpt_dir, "nccl_store"), 1))
+    dctx.reset_collectives()
+    run = train(cfg, steps=1, batch=t["batch"], seq=t["seq"], seed=0,
+                device="cuda", mesh=make_mesh_for(1), log=lambda line: None)
+    probe = dctx.all_reduce(torch.ones(4, device="cuda"),
+                            dist.group.WORLD)
+    out["nccl"] = {"backend": dist.get_backend(), "world": 1,
+                   "loss0": run.history[0]["loss"],
+                   "loss0_bitwise_single_process":
+                       run.history[0]["loss"] == single_loss0,
+                   "collectives": dict(dctx.COLLECTIVES),
+                   "all_reduce_ok": bool(torch.equal(
+                       probe, torch.ones(4, device="cuda")))}
+    return out
+
+
+def time_b2_ep() -> list:
+    """B2 at deepseek-moe-16b's routed gate shapes, one process alone on
+    the card: the whole layer's (64 experts, M = every slot) beside EP 4
+    rank 0's (its 16 experts' rows in a capacity buffer), at prefill
+    (batch 4 x prompt 64, 128-row tiles) and decode (4 rows, 16-row
+    tiles); each checked against the plain version, rows past
+    sum(group_sizes) zero (``compare_gemm``)."""
+    import torch
+    from repro_torch.core.moe import _capacity
+    from repro_torch.kernels import grouped_gemm_kernel as gk
+    cpu = torch.Generator().manual_seed(5)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k, n, top_k, e, ep = 2048, 1408, 6, 64, 4
+    rows = []
+    for phase, tokens, bm in (("prefill", 256, 128), ("decode", 4, 16)):
+        full = routed_sizes(cpu, tokens, top_k, e)
+        slots = tokens * top_k
+        cap = _capacity(slots, ep, 2.0, align=bm)
+        local = full[:e // ep].long()
+        starts = torch.cumsum(local, 0) - local
+        local = torch.minimum(local, cap - starts).clamp(min=0).int()
+        for label, m, sizes in (("single", slots, full),
+                                ("ep4_rank0", cap, local)):
+            args, kw, plan = gemm_case(gen, m, k, n, sizes, bm,
+                                       torch.bfloat16)
+            check = compare_gemm(f"{phase}_{label}", args, kw, plan)
+            total = int(sizes.sum())
+            visited = int((sizes > 0).sum())
+            kb, nb = k // 128, n // 128
+            row = {"phase_of": phase, "layout": label, "shape": [m, k, n],
+                   "groups": int(sizes.numel()), "total_rows": total,
+                   "block_m": bm, "max_abs_err": check["max_abs_err"],
+                   "ms": graph_ms(lambda i: gk.gmm_cuda(*args, **kw)),
+                   "bytes": m * k + 4 * m * kb
+                   + visited * (k * n + 4 * kb * nb) + 2 * m * n,
+                   "flops": 2 * total * k * n}
+            add_bound(row)
+            rows.append(row)
+    return rows
+
+
+def phase_distributed() -> dict:
+    """Expert and data parallelism (``repro_torch.launch.mesh``,
+    ``distributed/``, the EP/TP branch of ``moe_apply``) on ranks that
+    share the card over gloo, then one rank under NCCL.  Returns the
+    launch counts of the two new paths (rank 0's; every rank's must be
+    equal and exact)."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import make_model, synthetic_batch
+    from repro_torch.serve.engine import Engine
+    t_phase = time.perf_counter()
+    emit({"phase": "distributed_setup", "ranks": 4, "backend": "gloo",
+          "device": "cuda:0", "why": DIST_WHY})
+    t = DIST_TRAIN
+
+    # the single-process training run the (2, 2) one is held against
+    free_memory()
+    cfg2 = variant_config("ds_fp8", num_layers=t["layers"])
+    ref = train(cfg2, steps=t["steps"], batch=t["batch"], seq=t["seq"],
+                seed=0, device="cuda", log=lambda line: None)
+    single = [(h["loss"], h["grad_norm"]) for h in ref.history]
+    del ref
+    free_memory()
+    b2 = time_b2_ep()
+    emit({"phase": "distributed_b2", "rows": b2})
+    free_memory()
+
+    d = os.path.join(HERE, "build", "chip_smoke_elastic")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(dist_rank, 4, backend="gloo", store_dir=d,
+                          args=(d,), timeout=600)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        elastic = run_ranks(elastic_rank, 2, backend="gloo", store_dir=d,
+                            args=(d, single[0][0]), timeout=300)
+        elastic_s = time.perf_counter() - t0
+        # one process on the saved params: the next batch's loss
+        model = make_model(cfg2, "cuda")
+        state = {"params": model.init_params(
+            torch.Generator(device="cuda").manual_seed(1))}
+        ckpt.restore_latest(d, state)
+        data = SyntheticLM(DataConfig(seed=0, batch_size=t["batch"],
+                                      seq_len=t["seq"]), cfg2, device="cuda")
+        with torch.no_grad():
+            single_next = float(model.loss(state["params"],
+                                           data.batch_at(t["steps"]))[0])
+        del model, state
+        free_memory()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    # the whole model in one process, teacher-forced on the EP tokens
+    s = DIST_SERVE
+    cfg = variant_config("ds_fp8")
+    model = make_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init_params(gen)
+    batch = synthetic_batch(gen, cfg, s["prompt"], s["batch"])
+    engine = Engine(model, params, max_new_tokens=s["new"])
+    toks = ranks[0]["serve"]["tokens"].cuda()
+    with torch.inference_mode():
+        last, cache = engine.prefill(batch, s["prompt"] + s["new"])
+        ref_logits = [last.float()]
+        for i in range(s["new"] - 1):
+            lg, cache = engine.decode_step(toks[:, i], cache)
+            ref_logits.append(lg.float())
+    ep_last = ranks[0]["serve"]["last_logits"].cuda()
+    prefill_err = float((ep_last - ref_logits[0]).abs().max()
+                        / ref_logits[0].abs().max())
+    off_tokens, argmax_equal = 0, 0
+    for i, lg in enumerate(ref_logits):
+        pick = lg.gather(1, toks[:, i:i + 1])[:, 0]
+        top = lg.max(-1).values
+        off_tokens += int((pick < top - DS_LOGIT_TOL
+                           * lg.abs().max(-1).values).sum())
+        argmax_equal += int((toks[:, i] == lg.argmax(-1)).sum())
+    del engine, params, model, cache, ref_logits, last, ep_last
+    free_memory()
+
+    serve = [r["serve"] for r in ranks]
+    train_ = [r["train"] for r in ranks]
+    tokens_equal = all(torch.equal(x["tokens"], serve[0]["tokens"])
+                       for x in serve)
+    emit({"phase": "distributed_serve", "arch": cfg.name,
+          "layers": cfg.num_layers, "mesh": serve[0]["mesh"],
+          "experts_per_rank": serve[0]["experts_here"], **s,
+          "tokens_equal_across_ranks": tokens_equal,
+          "prefill_logits_err_rel_to_max": prefill_err,
+          "tol": DS_LOGIT_TOL, "tokens_argmax_equal": argmax_equal,
+          "tokens_beyond_tol": off_tokens,
+          "tokens": serve[0]["tokens"][0].tolist(),
+          "ranks": [{k: v for k, v in x.items()
+                     if k not in ("tokens", "last_logits")} for x in serve]})
+    losses = [h[0] for h in train_[0]["history"]]
+    # one process at the params each (2, 2) step started from
+    own = [single[0]] + [tuple(x) for x in
+                         train_[0]["one_process_at_own_params"]]
+    emit({"phase": "distributed_train", "arch": cfg2.name,
+          "layers": t["layers"], "mesh": train_[0]["mesh"],
+          "experts_per_rank": train_[0]["experts_here"], **t,
+          "losses": losses,
+          "grad_norms": [h[1] for h in train_[0]["history"]],
+          "one_process_at_own_params": own, "tol": DIST_TRAIN_TOL,
+          "single_process_trajectory": single,
+          "next_loss": train_[0]["next_loss"],
+          "next_loss_single_process_saved_params": single_next,
+          "ranks": [{k: v for k, v in x.items() if k != "history"}
+                    | {"step_ms": [h[2] for h in x["history"]]}
+                    for x in train_]})
+    emit({"phase": "distributed_elastic", "saved_on": train_[0]["mesh"],
+          "restored_on": elastic[0]["mesh"], "ranks": [
+              {k: v for k, v in x.items() if k != "nccl"}
+              for x in elastic],
+          "next_loss_saved_mesh": train_[0]["next_loss"]})
+    emit({"phase": "distributed_nccl", **elastic[0]["nccl"]})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "distributed", "seconds": seconds,
+          "four_ranks_s": ranks_s, "two_ranks_s": elastic_s})
+
+    failures = []
+    for r, x in enumerate(serve):
+        if x["launches"] != x["expected_launches"]:
+            failures.append(f"serve rank {r}: launches {x['launches']}")
+        if x["tail_nonzero"] or not x["tail_checks"]:
+            failures.append(f"serve rank {r}: {x['tail_nonzero']} nonzero "
+                            f"rows past sum(group_sizes)")
+    for r, x in enumerate(train_):
+        if x["launches"] != x["expected_launches"]:
+            failures.append(f"train rank {r}: launches {x['launches']}")
+        if [h[:2] for h in x["history"]] != \
+                [h[:2] for h in train_[0]["history"]]:
+            failures.append(f"train rank {r}: history differs from rank 0")
+    if not tokens_equal:
+        failures.append("serve: tokens differ between ranks")
+    if not prefill_err <= DS_LOGIT_TOL or off_tokens:
+        failures.append(f"serve: prefill logits {prefill_err} of max, "
+                        f"{off_tokens} tokens beyond the bound")
+    if not losses[-1] < losses[0]:
+        failures.append(f"train: loss did not fall {losses}")
+    if len(own) != t["steps"]:
+        failures.append(f"train: one process at {len(own)} steps")
+    for i, (h, (l1, n1)) in enumerate(zip(train_[0]["history"], own)):
+        if abs(h[0] - l1) > DIST_TRAIN_TOL * abs(l1) or \
+                abs(h[1] - n1) > DIST_TRAIN_TOL * abs(n1):
+            failures.append(f"train: step {i} loss, grad norm {h[:2]} vs "
+                            f"{(l1, n1)} in one process at its params")
+    if abs(single_next - train_[0]["next_loss"]) > \
+            DIST_TRAIN_TOL * abs(single_next):
+        failures.append(f"train: next loss {train_[0]['next_loss']} vs "
+                        f"{single_next} in one process on the saved params")
+    if train_[0]["saved_leaves_unequal"]:
+        failures.append("elastic: the saved file differs from the live "
+                        "params")
+    for r, x in enumerate(elastic):
+        if x["leaves_unequal"] or x["step"] != t["steps"] - 1:
+            failures.append(f"elastic rank {r}: {x['leaves_unequal']} "
+                            f"leaves differ (step {x['step']})")
+        if abs(x["next_loss"] - train_[0]["next_loss"]) > \
+                DIST_TRAIN_TOL * abs(train_[0]["next_loss"]):
+            failures.append(f"elastic rank {r}: next loss {x['next_loss']} "
+                            f"vs {train_[0]['next_loss']}")
+    nccl = elastic[0]["nccl"]
+    if not (nccl["loss0_bitwise_single_process"] and nccl["all_reduce_ok"]
+            and nccl["collectives"]["calls"]):
+        failures.append(f"nccl: {nccl}")
+    if failures:
+        raise AssertionError("distributed: " + "; ".join(failures))
+    return {"serve_ds_fp8_ep4": serve[0]["launches"],
+            "train_ds_fp8_ep2_dp2": train_[0]["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -3262,6 +3827,9 @@ def main(argv=None) -> int:
         free_memory()
         with timed("checkpoint"):
             phase_checkpoint()
+        free_memory()
+        with timed("distributed"):
+            paths.update(phase_distributed())
         # launches: the sum over the main paths driven (serving and
         # training in each configuration, training with the fp8 wgrad),
         # each counted from 0

@@ -15,6 +15,16 @@ dtypes keep their own.  ``meta.json`` carries the reference's keys and
 each leaf's torch dtype (``dtypes``).  :func:`restore` fills a tree of
 the wanted structure in place, each leaf keeping its dtype and device,
 bit for bit.  Leaves go to and from the host one at a time.
+
+Sharded (``mesh`` and ``specs``, the path -> spec of every leaf as
+stored, ``distributed.sharding.tree_specs``): a checkpoint keeps the
+full logical arrays, the reference's format, so it restores onto any
+mesh.  :func:`save` gathers each sharded leaf over its axes on the
+ranks of the first data row, rank 0 writes, and every rank waits at a
+barrier until the step is published; :func:`restore` reads the full
+arrays on every rank and keeps each rank's slice for the mesh it
+restores onto, which may be another than the one that saved (the
+elastic restart).
 """
 from __future__ import annotations
 
@@ -26,8 +36,10 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.tree import tree_leaves
+from repro_torch.distributed import sharding
+from repro_torch.tree import tree_paths
 
 _BYTES = np.dtype("V2")
 
@@ -54,27 +66,44 @@ def _structure(tree) -> str:
     return "*"
 
 
+def _first_data_row(mesh) -> bool:
+    return all(mesh.coord(a) == 0 for a in ("pod", "data")
+               if a in mesh.axis_names)
+
+
 def save(ckpt_dir: str, step: int, tree: Any, *, keep_last: int = 3,
-         extra_meta: Optional[dict] = None) -> str:
+         extra_meta: Optional[dict] = None, mesh=None,
+         specs: Optional[dict] = None) -> str:
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    named = tree_paths(tree)
+    if mesh is not None:
+        # the full arrays, gathered on the first data row's ranks
+        full = (sharding.gather_leaf(x, specs[p], mesh) for p, x in named)
+        if mesh.rank != 0:
+            for _ in (full if _first_data_row(mesh) else ()):
+                pass
+            dist.barrier()
+            return final
+    else:
+        full = (x for _, x in named)
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp_step_{step}")
-    final = os.path.join(ckpt_dir, f"step_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    leaves = tree_leaves(tree)
+    dtypes = []
     # np.savez's own entries (a<i>.npy, stored, zip64), one leaf at a time
     with zipfile.ZipFile(os.path.join(tmp, "arrays.npz"), "w",
                          compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
-        for i, x in enumerate(leaves):
+        for i, x in enumerate(full):
+            dtypes.append(str(x.dtype).removeprefix("torch."))
             with zf.open(f"a{i}.npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, _to_numpy(x),
                                           allow_pickle=False)
-    meta = {"step": step, "num_leaves": len(leaves),
-            "treedef": _structure(tree),
-            "dtypes": [str(x.dtype).removeprefix("torch.") for x in leaves],
+    meta = {"step": step, "num_leaves": len(named),
+            "treedef": _structure(tree), "dtypes": dtypes,
             **(extra_meta or {})}
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
@@ -88,6 +117,8 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep_last: int = 3,
               os.path.join(ckpt_dir, "latest"))
 
     _gc(ckpt_dir, keep_last)
+    if mesh is not None:
+        dist.barrier()
     return final
 
 
@@ -123,20 +154,24 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 @torch.no_grad()
-def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
+def restore(ckpt_dir: str, step: int, like: Any, *, mesh=None,
+            specs: Optional[dict] = None) -> Tuple[Any, dict]:
     """Restore into ``like``: each of its tensors is overwritten in place
     with the saved leaf (cast to its dtype where the file's differs, as
-    the reference's ``astype``) and ``like`` is returned with the meta."""
+    the reference's ``astype``), or with this rank's slice of it on a
+    ``mesh``, and ``like`` is returned with the meta."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    leaves = tree_leaves(like)
-    if meta["num_leaves"] != len(leaves):
+    named = tree_paths(like)
+    if meta["num_leaves"] != len(named):
         raise ValueError(f"checkpoint/model mismatch: {meta['num_leaves']} "
-                         f"leaves saved, {len(leaves)} wanted")
+                         f"leaves saved, {len(named)} wanted")
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        for i, ref in enumerate(leaves):
+        for i, (p, ref) in enumerate(named):
             src = _from_numpy(data[f"a{i}"])
+            if mesh is not None:
+                src = sharding.slice_leaf(src, specs[p], mesh)
             if src.shape != ref.shape:
                 raise ValueError(f"leaf a{i}: saved shape {tuple(src.shape)}"
                                  f", wanted {tuple(ref.shape)}")
@@ -144,9 +179,10 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Tuple[Any, dict]:
     return like, meta
 
 
-def restore_latest(ckpt_dir: str, like: Any):
+def restore_latest(ckpt_dir: str, like: Any, *, mesh=None,
+                   specs: Optional[dict] = None):
     s = latest_step(ckpt_dir)
     if s is None:
         return None, None, None
-    tree, meta = restore(ckpt_dir, s, like)
+    tree, meta = restore(ckpt_dir, s, like, mesh=mesh, specs=specs)
     return tree, meta, s

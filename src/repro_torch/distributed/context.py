@@ -1,0 +1,192 @@
+"""Logical activation specs and the collectives of the port.
+
+The JAX package's ``distributed/context.py``: :func:`spec_for` maps
+logical axis names to mesh axes with the reference's rules, bit for bit
+(a spec is a tuple of mesh axis names, tuples of them, or None, as a
+``PartitionSpec``).  The reference keeps its mesh in process-wide state
+that its launcher sets; here the mesh is an argument, as every caller
+holds one.  The reference's ``constrain`` places activations for GSPMD;
+local shards have nothing to place, so it has no counterpart here.
+
+The collectives go through :func:`all_reduce` and :func:`all_gather`,
+which count their calls and bytes in :data:`COLLECTIVES`.
+:func:`reduce_from` and :func:`copy_to` are the two halves of a sharded
+layer's gradient that ``shard_map``'s transpose gives the reference: the
+sum of the ranks' partial outputs (forward sum, backward identity) and
+the replicated input whose gradient each rank holds a part of (forward
+identity, backward sum).  The gloo backend reduces CUDA tensors but
+gathers only host ones, so :func:`all_gather` stages through the host
+under gloo.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+# logical activation axis -> mesh axes (None = replicated)
+_DEFAULT_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,          # activations replicated over `model` between ops
+    "heads": "model",
+    "mlp": "model",
+    "vocab": "model",
+    "expert": "model",
+    "kv_seq": "model",      # decode KV caches: sequence-sharded (flash-decode)
+}
+
+#: calls and bytes of every collective this process made
+COLLECTIVES = {"calls": 0, "bytes": 0}
+
+
+def model_axis_size(mesh) -> int:
+    """The size of ``mesh``'s model axis (1 without a mesh)."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return mesh.shape["model"]
+
+
+def spec_for(shape, logical_axes, mesh) -> tuple:
+    """The spec of ``shape`` given per-dim logical names, dropping any
+    axis that does not divide the dim (GQA kv-head replication etc.).
+    A mesh axis is used at most once per spec; feature axes (heads/mlp/
+    vocab/...) take priority over "seq" (sequence parallelism is applied
+    only where it doesn't conflict).  ``()`` without a mesh."""
+    if mesh is None:
+        return ()
+    parts = [None] * len(shape)
+    used: set = set()
+
+    def try_assign(i, name):
+        axes = None if name is None else _DEFAULT_RULES.get(name)
+        if axes is None:
+            return
+        tup = axes if isinstance(axes, tuple) else (axes,)
+        tup = tuple(a for a in tup if a in mesh.axis_names
+                    and a not in used)
+        size = 1
+        for a in tup:
+            size *= mesh.shape[a]
+        if size > 1 and shape[i] % size == 0:
+            parts[i] = tup if len(tup) > 1 else tup[0]
+            used.update(tup)
+
+    order = [i for i, n in enumerate(logical_axes) if n not in (None, "seq")]
+    order += [i for i, n in enumerate(logical_axes) if n == "seq"]
+    for i in order:
+        try_assign(i, logical_axes[i])
+    return tuple(parts)
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def default_backend(device) -> str:
+    """``nccl`` for a CUDA device, ``gloo`` for the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def _count(x: torch.Tensor) -> None:
+    COLLECTIVES["calls"] += 1
+    COLLECTIVES["bytes"] += x.numel() * x.element_size()
+
+
+def reset_collectives() -> None:
+    COLLECTIVES.update(calls=0, bytes=0)
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``x`` over ``group`` in place (and return it)."""
+    _count(x)
+    dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's tensors concatenated along ``dim``, in group-rank
+    order, bit for bit: the ranks exchange raw bytes."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    dev = x.device
+    x = x.contiguous()
+    if dist.get_backend(group) == "gloo":
+        x = x.cpu()
+    raw = x.reshape(-1).view(torch.uint8)
+    parts = [torch.empty_like(raw) for _ in range(n)]
+    _count(raw)
+    dist.all_gather(parts, raw, group=group)
+    return torch.cat([p.view(x.dtype).reshape(x.shape) for p in parts],
+                     dim).to(dev)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Sum of the ranks' partials; each rank's partial takes the whole
+    gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """A replicated input of a sharded computation: each rank's gradient
+    is a part of the whole, which is their sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dx):
+        return all_reduce(dx.contiguous().clone(), ctx.group), None
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean over the group; its backward is the mean of the ranks'
+    gradients, the convention of a data-parallel step, which averages
+    every rank's gradients over the same group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.clone(), group).div_(dist.get_world_size(group))
+
+    @staticmethod
+    def backward(ctx, dy):
+        n = dist.get_world_size(ctx.group)
+        return all_reduce(dy.contiguous().clone(), ctx.group).div_(n), None
+
+
+def mean_over(x: torch.Tensor, group) -> torch.Tensor:
+    return _MeanOver.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFrom.apply(x, group)
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyTo.apply(x, group)
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def check_equal(x: torch.Tensor, group, what: str) -> None:
+    """Raise unless ``x`` (integers) is the same on every rank of
+    ``group``: one MAX reduction of ``[x, -x]``."""
+    if group_size(group) == 1:
+        return
+    both = torch.stack([x, -x]).to(torch.int64)
+    all_reduce(both, group, op=dist.ReduceOp.MAX)
+    if not (torch.equal(both[0], x.to(torch.int64))
+            and torch.equal(-both[1], x.to(torch.int64))):
+        raise RuntimeError(f"{what} differs between the ranks of the group")

@@ -5,7 +5,10 @@ runs :mod:`repro_torch.models.whisper`, every other family the decoder
 of :mod:`repro_torch.models.transformer`.
 
 The device defaults to CUDA; without a card, and without
-``device="cpu"``, :func:`make_model` raises.
+``device="cpu"``, :func:`make_model` raises.  A ``mesh``
+(``launch.mesh.Mesh``) binds the model to its ranks: an MoE layer runs
+over the mesh's model axis, and ``init_params`` keeps this rank's slice
+of each MoE leaf.
 """
 from __future__ import annotations
 
@@ -29,9 +32,10 @@ class Model:
     prefill: Callable        # (params, batch, cache_capacity) -> (logits, cache)
     decode_step: Callable    # (params, tokens, cache) -> (logits, cache)
     init_cache: Callable     # (params, batch, batch_size, seq) -> cache
+    mesh: object = None      # launch.mesh.Mesh, or None: one rank
 
 
-def make_model(cfg: ModelConfig, device=None) -> Model:
+def make_model(cfg: ModelConfig, device=None, mesh=None) -> Model:
     dev = resolve_device(device)
     if cfg.family == "audio":
         def init_params(generator: torch.Generator):
@@ -56,21 +60,23 @@ def make_model(cfg: ModelConfig, device=None) -> Model:
                                           batch_size, seq)
     else:
         def init_params(generator: torch.Generator):
-            return tfm.init_decoder(cfg, generator=generator, device=dev)
+            return tfm.init_decoder(cfg, generator=generator, device=dev,
+                                    mesh=mesh)
 
         def loss(params, batch):
-            return tfm.lm_loss(params, batch, cfg)
+            return tfm.lm_loss(params, batch, cfg, mesh=mesh)
 
         def prefill(params, batch, cache_capacity=None):
             logits, cache, _ = tfm.decoder_forward(
                 params, batch["tokens"], cfg, mode="prefill",
                 patch_embeds=batch.get("patch_embeds"),
-                cache_capacity=cache_capacity)
+                cache_capacity=cache_capacity, mesh=mesh)
             return logits, cache
 
         def decode_step(params, tokens, cache):
             logits, cache, _ = tfm.decoder_forward(params, tokens, cfg,
-                                                   mode="decode", cache=cache)
+                                                   mode="decode", cache=cache,
+                                                   mesh=mesh)
             return logits, cache
 
         def init_cache(params, batch, batch_size, seq):
@@ -78,7 +84,7 @@ def make_model(cfg: ModelConfig, device=None) -> Model:
 
     return Model(cfg=cfg, device=dev, init_params=init_params, loss=loss,
                  prefill=prefill, decode_step=decode_step,
-                 init_cache=init_cache)
+                 init_cache=init_cache, mesh=mesh)
 
 
 def with_kernel_config(model: Model, kernel_config) -> Model:
@@ -89,7 +95,7 @@ def with_kernel_config(model: Model, kernel_config) -> Model:
         return model
     return make_model(dataclasses.replace(model.cfg,
                                           kernel_config=kernel_config),
-                      model.device)
+                      model.device, model.mesh)
 
 
 def synthetic_batch(generator: torch.Generator, cfg: ModelConfig,

@@ -17,6 +17,12 @@ token against the caches; attention caches are updated in place,
 recurrent states returned anew).  Every GEMM call site takes
 ``cfg.resolved_kernel_config``, the kernel config with ``gemm_backend``
 folded in.
+
+With a ``mesh`` whose ``model`` axis is larger than 1, an MoE layer runs
+the reference's ``_apply_moe`` branch: its params are this rank's slice
+(:func:`init_decoder` keeps only that slice of each MoE leaf as it is
+drawn) and ``moe_apply`` sums the partials over the model axis's process
+group.  Every other layer is replicated over ``model``.
 """
 from __future__ import annotations
 
@@ -25,13 +31,17 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.moe import MoEConfig, init_moe_params, moe_apply
+from repro_torch.core.moe import (MoEConfig, ep_size_for, init_moe_params,
+                                  moe_apply, shard_moe_params,
+                                  slice_moe_params)
+from repro_torch.distributed import context as dctx
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rg
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
                                        init_mlp, init_rms_norm, mlp, ninit,
                                        rms_norm, unembed)
+from repro_torch.tree import tree_paths
 
 #: the block kinds of ``block_pattern``
 KINDS = ("attn", "rglru", "mlstm", "slstm")
@@ -98,8 +108,27 @@ def init_block(kind: str, cfg: ModelConfig, *, generator, device,
     raise ValueError(kind)
 
 
+def _apply_moe(p, x, cfg: ModelConfig, mesh, mode: str):
+    """The MoE FFN of [B, S, d] ``x``: on one rank, or over the mesh's
+    model axis (EP where the experts divide it, else TP); in training on
+    a mesh, the load-balance loss is the whole batch's (its statistics
+    averaged over the data axis)."""
+    mcfg = moe_config(cfg)
+    b, s, d = x.shape
+    kw = {}
+    if mode == "train" and mesh is not None and mesh.shape["data"] > 1:
+        kw["batch_group"] = mesh.group("data")
+    if dctx.model_axis_size(mesh) > 1:
+        ep = ep_size_for(mcfg, dctx.model_axis_size(mesh))
+        kw.update(ep_rank=mesh.coord("model") if ep > 1 else 0, ep_size=ep,
+                  group=mesh.group("model"))
+    y, aux = moe_apply(p, x.reshape(b * s, d), mcfg, **kw)
+    return y.reshape(b, s, d), aux["load_balance_loss"]
+
+
 def block_apply(kind: str, p, x, cfg: ModelConfig, positions, *, cache=None,
-                mode: str = "train", cache_capacity=None, pos_offset: int = 0):
+                mode: str = "train", cache_capacity=None, pos_offset: int = 0,
+                mesh=None):
     """Returns (x, new_cache, aux_loss); new_cache is None in train
     mode."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -113,9 +142,8 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, positions, *, cache=None,
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
         if "moe" not in p:
             return x + mlp(p["mlp"], h2, "swiglu", **mlp_kw), new_cache, aux
-        b, s, d = h2.shape
-        ff, maux = moe_apply(p["moe"], h2.reshape(b * s, d), moe_config(cfg))
-        return x + ff.reshape(b, s, d), new_cache, maux["load_balance_loss"]
+        ff, lb = _apply_moe(p["moe"], h2, cfg, mesh, mode)
+        return x + ff, new_cache, lb
     if kind == "rglru":
         h, state = rg.rglru_apply(p["rglru"],
                                   rms_norm(p["ln1"], x, cfg.norm_eps),
@@ -147,7 +175,12 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq_len: int,
     raise ValueError(kind)
 
 
-def init_decoder(cfg: ModelConfig, *, generator: torch.Generator, device):
+def init_decoder(cfg: ModelConfig, *, generator: torch.Generator, device,
+                 mesh=None):
+    """Random params drawn from ``generator`` in the reference's order.
+    With a mesh whose model axis is larger than 1, each MoE layer keeps
+    only this rank's slice, taken as the layer is drawn: every rank draws
+    the same values, and none holds more than one whole layer."""
     kinds = layer_kinds(cfg)
     params = {
         "embed": init_embedding(cfg.vocab_size, cfg.d_model, cfg.dtype,
@@ -159,11 +192,50 @@ def init_decoder(cfg: ModelConfig, *, generator: torch.Generator, device):
         params["vision_proj"] = ninit(
             (cfg.patch_embed_dim, cfg.d_model), cfg.patch_embed_dim ** -0.5,
             cfg.dtype, generator=generator, device=device)
-    params["layers"] = [init_block(kind, cfg, generator=generator,
-                                   device=device,
-                                   moe_layer=is_moe_layer(cfg, i))
-                        for i, kind in enumerate(kinds)]
+    params["layers"] = []
+    for i, kind in enumerate(kinds):
+        block = init_block(kind, cfg, generator=generator, device=device,
+                           moe_layer=is_moe_layer(cfg, i))
+        if "moe" in block and dctx.model_axis_size(mesh) > 1:
+            block["moe"] = slice_moe_params(block["moe"], moe_config(cfg),
+                                            mesh)
+        params["layers"].append(block)
     return params
+
+
+def storage_specs(params, cfg: ModelConfig, mesh) -> dict:
+    """Path -> spec of every leaf of ``params`` as this slice stores it on
+    ``mesh``: each MoE layer's leaves as ``shard_moe_params`` lays them
+    out (EP where the experts divide the model axis, else TP), every
+    other leaf replicated over ``model`` (A15b shards them)."""
+    specs = {path: () for path, _ in tree_paths(params)}
+    axis = dctx.model_axis_size(mesh)
+    if cfg.moe is None or axis == 1:
+        return specs
+    mcfg = moe_config(cfg)
+    per_name = shard_moe_params(None, mcfg, ep_size_for(mcfg, axis))
+    for i, layer in enumerate(params["layers"]):
+        for k in layer.get("moe", ()):
+            specs[f"layers/{i}/moe/{k}"] = per_name[k]
+    return specs
+
+
+def reference_stack(cfg: ModelConfig) -> dict:
+    """Top-level list key -> for each entry, the layer copies the JAX
+    package stacks it with (``None``: stored unstacked there), the
+    ``stack`` of ``distributed.sharding.build_param_specs``: a decoder's
+    cycles of ``block_pattern`` stack ``(num_layers - n_pre) //
+    len(pattern)`` copies, its ``pre``/``tail`` layers are unstacked;
+    whisper stacks every encoder layer and every decoder layer."""
+    if cfg.family == "audio":
+        return {"enc_layers": [cfg.encoder_layers] * cfg.encoder_layers,
+                "layers": [cfg.num_layers] * cfg.num_layers}
+    pattern = tuple(cfg.block_pattern) or ("attn",)
+    n_pre = cfg.moe.first_dense_layers if cfg.moe is not None else 0
+    cycles = (cfg.num_layers - n_pre) // len(pattern)
+    n = len(layer_kinds(cfg))
+    return {"layers": [cycles if n_pre <= i < n_pre + cycles * len(pattern)
+                       else None for i in range(n)]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device):
@@ -174,7 +246,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device):
 
 def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
                     cache=None, patch_embeds=None, pos_offset: int = 0,
-                    cache_capacity: Optional[int] = None):
+                    cache_capacity: Optional[int] = None, mesh=None):
     """tokens: [B, S] int.  Returns (logits, new_cache, aux_loss).
 
     decode mode: S == 1 and ``cache`` holds the per-layer state.
@@ -197,7 +269,7 @@ def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
         c = cache["layers"][li] if cache is not None else None
         x, nc, aux = block_apply(kind, lp, x, cfg, positions, cache=c,
                                  mode=mode, cache_capacity=cache_capacity,
-                                 pos_offset=pos_offset)
+                                 pos_offset=pos_offset, mesh=mesh)
         aux_total = aux_total + aux
         caches.append(nc)
     new_cache = {"layers": caches} if mode in ("prefill", "decode") else None
@@ -207,13 +279,14 @@ def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
     return unembed(params["embed"], x), new_cache, aux_total
 
 
-def lm_loss(params, batch, cfg: ModelConfig, *, aux_weight=0.01):
+def lm_loss(params, batch, cfg: ModelConfig, *, aux_weight=0.01, mesh=None):
     """batch: {tokens [B, S], labels [B, S] (-1 = ignore), optional
     patch_embeds}.  Next-token cross-entropy plus ``aux_weight`` times the
     MoE load-balance loss; returns ``(loss, {"ce", "aux"})``."""
     pe = batch.get("patch_embeds")
     logits, _, aux = decoder_forward(params, batch["tokens"], cfg,
-                                     mode="train", patch_embeds=pe)
+                                     mode="train", patch_embeds=pe,
+                                     mesh=mesh)
     labels = batch["labels"]
     if pe is not None:      # the patch positions carry no label
         labels = torch.cat([labels.new_full((labels.shape[0], pe.shape[1]),

@@ -12,6 +12,11 @@ of every gradient of a 2.9 B-parameter model would be 11.6 GB).  The int8
 compression scales each tensor by its own max; the port's decoder keeps
 one tensor per layer where the JAX package stacks the layers, so there
 each layer gets its own scale.
+
+Sharded params (``sharded``: a flag per leaf, in ``tree_leaves`` order)
+hold only this rank's slice; the clipping norm is the whole logical
+tree's: the sharded leaves' squares are summed over ``model_group``,
+the replicated ones counted once.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import context as dctx
 from repro_torch.tree import tree_leaves, tree_map
 
 # XLA compiles the reference's division by the constant 127 into a
@@ -70,14 +76,26 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32, one leaf at a
-    time."""
-    total = 0.0
-    for x in tree_leaves(tree):
-        xf = x.float()
-        total = total + torch.sum(xf * xf)
+def _norm(squares, sharded, model_group) -> torch.Tensor:
+    """sqrt of the sum of ``squares`` (one 0-d f32 tensor a leaf), the
+    ``sharded`` leaves' summed over ``model_group`` too."""
+    total, part = 0.0, 0.0
+    for i, sq in enumerate(squares):
+        if sharded and sharded[i]:
+            part = part + sq
+        else:
+            total = total + sq
+    if sharded and any(sharded):
+        total = total + dctx.all_reduce(part, model_group)
     return torch.sqrt(total)
+
+
+def global_norm(tree, *, sharded=None, model_group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf of the logical tree, in
+    f32, one leaf at a time."""
+    return _norm((torch.sum(xf * xf) for xf in
+                   (x.float() for x in tree_leaves(tree))),
+                  sharded, model_group)
 
 
 def _compress_int8(g: torch.Tensor, ef: torch.Tensor):
@@ -102,7 +120,8 @@ def _grad_f32(g: torch.Tensor, ef):
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: dict, cfg: OptConfig):
+def apply_updates(params, grads, state: dict, cfg: OptConfig, *,
+                  sharded=None, model_group=None):
     """One AdamW step, in place.  Returns ``(params, state, metrics)``
     (the same param and state objects) with ``lr`` and ``grad_norm``."""
     step = state["step"] + 1
@@ -116,11 +135,9 @@ def apply_updates(params, grads, state: dict, cfg: OptConfig):
 
     # the norm of what is transmitted; each compressed gradient is made
     # again below rather than kept (compression is deterministic)
-    total = 0.0
-    for g, ef in zip(gs, efs):
-        gf = _grad_f32(g, ef)[0]
-        total = total + torch.sum(gf * gf)
-    gnorm = torch.sqrt(total)
+    gnorm = _norm((torch.sum(gf * gf) for gf in
+                   (_grad_f32(g, ef)[0] for g, ef in zip(gs, efs))),
+                  sharded, model_group)
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=step.device), step.float())

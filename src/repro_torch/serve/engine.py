@@ -25,6 +25,14 @@ its patch positions too (``num_patches`` more slots).
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a card
 it raises.  Everything runs under ``torch.inference_mode()``.
+
+Under a mesh (the model's, ``make_model(..., mesh=)``), every rank of the
+model axis decodes the same batch and the MoE layers sum their partials
+over the axis; the decode selection is made for this rank's share of
+the routed GEMM (its experts under EP, its ``d_ff`` slice under TP).
+Each step's tokens are checked equal on every rank of the axis (one
+MAX reduction): ranks that diverged would feed different tokens to the
+next step's collectives.
 """
 from __future__ import annotations
 
@@ -35,11 +43,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.moe import ep_size_for
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as dctx
 from repro_torch.kernels import plan as plan_mod
 from repro_torch.kernels.plan import KernelConfig
 from repro_torch.models import model_zoo
 from repro_torch.models.model_zoo import Model
+from repro_torch.models.transformer import moe_config
 
 
 @dataclasses.dataclass
@@ -71,26 +82,34 @@ class Engine:
         self.decode_config = (
             decode_kernel_config if decode_kernel_config is not None
             else self._select_decode_config(model.cfg, decode_batch_size,
-                                            self.device))
+                                            self.device, model.mesh))
         self._decode_model = (
             model_zoo.with_kernel_config(model, self.decode_config)
             if self.decode_config is not None else model)
         self.params = params
+        mesh = model.mesh
+        self.group = (mesh.group("model") if mesh is not None
+                      and mesh.shape.get("model", 1) > 1 else None)
         self.max_new = max_new_tokens
         self.eos_id = eos_id
         self.temperature = temperature
 
     @staticmethod
-    def _select_decode_config(cfg, batch_hint: int,
-                              device) -> Optional[KernelConfig]:
+    def _select_decode_config(cfg, batch_hint: int, device,
+                              mesh=None) -> Optional[KernelConfig]:
         """The decode pool's selection for an MoE model's routed GEMM at
-        ``batch_hint`` rows a step, with the model's config around its
-        tile geometry; None for a model with no MoE, or where the decode
-        pool has no legal entry for its dims."""
+        ``batch_hint`` rows a step (this rank's share of it on a mesh),
+        with the model's config around its tile geometry; None for a
+        model with no MoE, or where the decode pool has no legal entry
+        for its dims."""
         if cfg.moe is None:
             return None
         m = max(batch_hint, 1) * cfg.moe.top_k
         k, n, g = cfg.d_model, cfg.moe.d_ff_expert, cfg.moe.num_experts
+        axis = 1 if mesh is None else mesh.shape.get("model", 1)
+        if axis > 1:
+            ep = ep_size_for(moe_config(cfg), axis)
+            g, n = (g // ep, n) if ep > 1 else (g, n // axis)
         try:
             sel = plan_mod.decode_config(m, k, n, g, backend=cfg.gemm_backend,
                                          device=device)
@@ -129,11 +148,13 @@ class Engine:
         cap = batch["tokens"].shape[1] + extra + self.max_new
         last_logits, cache = self.prefill(batch, cap)
         tok = self._sample(last_logits, generator)
+        dctx.check_equal(tok, self.group, "a generated token")
         done = torch.zeros_like(tok, dtype=torch.bool)
         out = [tok]
         for _ in range(self.max_new - 1):
             logits, cache = self.decode_step(tok, cache)
             nxt = self._sample(logits, generator)
+            dctx.check_equal(nxt, self.group, "a generated token")
             nxt = torch.where(done, torch.zeros_like(nxt), nxt)
             done = done | (nxt == self.eos_id)
             out.append(nxt)

@@ -5,6 +5,13 @@ The global batch [B, S] is split into ``grad_accum`` microbatches of
 [B / grad_accum, S]; their gradients are summed in f32 and averaged, then
 one optimizer update runs.  Params and optimizer state are updated in
 place (see :mod:`repro_torch.optim.adamw`).
+
+On a mesh (the reference's batch spec ``P(("pod", "data"))`` on dim 0
+under ``jit``; a pod axis is not ported yet): every rank is handed the
+same global batch and takes its data rank's rows; the loss and every gradient are averaged over the
+``data`` group (the gradients in f32, one leaf at a time), and the
+clipping norm counts the model-sharded leaves (``specs``, the storage
+specs of the params) over the ``model`` group.
 """
 from __future__ import annotations
 
@@ -12,9 +19,10 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed import context as dctx
 from repro_torch.kernels import plan as plan_mod
 from repro_torch.optim import adamw
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
@@ -34,31 +42,40 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return (loss.detach(), metrics), tree_unflatten(params, grads)
 
 
-def make_train_step(loss_fn: Callable, opt_cfg: adamw.OptConfig,
-                    grad_accum: int = 1,
-                    kernel_config: Optional[plan_mod.KernelConfig] = None,
-                    wgrad_precision: Optional[str] = None):
-    """loss_fn(params, batch) -> (loss, metrics dict of scalars).  Returns
-    ``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` with ``loss``, ``lr`` and ``grad_norm`` in the metrics.
+def data_rows(batch: dict, mesh) -> dict:
+    """This rank's rows (dim 0) of the global ``batch``: its block of the
+    data axis."""
+    n, i = mesh.shape["data"], mesh.coord("data")
+    if n == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch {k} of {v.shape[0]} rows does not "
+                             f"split over {n} data ranks")
+        out[k] = v.chunk(n)[i]
+    return out
 
-    ``kernel_config`` pins the tile shapes of every grouped GEMM run under
-    the step whose model carries no config of its own; ``wgrad_precision``
-    (``"fp8"`` for the all-fp8 wgrad, ``None``/``"bf16"`` for the default)
-    folds into it.  Both reach the layers through the plan module's
-    default-config seam.
-    """
-    if kernel_config is not None or wgrad_precision is not None:
-        inner_loss = loss_fn
 
-        def loss_fn(params, batch):
-            cfg = plan_mod.resolve_config(kernel_config)
-            if wgrad_precision is not None:
-                cfg = cfg.with_(wgrad_precision=wgrad_precision)
-            with plan_mod.default_config(cfg):
-                return inner_loss(params, batch)
+def _mean_over(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The mean of ``x`` over ``group`` (n ranks), reduced in f32."""
+    return dctx.all_reduce(x.float(), group).div_(n).to(x.dtype)
 
-    def train_step(params, opt_state, batch):
+
+def make_grad_fn(loss_fn: Callable, grad_accum: int = 1, mesh=None):
+    """``grad_fn(params, batch) -> ((loss, metrics), grads)`` over the
+    global ``batch``: its ``grad_accum`` microbatches' gradients summed in
+    f32 and averaged; on a mesh, this rank's data rows, and the loss,
+    the metrics and the gradients averaged over the ``data`` group."""
+    if mesh is not None and mesh.shape.get("pod", 1) > 1:
+        raise NotImplementedError("the pod axis is not ported yet "
+                                  "(ROADMAP A15b)")
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    data_group = None if mesh is None else mesh.group("data")
+
+    def grad_fn(params, batch):
+        if mesh is not None:
+            batch = data_rows(batch, mesh)
         if grad_accum == 1:
             (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         else:
@@ -78,8 +95,56 @@ def make_train_step(loss_fn: Callable, opt_cfg: adamw.OptConfig,
             grads = tree_unflatten(params, [a.div_(grad_accum) for a in gsum])
             loss = lsum / grad_accum
             metrics = {}
+        if mesh is not None:
+            loss = _mean_over(torch.as_tensor(loss), data_group, n_data)
+            metrics = {k: _mean_over(v, data_group, n_data)
+                       for k, v in metrics.items()}
+            for g in tree_leaves(grads) if n_data > 1 else ():
+                g.copy_(_mean_over(g, data_group, n_data))
+        return (loss, metrics), grads
+
+    return grad_fn
+
+
+def make_train_step(loss_fn: Callable, opt_cfg: adamw.OptConfig,
+                    grad_accum: int = 1,
+                    kernel_config: Optional[plan_mod.KernelConfig] = None,
+                    wgrad_precision: Optional[str] = None,
+                    mesh=None, specs: Optional[dict] = None):
+    """loss_fn(params, batch) -> (loss, metrics dict of scalars).  Returns
+    ``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` with ``loss``, ``lr`` and ``grad_norm`` in the metrics.
+
+    ``kernel_config`` pins the tile shapes of every grouped GEMM run under
+    the step whose model carries no config of its own; ``wgrad_precision``
+    (``"fp8"`` for the all-fp8 wgrad, ``None``/``"bf16"`` for the default)
+    folds into it.  Both reach the layers through the plan module's
+    default-config seam.  ``mesh`` (with ``specs``, the path -> spec of
+    the params as stored) makes the step data-parallel over its ``data``
+    axis: each rank's step takes the same global batch.
+    """
+    if kernel_config is not None or wgrad_precision is not None:
+        inner_loss = loss_fn
+
+        def loss_fn(params, batch):
+            cfg = plan_mod.resolve_config(kernel_config)
+            if wgrad_precision is not None:
+                cfg = cfg.with_(wgrad_precision=wgrad_precision)
+            with plan_mod.default_config(cfg):
+                return inner_loss(params, batch)
+
+    grad_fn = make_grad_fn(loss_fn, grad_accum, mesh)
+    model_group = None if mesh is None or "model" not in mesh.axis_names \
+        else mesh.group("model")
+
+    def train_step(params, opt_state, batch):
+        sharded = None if mesh is None else \
+            [any(a is not None for a in specs[p])
+             for p, _ in tree_paths(params)]
+        (loss, metrics), grads = grad_fn(params, batch)
         params, opt_state, opt_metrics = adamw.apply_updates(
-            params, grads, opt_state, opt_cfg)
+            params, grads, opt_state, opt_cfg, sharded=sharded,
+            model_group=model_group)
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return params, opt_state, metrics
 

@@ -15,6 +15,19 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_paths(tree, prefix: str = "") -> list:
+    """``(path, leaf)`` of every leaf, in :func:`tree_leaves` order; a
+    path joins dict keys and list indices with ``/`` (``layers/3/moe/
+    w_gate``), as the JAX package names a leaf's path."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_paths(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the matching leaves of
     ``rest`` (trees of the same structure), in :func:`tree_leaves` order;

@@ -96,14 +96,15 @@ def test_moe_apply_variants_match_jax(variant, block_m, tokens):
 
 
 def test_unported_modes_raise():
-    """Expert parallelism is not ported; the dispatch is ragged or dense
-    (``tests/test_torch_moe_dense.py``), nothing else."""
+    """The dispatch is ragged or dense (``tests/test_torch_moe_dense.py``),
+    nothing else; expert parallelism (``tests/test_torch_moe_ep.py``)
+    needs the experts to divide over the ranks."""
     cfg = tmoe.MoEConfig(**DIMS)
     x = torch.zeros((4, 256))
     with pytest.raises(ValueError, match="dispatch"):
         tmoe.moe_apply({}, x, dataclasses.replace(cfg, dispatch="gshard"))
-    with pytest.raises(NotImplementedError, match="A15"):
-        tmoe.moe_apply({}, x, cfg, ep_size=2)
+    with pytest.raises(ValueError, match="expert rank"):
+        tmoe.moe_apply({}, x, cfg, ep_size=3)
     assert tmoe._capacity(96, 1, 2.0) == 96
     assert tmoe._capacity(96, 4, 2.0, align=16) == 48
 

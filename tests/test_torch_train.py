@@ -392,7 +392,7 @@ def test_dispatch_backward_sums_slots_in_packed_order():
     inv = torch.empty_like(sel)
     inv[sel] = torch.arange(t * k)
     pos = torch.sort(inv.reshape(t, k), dim=1).values
-    xs = tmoe._Dispatch.apply(x, token_of, pos)
+    xs = tmoe._Dispatch.apply(x, token_of, pos, False)   # every slot packed
     assert torch.equal(xs, x.detach()[token_of])
     g = torch.randn(t * k, d)
     xs.backward(g)
