@@ -84,23 +84,25 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              over 1500 frames at 128; the others 2 layers), logits at
              the same bounds, launch counts exact, whisper's fused
              quantizer in gelu mode;
-  7. serve   batch 4, 16 new tokens, greedy, random weights: the 24-layer
-             qwen2-moe-a2.7b on one param tree, at prompt 64 in ``fp8``,
+  7. serve   batch 4, 16 new tokens, greedy, random weights: qwen2-moe-a2.7b
+             cut to 8 layers on one param tree, at prompt 64 in ``fp8``,
              ``fp8_fused`` and ``bf16``, at prompt 512 in ``fp8`` and
              ``fp8_flash`` (attention the only difference); then the
              28-layer qwen3-1.7b at prompt 512 in ``qwen3_flash``; then
-             the 28-layer deepseek-moe-16b on one param tree at prompt 64
+             deepseek-moe-16b cut to 8 layers (its dense layer and 7 MoE
+             layers) on one param tree at prompt 64
              and 512, each in ``ds_fp8`` and ``ds_fp8_padded`` (tokens
              equal between the two; one padded generate under
              ``torch.cuda.set_sync_debug_mode("error")``); then each zoo
-             recipe as ``ZOO_SERVE`` says (yi-9b p512, minitron-8b p64,
+             recipe as ``ZOO_SERVE`` says (yi-9b p512 cut to 8 layers,
+             minitron-8b p64,
              qwen1.5-110b p64 cut to 4 layers, pixtral-12b 256 patches +
              p128, recurrentgemma-2b batch 2 p2304, xlstm-350m p512,
              whisper-tiny 1500 frames + p128; every other one whole),
              each on a tree of its own, with a profile of a prefill and
              of a decode step; the qwen2-moe fp8 p64 generate (and its
              engine's construction) under the engine contract scaled to
-             24 layers (one decode selection, 2 x 24 x 16 plan builds,
+             8 layers (one decode selection, 2 x 8 x 16 plan builds,
              the decode ones on 16 rows); the launch counts of each run are
              asserted; every engine selects its decode tiles (an MoE
              model once, 16 rows, its tokens bitwise those of an engine
@@ -121,23 +123,30 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              qwen3-1.7b at its full 28 layers: 8 steps through
              ``launch/train.py``'s ``train`` (loss must fall, launch
              counts asserted; a profile of one step and its forward /
-             backward / AdamW split), the same 8 steps through the plain
-             versions for comparison (not for ``ds_fp8_padded``, which is
+             backward / AdamW split), the first 4 of them through the
+             plain versions for comparison (not for ``ds_fp8_padded``,
+             which is
              held against ``ds_fp8``: step 0's loss bitwise, every loss
              and grad norm within 1e-3); for ``fp8`` and ``ds_fp8`` then
              the same 8 steps with the fp8 wgrad (launch counts asserted,
-             a profile of one step);
+             a profile of one step); every train step runs with
+             ``remat`` (the default: each layer's forward again in the
+             backward, launches included);
+  9b. remat  ``fp8`` and ``ds_fp8`` cut to 4 layers, batch 8, seq 512:
+             one step's forward and backward with remat on and off,
+             CUDA-event ms and peak memory each way, gradients bitwise,
+             the peak with remat below the one without;
   10. checkpoint  ``ds_fp8`` cut to 2 layers trained 4 steps through
-             ``train`` with a checkpoint after the last, under ``build/``:
-             restored into a fresh tree, every leaf equal to the live
-             state and the next batch's loss bitwise the live params';
-             then ``train`` resumes from it and runs one more step; the
-             bytes written and the save and restore seconds;
+             ``train`` with a checkpoint after the last, under ``build/``;
+             then ``train`` resumes from it and runs one more step: the
+             state its restore fills (NaN first) every leaf equal to the
+             live state and the next batch's loss bitwise the live
+             params'; the bytes written and the save and restore seconds;
   11. distributed  expert and data parallelism on 4 ranks that share the
              card over gloo (NCCL takes one rank a device): B2 at the EP 4
              shapes beside the whole layer's (one process); the whole
              28-layer deepseek-moe-16b served under EP 4 on a (1, 4)
-             mesh, batch 4, prompt 64, 16 tokens, its prefill logits and
+             mesh, batch 4, prompt 64, 8 tokens, its prefill logits and
              each token (teacher-forced) held against one process's at
              15% of the largest logit, tokens equal on every rank, the
              packed rows past sum(group_sizes) zero; its 2-layer cut
@@ -150,7 +159,24 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              one rank
              under NCCL (world size 1) trains a step, its loss bitwise
              one process's; each rank's launch counts exact, peak memory,
-             CUDA-event ms and collective calls and bytes.
+             CUDA-event ms and collective calls and bytes; attention,
+             the embedding and the head are tensor-parallel there too;
+  12. tensor_parallel  dense tensor parallelism on 4 ranks sharing the
+             card over gloo, mesh (1, 4): yi-9b whole (48 layers, bf16,
+             flash) served at batch 4, prompt 128, 16 tokens: the logits
+             of each of its steps (the generate's own, teacher-forced on
+             its tokens) held against one process's at 4e-2 of the
+             largest logit and against one process's in f32 within 1.5x
+             one process's own bf16 error, tokens equal on
+             every rank, weight bytes a rank within 2% of the whole
+             leaves plus a quarter of the rest, 8 q heads and 1 kv head
+             a rank, the cache's 144 slots split 36 a rank; qwen3-1.7b
+             whole (28 layers, flash, remat) trained 3 steps of batch 4 x
+             seq 256 through ``train``, every step's loss and grad norm
+             within 1e-3 of one process's at the params it started
+             from; launch counts exact (B8 alone), peak memory, CUDA-
+             event ms (of ranks sharing one card), collectives, and one
+             more step split into forward, backward and AdamW.
 Each phase's seconds are printed.  Then the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises and the script exits non-zero.
@@ -221,9 +247,13 @@ FLASH = {"attn_backend": "flash"}
 # launch counts per layer of one forward (serving) and of one train step
 # (deepseek-moe-16b: per MoE layer; its dense first layer's d_ff, 10944,
 # is no multiple of 128, so that layer launches none); flash attention
-# runs once a layer in a forward at S % 128 == 0 (never in decode), and
-# once a layer in a train step: the backward recomputes the plain oracle,
-# as the reference does, and the port has no remat.  The padded baseline
+# runs once a layer in a forward at S % 128 == 0 (never in decode).  A
+# train step runs each layer's forward twice (``remat``, the reference's
+# default: the backward recomputes each cycle of the layers, here every
+# layer, deepseek's dense first layer excepted), then its backward: a
+# serving forward's launches on top of the backward's, and flash
+# attention twice (the backward recomputes the plain oracle, as the
+# reference does).  The padded baseline
 # launches what the padding-free path does: one GEMM a padded GEMM.  The
 # dense dispatch launches only the shared experts' kernels: one
 # quantization of x, the gate and up GEMMs, the fused activation and the
@@ -241,17 +271,17 @@ SERVE_PER_LAYER = {
     "fp8_dense": {"quantize_tilewise": 1, "act_quantize": 1, "gmm": 3},
 }
 TRAIN_PER_LAYER = {
-    "fp8": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
+    "fp8": {"quantize_tilewise": 10, "act_quantize": 4, "gmm": 18,
             "wgrad": 6},
-    "fp8_fused": {"quantize_tilewise": 8, "gmm_quant": 4,
-                  "act_quantize_fp8": 2, "gmm": 8, "wgrad": 6},
-    "bf16": {"gmm_bf16": 6, "wgrad": 3},
-    "fp8_flash": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
-                  "wgrad": 6, "flash_attention": 1},
-    "qwen3_flash": {"flash_attention": 1},
-    "ds_fp8": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
+    "fp8_fused": {"quantize_tilewise": 10, "gmm_quant": 8,
+                  "act_quantize_fp8": 4, "gmm": 10, "wgrad": 6},
+    "bf16": {"gmm_bf16": 9, "wgrad": 3},
+    "fp8_flash": {"quantize_tilewise": 10, "act_quantize": 4, "gmm": 18,
+                  "wgrad": 6, "flash_attention": 2},
+    "qwen3_flash": {"flash_attention": 2},
+    "ds_fp8": {"quantize_tilewise": 10, "act_quantize": 4, "gmm": 18,
                "wgrad": 6},
-    "ds_fp8_padded": {"quantize_tilewise": 8, "act_quantize": 2, "gmm": 12,
+    "ds_fp8_padded": {"quantize_tilewise": 10, "act_quantize": 4, "gmm": 18,
                       "wgrad": 6},
 }
 # training depth: the MoE models cut to 4 layers (deepseek-moe-16b: the
@@ -918,6 +948,8 @@ FLASH_CASES = {
     "qwen3_train": (8, 16, 8, 512, 128),
     "mqa": (4, 16, 1, 512, 128),
     "d64": (4, 16, 4, 512, 64),
+    "yi_tp4_prefill": (4, 8, 1, 128, 128),
+    "qwen3_tp4_train": (4, 4, 2, 256, 128),
 }
 FLASH_TIMED = {
     "moe_serve_prefill": (4, 16, 16, 512, 128),
@@ -2277,13 +2309,15 @@ def phase_forward(variant: str):
 
 def profile_breakdown(fn, top=8):
     """One call of ``fn`` under torch.profiler: wall ms, summed device
-    kernel ms, the device's busy share and the kernels by device time."""
+    kernel ms, the device's busy share and the kernels by device time.
+    Only the device's activity is traced: the host's operator events
+    gave no row read here and tripled the profiler's own cost (~4.7 s
+    against ~1.7 s a call on the H100, the same kernel rows)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2367,8 +2401,9 @@ def counting_padded_gemms():
 
 
 def serve_run(variant: str, params, batch, new: int, path: str, *,
-              sync_check: bool = False, contract=None):
-    """One configuration serving ``batch`` on ``params``: a warm-up
+              layers=None, sync_check: bool = False, contract=None):
+    """One configuration, cut to ``layers`` (None: whole), serving
+    ``batch`` on ``params``: a warm-up
     generate (through an engine pinned to the fixed 16-row decode rule,
     :func:`selecting_engine`), a timed one through the engine's own
     decode selection with its launch counts asserted (an MoE model's
@@ -2391,7 +2426,8 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
     from repro_torch.models.model_zoo import make_model
     t_variant = time.perf_counter()
     batch_size, prompt = batch["tokens"].shape
-    cfg = variant_config(variant)
+    cfg = variant_config(variant, **({} if layers is None
+                                     else {"num_layers": layers}))
     model = make_model(cfg, "cuda")
     padded = cfg.gemm_backend == PADDED_BASELINE
     if padded:
@@ -2525,15 +2561,22 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
     return counts, toks
 
 
+# the serve phase's depth (None: whole): the MoE models cut to 8 layers
+# (deepseek-moe-16b: its dense layer and 7 MoE layers) to keep the script
+# within its time; deepseek is served whole in the distributed phase (in
+# one process and under EP 4)
+SERVE_LAYERS = {"fp8": 8, "qwen3_flash": None, "ds_fp8": 8}
+
+
 def phase_serve():
-    """Batch 4, 16 new tokens, greedy.  The full 24-layer qwen2-moe-a2.7b,
-    one param tree: each MoE configuration at prompt 64, then ``fp8`` and
-    ``fp8_flash`` at prompt 512 (attention the only difference); then the
-    full 28-layer qwen3-1.7b in ``qwen3_flash`` at prompt 512; then the
-    full 28-layer deepseek-moe-16b, one param tree, at prompt 64 and 512
-    in ``ds_fp8`` and ``ds_fp8_padded``, whose tokens must be equal (the
-    baseline is bitwise the padding-free GEMM).  Returns each run's launch
-    counts by path name."""
+    """Batch 4, 16 new tokens, greedy, depth as ``SERVE_LAYERS`` says.
+    qwen2-moe-a2.7b, one param tree: each MoE configuration at prompt 64,
+    then ``fp8`` and ``fp8_flash`` at prompt 512 (attention the only
+    difference); then the full 28-layer qwen3-1.7b in ``qwen3_flash`` at
+    prompt 512; then deepseek-moe-16b, one param tree, at prompt 64 and
+    512 in ``ds_fp8`` and ``ds_fp8_padded``, whose tokens must be equal
+    (the baseline is bitwise the padding-free GEMM).  Returns each run's
+    launch counts by path name."""
     import torch
     from repro_torch.models.model_zoo import make_model, synthetic_batch
     from repro_torch.serve.engine import decode_plan_contract
@@ -2545,7 +2588,9 @@ def phase_serve():
             ("qwen3_flash", ((512, ("qwen3_flash",)),)),
             ("ds_fp8", ((64, DS_VARIANTS), (512, DS_VARIANTS)))):
         free_memory()
-        cfg = variant_config(arch_variant)
+        layers = SERVE_LAYERS[arch_variant]
+        cfg = variant_config(arch_variant, **({} if layers is None
+                                              else {"num_layers": layers}))
         gen = torch.Generator(device="cuda").manual_seed(0)
         t0 = time.perf_counter()
         params = make_model(cfg, "cuda").init_params(gen)
@@ -2561,7 +2606,7 @@ def phase_serve():
                 if prompt != 64 and variant in ("fp8", *DS_VARIANTS):
                     path = path_name(f"serve_p{prompt}", variant)
                 paths[path], tokens[variant] = serve_run(
-                    variant, params, batch, new, path,
+                    variant, params, batch, new, path, layers=layers,
                     sync_check=variant == "ds_fp8_padded" and prompt == 64,
                     contract=decode_plan_contract(
                         moe_layers=kernel_layers(cfg), batch=batch_size,
@@ -2603,8 +2648,9 @@ ZOO_FORWARD = {"rg_fp8": (3, 2304), "xlstm_bf16": (6, 512),
                "minitron_fp8": (2, 64), "qwen110_fp8": (2, 64)}
 # serve phase: batch, prompt (tokens; pixtral adds 256 patches), depth
 # (None: every layer; qwen1.5-110b's 80 layers are ~222 GB in bf16, cut
-# to 4)
-ZOO_SERVE = {"yi_fp8_flash": (4, 512, None), "minitron_fp8": (4, 64, None),
+# to 4; yi-9b cut to 8 of 48 to keep the script within its time: the
+# tensor_parallel phase serves it whole, in one process and under TP 4)
+ZOO_SERVE = {"yi_fp8_flash": (4, 512, 8), "minitron_fp8": (4, 64, None),
              "qwen110_fp8": (4, 64, 4), "pixtral_fp8_flash": (4, 128, None),
              "rg_fp8": (2, 2304, None), "xlstm_bf16": (4, 512, None),
              "whisper_fp8_flash": (4, 128, None)}
@@ -2937,13 +2983,21 @@ def leaf_paths(tree, prefix="") -> list:
     return [prefix[:-1]]
 
 
+# steps of the plain-version trajectory the kernels' is held against:
+# with 3 warmup steps the learning rate of steps 0-3 is the same whatever
+# the run's length (the cosine starts after the warmup), so these are the
+# kernel run's first 4 steps, of which 3 update the weights
+PLAIN_STEPS = 4
+
+
 def phase_train(variant: str):
     """The configuration at full width, the MoE models cut to 4 layers,
     qwen3-1.7b whole: 8 steps of ``launch/train.py``'s ``train`` (bf16
     wgrad), and for ``fp8`` and ``ds_fp8`` then the same 8 with the fp8
     wgrad; launch counts exact, losses finite, and with the bf16 wgrad the
-    loss falls; a profile of one step of each run; the same 8 bf16-wgrad
-    steps through the plain versions (but for ``ds_fp8_padded``, which
+    loss falls; a profile of one step of each run; the first
+    ``PLAIN_STEPS`` bf16-wgrad steps through the plain versions (but for
+    ``ds_fp8_padded``, which
     ``compare_padded_training`` holds against ``ds_fp8``).  Returns each
     run's launch counts by path name, and the bf16-wgrad run's history."""
     import torch
@@ -3009,24 +3063,26 @@ def phase_train(variant: str):
         if wgrad == "bf16":
             history = hist
         if wgrad == "bf16" and variant != "ds_fp8_padded":
-            # the same 8 steps through the plain versions: does the
-            # trajectory (its spikes included) belong to the kernels?
+            # the first PLAIN_STEPS of them through the plain versions:
+            # does the trajectory belong to the kernels?
             free_memory()
             with plain_kernels():
-                plain = train(cfg, steps=n, batch=batch, seq=seq, lr=1e-3,
-                              warmup_steps=3, seed=0, log_every=n,
-                              device="cuda", log=lambda line: None)
-            # one step agrees to ~1e-4 (train-parity phase); 8 Adam steps
+                plain = train(cfg, steps=PLAIN_STEPS, batch=batch, seq=seq,
+                              lr=1e-3, warmup_steps=3, seed=0,
+                              log_every=PLAIN_STEPS, device="cuda",
+                              log=lambda line: None)
+            # one step agrees to ~1e-4 (train-parity phase); Adam steps
             # through an lr of 1e-3 amplify that, so the trajectories are
             # held at 5e-2 of the plain loss, step by step
+            pairs = list(zip(hist[:PLAIN_STEPS], plain.history,
+                             strict=True))
             rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
-                      for a, b in zip(hist, plain.history))
+                      for a, b in pairs)
             emit({"phase": "train_plain", "config": variant, "losses":
                   [h["loss"] for h in plain.history], "grad_norms":
                   [h["grad_norm"] for h in plain.history],
                   "max_abs_loss_diff_vs_kernels": max(
-                      abs(a["loss"] - b["loss"])
-                      for a, b in zip(hist, plain.history)),
+                      abs(a["loss"] - b["loss"]) for a, b in pairs),
                   "max_rel_loss_diff_vs_kernels": rel, "bound": 5e-2})
             del plain
             if not rel <= 5e-2:
@@ -3104,31 +3160,95 @@ def split_step(cfg, run, batch):
     return split
 
 
+REMAT_VARIANTS = ("fp8", "ds_fp8")
+
+
+def phase_remat(variant: str) -> None:
+    """Remat on and off on one step's forward and backward: the
+    configuration cut to 4 layers, batch 8, seq 512, one seeded param
+    tree; each way a warm-up, then 3 timed calls (CUDA events) and the
+    peak memory of the last (the other way's gradients wait on the
+    host).  The gradients must be bitwise equal, and the peak with remat
+    below the peak without."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model_zoo import make_model
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves
+    cfg = variant_config(variant, num_layers=4)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = make_model(cfg, "cuda").init_params(gen)
+    batch = SyntheticLM(DataConfig(seed=1, batch_size=8, seq_len=512), cfg,
+                        device="cuda").batch_at(0)
+    rows, grads = {}, {}
+    for remat in (True, False):
+        loss_fn = make_model(dataclasses.replace(cfg, remat=remat),
+                             "cuda").loss
+        free_memory()
+        value_and_grad(loss_fn, params, batch)                  # warm-up
+        ms = []
+        for _ in range(3):
+            grads.pop(remat, None)
+            # the allocator keeps the warm-up's cache: an emptied one
+            # made the next call pay cudaMalloc (679.2 ms against 179.7)
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            ((loss, _), g), t = event_ms(
+                lambda: value_and_grad(loss_fn, params, batch))
+            ms.append(t)
+            grads[remat] = (loss, tree_leaves(g))
+            del g
+        grads[remat] = (grads[remat][0].cpu(),
+                        [x.cpu() for x in grads[remat][1]])
+        rows[remat] = {"forward_backward_ms": ms,
+                       "forward_backward_ms_median": statistics.median(ms),
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    (la, ga), (lb, gb) = grads[True], grads[False]
+    unequal = [i for i, (a, b) in enumerate(zip(ga, gb))
+               if not torch.equal(a, b)]
+    rec = {"phase": "remat", "config": variant, "arch": cfg.name,
+           "layers": cfg.num_layers, "batch": 8, "seq": 512,
+           "remat_on": rows[True], "remat_off": rows[False],
+           "loss_bitwise": bool(torch.equal(la, lb)),
+           "grad_leaves": len(ga), "grad_leaves_not_bitwise": unequal}
+    emit(rec)
+    del grads, ga, gb, params
+    free_memory()
+    if unequal or not rec["loss_bitwise"]:
+        raise AssertionError(f"remat {variant}: {len(unequal)} gradient "
+                             f"leaves differ with remat on and off")
+    if not rows[True]["peak_gb"] < rows[False]["peak_gb"]:
+        raise AssertionError(f"remat {variant}: peak {rows[True]['peak_gb']}"
+                             f" GB with remat, {rows[False]['peak_gb']} "
+                             f"without")
+
+
 def phase_checkpoint() -> None:
     """``ds_fp8`` cut to 2 layers (its dense layer and one MoE layer):
     4 steps of ``train`` saving a checkpoint after step 3 into ``build/``;
-    the whole state (params, AdamW's m, v and f32 masters, the step)
-    restored into a fresh tree on the card must equal the live state leaf
+    then ``train`` resumes from the directory and runs step 4.  The state
+    its restore fills (params, AdamW's m, v and f32 masters, the step;
+    every leaf set to NaN, or -1, first) must equal the live state leaf
     by leaf, and the loss of the next batch (forward only) from the
-    restored params must be bitwise the live params'.  Then ``train``
-    resumes from the directory and runs step 4.  The directory is deleted
-    at the end."""
+    restored params must be bitwise the live params', read before the
+    resumed step updates them.  The directory is deleted at the end."""
     import shutil
     import torch
     from repro_torch.checkpoint import checkpointer as ckpt
     from repro_torch.launch.train import train
     from repro_torch.models.model_zoo import make_model
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
     cfg = variant_config("ds_fp8", num_layers=2)
     d = os.path.join(HERE, "build", "chip_smoke_ckpt")
     shutil.rmtree(d, ignore_errors=True)
     kw = dict(batch=8, seq=512, lr=1e-3, warmup_steps=3, seed=0,
               log_every=1, device="cuda", ckpt_dir=d, save_every=4)
-    stamps = []
+    stamps, seen = [], {}
 
     def log(line):
         stamps.append((time.perf_counter(), line))
         print("checkpoint", line, flush=True)
+    real_restore = ckpt.restore_latest
     try:
         run = train(cfg, steps=4, log=log, **kw)
         # the save runs between step 3's line (the step timer has waited
@@ -3140,36 +3260,48 @@ def phase_checkpoint() -> None:
                   for f in os.listdir(step_dir)}
         free_bytes = shutil.disk_usage(d).free
         live = {"params": run.params, "opt": run.opt_state}
-        like = tree_map(torch.empty_like, live)
-        t0 = time.perf_counter()
-        restored, meta, s = ckpt.restore_latest(d, like)
-        torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        leaves = list(zip(tree_leaves(restored), tree_leaves(live)))
-        unequal = sum(not torch.equal(a, b) for a, b in leaves)
         model = make_model(cfg, "cuda")
         nxt = run.data.batch_at(4)
         with torch.no_grad():
             loss_live = model.loss(run.params, nxt)[0]
-            loss_restored = model.loss(restored["params"], nxt)[0]
-        same = torch.equal(loss_live, loss_restored)
-        del like, restored, leaves, run, live
-        free_memory()
+
+        def checked(ckpt_dir, like, **rkw):
+            # the resumed run's own restore, checked before its step
+            for x in tree_leaves(like):
+                x.fill_(float("nan") if x.is_floating_point() else -1)
+            t0 = time.perf_counter()
+            restored, meta, s = real_restore(ckpt_dir, like, **rkw)
+            torch.cuda.synchronize()
+            seen.update(restore_s=time.perf_counter() - t0, meta=meta, s=s)
+            pairs = zip(tree_leaves(restored), tree_leaves(live),
+                        strict=True)
+            seen["unequal"] = sum(not torch.equal(a, b) for a, b in pairs)
+            with torch.no_grad():
+                seen["loss"] = model.loss(restored["params"], nxt)[0]
+            return restored, meta, s
+        ckpt.restore_latest = checked
         stamps.clear()
         resumed = train(cfg, steps=5, log=log, **kw)
+        ckpt.restore_latest = real_restore
         resumed_log = [line for _, line in stamps if "[resume]" in line]
         resumed_steps = [h["step"] for h in resumed.history]
         resumed_loss = resumed.history[-1]["loss"]
-        del resumed
+        del resumed, run, live
     finally:
+        ckpt.restore_latest = real_restore
         shutil.rmtree(d, ignore_errors=True)
     free_memory()
+    if not seen:
+        raise AssertionError("checkpoint: the resumed run restored nothing")
+    s, meta, unequal = seen["s"], seen["meta"], seen["unequal"]
+    loss_restored = seen["loss"]
+    same = torch.equal(loss_live, loss_restored)
     rec = {"phase": "checkpoint", "config": "ds_fp8", "layers": 2,
            "params": cfg.param_count(), "saved_step": s, "meta_step":
            meta["step"], "leaves": meta["num_leaves"],
            "leaves_not_equal": unequal, "bytes_written": sum(nbytes.values()),
            "files": nbytes, "disk_free_bytes_after_save": free_bytes,
-           "save_s": t_saved - t_step, "restore_s": restore_s,
+           "save_s": t_saved - t_step, "restore_s": seen["restore_s"],
            "next_loss_live": float(loss_live),
            "next_loss_restored": float(loss_restored),
            "next_loss_bitwise_equal": same, "resume_log": resumed_log,
@@ -3192,9 +3324,11 @@ def phase_checkpoint() -> None:
 # ---------------------------------------------------------------------------
 
 # serving: the whole 28-layer deepseek-moe-16b under EP 4 on a (1, 4)
-# mesh; training: its 2-layer cut (the dense layer and one MoE layer)
-# under EP 2 x DP 2 on (2, 2), then its params restored on (1, 2)
-DIST_SERVE = {"batch": 4, "prompt": 64, "new": 16}
+# mesh, 8 tokens (16 until the script outgrew its time: a decode step of
+# the 4 ranks sharing the card takes ~1.9 s); training: its 2-layer cut
+# (the dense layer and one MoE layer) under EP 2 x DP 2 on (2, 2), then
+# its params restored on (1, 2)
+DIST_SERVE = {"batch": 4, "prompt": 64, "new": 8}
 DIST_TRAIN = {"layers": 2, "batch": 8, "seq": 512, "steps": 4}
 DIST_WHY = ("one card: NCCL takes one rank a device, so the ranks share "
             "cuda:0 over gloo; this drives the sharding, the EP packing, "
@@ -3269,7 +3403,7 @@ def one_process_at(snaps, cfg, data, pspecs, mesh) -> list:
     """``[(loss, grad_norm)]`` of one process (no mesh) at each of
     ``snaps`` (this rank's slices of the params steps 1, 2, ... started
     from, on the host), on that step's batch: the ranks of the first
-    data row gather each snapshot on the host, rank 0 computes; the
+    data row gather each snapshot onto rank 0, which computes; the
     others return [].  Also the seconds spent gathering and computing."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding
@@ -3281,7 +3415,7 @@ def one_process_at(snaps, cfg, data, pspecs, mesh) -> list:
     grad_fn = make_grad_fn(make_model(cfg, "cuda").loss)
     for i, snap in enumerate(snaps, start=1):
         t0 = time.perf_counter()
-        full = sharding.gather_tree(snap, pspecs, mesh)
+        full = sharding.gather_tree(snap, pspecs, mesh, dst=0)
         secs["gather"] += time.perf_counter() - t0
         if mesh.rank == 0:
             t0 = time.perf_counter()
@@ -3734,6 +3868,362 @@ def phase_distributed() -> dict:
             "train_ds_fp8_ep2_dp2": train_[0]["launches"]}
 
 
+# tensor parallelism (A15b-1): yi-9b whole served under TP 4 (bf16,
+# flash: 8 q heads and 1 kv head a rank at prompt 128), qwen3-1.7b whole
+# trained under (1, 4) with remat and flash (4 q heads, 2 kv heads a rank)
+TP_SERVE = {"arch": "yi-9b", "batch": 4, "prompt": 128, "new": 16}
+TP_TRAIN = {"arch": "qwen3-1.7b", "batch": 4, "seq": 256, "steps": 3}
+# yi-9b TP 4 against one process, both bf16, of the step's largest logit,
+# at each of the 16 teacher-forced steps (prefill and 15 decode steps):
+# each is ~2e-2 from one process in f32 (2.06e-2 at most on the H100),
+# and two such errors may add; the steps read 1.84e-2 to 2.48e-2
+TP_LOGIT_TOL = 4e-2
+# against one process in f32: TP's error at most this multiple of one
+# process's bf16 error, the largest over the steps each (read: 1.03)
+TP_WITNESS_MULT = 1.5
+TP_WHY = ("one card: NCCL takes one rank a device, so the 4 ranks share "
+          "cuda:0 over gloo; times are of ranks sharing one card, and no "
+          "NCCL between cards is exercised")
+
+
+def tp_config(which: dict, **kw):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(which["arch"]), **FLASH, **kw)
+
+
+def leaf_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+@contextlib.contextmanager
+def kept_logits(engine, keep: list):
+    """Append to ``keep`` an f32 copy of the logits each prefill and
+    decode step of ``engine`` returns."""
+    real = {name: getattr(engine, name) for name in ("prefill",
+                                                     "decode_step")}
+
+    def keeping(fn):
+        def call(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            keep.append(logits.float())
+            return logits, cache
+        return call
+    for name, fn in real.items():
+        setattr(engine, name, keeping(fn))
+    try:
+        yield keep
+    finally:
+        for name in real:
+            delattr(engine, name)
+
+
+def tp_rank(rank: int, world: int) -> dict:
+    """One of 4 ranks on cuda:0, mesh (1, 4): yi-9b served whole, then
+    qwen3-1.7b trained whole (remat on), each step's loss and grad norm
+    beside one process's at the params the step started from."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels import plan as plan_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import make_model, synthetic_batch
+    from repro_torch.models.transformer import storage_specs
+    from repro_torch.optim import adamw
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+    torch.cuda.set_device(0)
+    os.environ[plan_mod.CACHE_ENV] = os.path.join(
+        HERE, "build", f"tileplan_cache_tp{rank}.json")
+    mesh = make_mesh((1, world), ("data", "model"))
+    out = {}
+
+    # serve: yi-9b, 48 layers, TP 4
+    s = TP_SERVE
+    cfg = tp_config(s)
+    model = make_model(cfg, "cuda", mesh)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init_params(gen)
+    batch = synthetic_batch(gen, cfg, s["prompt"], s["batch"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    specs = storage_specs(params, cfg, mesh)
+    whole = sum(x.numel() * x.element_size() for p, x in tree_paths(params)
+                if not any(specs[p]))
+    cap = s["prompt"] + s["new"]
+    engine = Engine(model, params, max_new_tokens=s["new"])
+    with torch.inference_mode():
+        engine.prefill(batch, cap)                              # warm-up
+    torch.cuda.synchronize()
+    dist.barrier()
+    dctx.reset_collectives()
+    reset_counts()
+    # every step's logits as the generate takes them (its decode steps
+    # are fed its own tokens: teacher-forced on them)
+    steps = []
+    with kept_logits(engine, steps):
+        res, gen_ms = event_ms(lambda: engine.generate(batch))
+    counts = read_counts()
+    colls = dict(dctx.COLLECTIVES)
+    with torch.inference_mode():
+        (last, cache), prefill_ms = event_ms(
+            lambda: engine.prefill(batch, cap))
+        lay = cache["layers"][0]
+    out["serve"] = {
+        "coords": mesh.coords, "init_s": init_s, "generate_ms": gen_ms,
+        "prefill_ms": prefill_ms,
+        "decode_ms_per_step": (gen_ms - prefill_ms) / (s["new"] - 1),
+        "collectives": colls, "launches": counts,
+        "expected_launches": {n: (cfg.num_layers if n == "flash_attention"
+                                  else 0) for n in SOURCES},
+        "weight_bytes": leaf_bytes(params), "whole_leaf_bytes": whole,
+        "local_heads": {"q": params["layers"][0]["attn"]["wq"].shape[1]
+                        // cfg.resolved_head_dim,
+                        "kv": params["layers"][0]["attn"]["wk"].shape[1]
+                        // cfg.resolved_head_dim},
+        "cache_slots_here": lay["k"].shape[1],
+        "cache_first_slot": lay.get("slot0"),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tokens": res.tokens.cpu().numpy()}
+    if rank == 0:
+        out["serve"]["step_logits"] = torch.stack(steps).cpu().numpy()
+    del engine, params, model, res, last, batch, cache, lay, steps
+    free_memory()
+    dist.barrier()
+
+    # train: qwen3-1.7b, 28 layers, TP 4, remat
+    t = TP_TRAIN
+    cfg = tp_config(t)
+    torch.cuda.reset_peak_memory_stats()
+    dctx.reset_collectives()
+    reset_counts()
+    snaps = []
+    with step_params(snaps):
+        run = train(cfg, steps=t["steps"], batch=t["batch"], seq=t["seq"],
+                    seed=0, device="cuda", mesh=mesh, log=lambda line: None)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    colls = dict(dctx.COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated()
+    pspecs = storage_specs(run.params, cfg, mesh)
+    # one more step, split into forward, backward and AdamW by events
+    nxt = run.data.batch_at(t["steps"])
+    leaves = tree_leaves(run.params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    for p in leaves:
+        p.requires_grad_(True)
+    ev[0].record()
+    loss, _ = make_model(cfg, "cuda", mesh).loss(run.params, nxt)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, leaves)
+    ev[2].record()
+    for p in leaves:
+        p.requires_grad_(False)
+    opt_cfg = adamw.OptConfig(lr=3e-4, total_steps=t["steps"] + 1,
+                              warmup_steps=5, use_master=True)
+    adamw.apply_updates(run.params, tree_unflatten(run.params, grads),
+                        run.opt_state, opt_cfg,
+                        sharded=[any(pspecs[p]) for p, _ in
+                                 tree_paths(run.params)],
+                        model_group=mesh.group("model"))
+    ev[3].record()
+    torch.cuda.synchronize()
+    split = {"forward_ms": ev[0].elapsed_time(ev[1]),
+             "backward_ms": ev[1].elapsed_time(ev[2]),
+             "adamw_ms": ev[2].elapsed_time(ev[3])}
+    del grads, loss, leaves
+    history, data = run.history, run.data
+    weight_bytes = leaf_bytes(run.params)
+    del run
+    free_memory()
+    at_own, at_own_s = one_process_at(snaps, cfg, data, pspecs, mesh)
+    del snaps
+    step0 = None
+    if rank == 0:
+        full = make_model(cfg, "cuda").init_params(
+            torch.Generator(device="cuda").manual_seed(0))
+        (l0, _), g0 = value_and_grad(make_model(cfg, "cuda").loss, full,
+                                     data.batch_at(0))
+        step0 = (float(l0), float(adamw.global_norm(g0)))
+        del full, g0
+        free_memory()
+    out["train"] = {
+        "coords": mesh.coords,
+        "history": [(h["loss"], h["grad_norm"], h["step_ms"])
+                    for h in history],
+        "one_process_at_own_params": ([step0] + at_own if rank == 0
+                                      else []),
+        "one_process_s": at_own_s, "launches": counts,
+        "expected_launches": expected(TRAIN_PER_LAYER["qwen3_flash"],
+                                      cfg.num_layers * t["steps"]),
+        "collectives": colls, "peak_gb": peak / 1e9,
+        "weight_bytes": weight_bytes, "split": split}
+    return out
+
+
+def phase_tensor_parallel() -> dict:
+    """Dense tensor parallelism (``repro_torch.models`` under a mesh whose
+    model axis is 4) on 4 ranks sharing the card over gloo: yi-9b whole
+    served under TP 4 and held against one process, teacher-forced on its
+    tokens (every step's logits against one process's in bf16, and
+    against one process's in f32 no further than one process's bf16
+    are), its weight bytes a rank against the whole
+    leaves plus a quarter of the rest; qwen3-1.7b whole trained under
+    (1, 4) with remat, every step's loss and grad norm within 1e-3 of one
+    process's at the params the step started from.  Returns the launch
+    counts of the two paths (rank 0's; every rank's exact)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models.model_zoo import make_model, synthetic_batch
+    from repro_torch.serve.engine import Engine
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    emit({"phase": "tensor_parallel_setup", "ranks": 4, "mesh": [1, 4],
+          "backend": "gloo", "device": "cuda:0", "why": TP_WHY})
+    free_memory()
+    t0 = time.perf_counter()
+    d = os.path.join(HERE, "build", "chip_smoke_tp")
+    os.makedirs(d, exist_ok=True)
+    ranks = run_ranks(tp_rank, 4, backend="gloo", store_dir=d, timeout=900)
+    ranks_s = time.perf_counter() - t0
+
+    # yi-9b in one process, teacher-forced on the ranks' tokens: in bf16
+    # (the path the ranks split), then in f32 (the same bf16 weights
+    # upcast, chunked attention), the witness both are held against
+    s = TP_SERVE
+    cfg = tp_config(s)
+    cap = s["prompt"] + s["new"]
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init_params(gen)
+    batch = synthetic_batch(gen, cfg, s["prompt"], s["batch"])
+    one_bytes = leaf_bytes(params)
+    toks = torch.from_numpy(ranks[0]["serve"]["tokens"]).cuda()
+
+    def teacher_forced(engine):
+        with torch.inference_mode():
+            last, cache = engine.prefill(batch, cap)
+            out = [last.float()]
+            for i in range(s["new"] - 1):
+                lg, cache = engine.decode_step(toks[:, i], cache)
+                out.append(lg.float())
+        return torch.stack(out)                    # [steps, B, V]
+    one = teacher_forced(Engine(model, params, max_new_tokens=s["new"]))
+    one_peak = torch.cuda.max_memory_allocated()
+    params = tree_map(lambda x: x.float(), params)
+    free_memory()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                attn_backend="chunked")
+    f32 = teacher_forced(Engine(make_model(cfg32, "cuda"), params,
+                                max_new_tokens=s["new"]))
+    del params, model
+    free_memory()
+    tp = torch.from_numpy(ranks[0]["serve"]["step_logits"]).cuda()
+
+    def rel(a, b):          # each step's max error, of its largest logit
+        return ((a - b).abs().amax(dim=(1, 2))
+                / b.abs().amax(dim=(1, 2))).tolist()
+    err = {"tp_vs_one": rel(tp, one), "tp_vs_f32": rel(tp, f32),
+           "one_vs_f32": rel(one, f32)}
+    # each token the ranks took: its logit in one process within the
+    # bound of that row's top logit, and how many are the argmax
+    pick = one.gather(2, toks.T[:, :, None])[..., 0]
+    top = one.max(-1).values
+    off_tokens = int((pick < top - TP_LOGIT_TOL
+                      * one.abs().amax(-1)).sum())
+    argmax_equal = int((toks.T == one.argmax(-1)).sum())
+    del one, f32, tp, toks
+    free_memory()
+
+    serve = [r["serve"] for r in ranks]
+    tr = [r["train"] for r in ranks]
+    n = len(ranks)
+    whole = serve[0]["whole_leaf_bytes"]
+    expect_bytes = whole + (one_bytes - whole) / n
+    bytes_rel = abs(serve[0]["weight_bytes"] - expect_bytes) / expect_bytes
+    tokens_equal = all(np.array_equal(x["tokens"], serve[0]["tokens"])
+                       for x in serve)
+    emit({"phase": "tensor_parallel_serve", "arch": cfg.name,
+          "layers": cfg.num_layers, "mesh": [1, n], **s,
+          "attn_backend": cfg.attn_backend, "precision": cfg.precision,
+          "tokens_equal_across_ranks": tokens_equal,
+          "logits_err_rel_to_max": err, "tol": TP_LOGIT_TOL,
+          "witness_mult": TP_WITNESS_MULT,
+          "tokens_argmax_equal": argmax_equal,
+          "tokens_beyond_tol": off_tokens,
+          "tokens": serve[0]["tokens"][0].tolist(),
+          "weight_bytes_rank": serve[0]["weight_bytes"],
+          "weight_bytes_one_process": one_bytes,
+          "weight_bytes_whole_leaves": whole,
+          "weight_bytes_expected_rank": expect_bytes,
+          "weight_bytes_rel_err": bytes_rel,
+          "peak_gb_one_process": one_peak / 1e9,
+          "timing_note": "ms of ranks sharing one card",
+          "ranks": [{k: v for k, v in x.items()
+                     if k not in ("tokens", "step_logits")} for x in serve]})
+    losses = [h[0] for h in tr[0]["history"]]
+    own = tr[0]["one_process_at_own_params"]
+    emit({"phase": "tensor_parallel_train", "arch": TP_TRAIN["arch"],
+          "layers": 28, "mesh": [1, n], **TP_TRAIN, "remat": True,
+          "attn_backend": "flash", "losses": losses,
+          "grad_norms": [h[1] for h in tr[0]["history"]],
+          "one_process_at_own_params": own, "tol": DIST_TRAIN_TOL,
+          "timing_note": "ms of ranks sharing one card",
+          "ranks": [{k: v for k, v in x.items()
+                     if k not in ("history", "one_process_at_own_params")}
+                    | {"step_ms": [h[2] for h in x["history"]]}
+                    for x in tr]})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "tensor_parallel", "seconds": seconds,
+          "four_ranks_s": ranks_s})
+
+    failures = []
+    for r, x in enumerate(serve):
+        if x["launches"] != x["expected_launches"]:
+            failures.append(f"serve rank {r}: launches {x['launches']}")
+        if x["local_heads"] != {"q": 8, "kv": 1}:
+            failures.append(f"serve rank {r}: heads {x['local_heads']}")
+        if x["cache_slots_here"] * n != s["prompt"] + s["new"]:
+            failures.append(f"serve rank {r}: {x['cache_slots_here']} "
+                            f"cache slots")
+    for r, x in enumerate(tr):
+        if x["launches"] != x["expected_launches"]:
+            failures.append(f"train rank {r}: launches {x['launches']}")
+        if [h[:2] for h in x["history"]] != \
+                [h[:2] for h in tr[0]["history"]]:
+            failures.append(f"train rank {r}: history differs from rank 0")
+    if not tokens_equal:
+        failures.append("serve: tokens differ between ranks")
+    if not max(err["tp_vs_one"]) <= TP_LOGIT_TOL or off_tokens:
+        failures.append(f"serve: logits {err['tp_vs_one']} of max, "
+                        f"{off_tokens} tokens beyond the bound")
+    if not max(err["tp_vs_f32"]) <= TP_WITNESS_MULT * max(err["one_vs_f32"]):
+        failures.append(f"serve: against f32, TP {err['tp_vs_f32']} and "
+                        f"one process {err['one_vs_f32']}")
+    if not bytes_rel <= 0.02:
+        failures.append(f"serve: weight bytes a rank {bytes_rel} off")
+    if len(own) != TP_TRAIN["steps"]:
+        failures.append(f"train: one process at {len(own)} steps")
+    for i, (h, (l1, n1)) in enumerate(zip(tr[0]["history"], own)):
+        if abs(h[0] - l1) > DIST_TRAIN_TOL * abs(l1) or \
+                abs(h[1] - n1) > DIST_TRAIN_TOL * abs(n1):
+            failures.append(f"train: step {i} loss, grad norm {h[:2]} vs "
+                            f"{(l1, n1)} in one process at its params")
+    if not all(math.isfinite(v) for v in losses):
+        failures.append(f"train: losses {losses}")
+    if failures:
+        raise AssertionError("tensor_parallel: " + "; ".join(failures))
+    return {"serve_yi_bf16_flash_tp4": serve[0]["launches"],
+            "train_qwen3_flash_tp4": tr[0]["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
@@ -3824,12 +4314,19 @@ def main(argv=None) -> int:
                 counts, histories[variant] = phase_train(variant)
             paths.update(counts)
         compare_padded_training(*(histories[v] for v in DS_VARIANTS))
+        for variant in REMAT_VARIANTS:
+            free_memory()
+            with timed(f"remat {variant}"):
+                phase_remat(variant)
         free_memory()
         with timed("checkpoint"):
             phase_checkpoint()
         free_memory()
         with timed("distributed"):
             paths.update(phase_distributed())
+        free_memory()
+        with timed("tensor_parallel"):
+            paths.update(phase_tensor_parallel())
         # launches: the sum over the main paths driven (serving and
         # training in each configuration, training with the fp8 wgrad),
         # each counted from 0
@@ -3869,7 +4366,8 @@ def main(argv=None) -> int:
         # and on the zoo's serve paths that reach it
         for p in ("serve_fp8_flash", "serve_qwen3_flash", "train_fp8_flash",
                   "train_qwen3_flash", "serve_yi_fp8_flash",
-                  "serve_pixtral_fp8_flash", "serve_whisper_fp8_flash"):
+                  "serve_pixtral_fp8_flash", "serve_whisper_fp8_flash",
+                  "serve_yi_bf16_flash_tp4", "train_qwen3_flash_tp4"):
             if not paths[p].get("flash_attention"):
                 raise AssertionError(f"{p}: flash attention never launched")
         emit({"kernels": rows})

@@ -3,9 +3,13 @@
 The fields carry the names and defaults of the JAX package's
 ``ModelConfig``, the recurrent (``lru_width``, ``conv_width``), encoder
 (``encoder_layers``, ``encoder_seq``, ``cross_attention``) and vision
-(``num_patches``, ``patch_embed_dim``) fields included; the remat and
-scan switches and the distribution switches are left out, as the port
-has no remat, keeps its layers in a list and runs on one card.
+(``num_patches``, ``patch_embed_dim``) fields included, and ``remat``
+(default True, as in the JAX package: a training forward with gradients
+recomputes each cycle of ``block_pattern``, and whisper's layers, in the
+backward instead of keeping their activations).  ``scan_layers`` is left
+out, as the port keeps its layers in a list, and so are the distribution
+switches (``seq_shard``, ``moe_reduce_bf16``): a mesh is an argument of
+``make_model``, not a field.
 ``block_pattern`` is cycled over the layers: ``"attn"`` (attention and
 an MLP or MoE), ``"rglru"`` (the RG-LRU recurrence and an MLP),
 ``"mlstm"`` or ``"slstm"`` (the xLSTM blocks).  ``moe_dispatch`` is
@@ -75,6 +79,7 @@ class ModelConfig:
     gemm_backend: Optional[str] = None
     # tile shapes of every grouped GEMM; None = KernelConfig()
     kernel_config: Optional[KernelConfig] = None
+    remat: bool = True
     attn_chunk: int = 512
     moe_dispatch: str = "ragged"       # "ragged" (paper) | "dense" (GShard)
     attn_backend: str = "chunked"      # "chunked" | "flash"

@@ -14,10 +14,14 @@ names (or tuples of names) and ``None``, one entry per leading dim, as
 ``tuple(PartitionSpec)`` (missing trailing entries are ``None``); a
 tree's specs are a dict keyed by leaf path.  :func:`rule_spec` is the
 rule of one leaf before the divisibility guard: ``core.moe``'s
-``shard_moe_params`` reads an MoE layer's layout from it.
+``shard_moe_params`` reads an MoE layer's layout from it; :func:`rule_dim`
+is the logical dim (heads, kv heads, ``d_ff``, vocab) the rule splits,
+which ``models.transformer.tp_split`` decides for each model.
 
-What this slice stores sharded is ``models.transformer.storage_specs``:
-only the MoE leaves.  :func:`slice_leaf` / :func:`shard_tree` keep a
+What the port stores sharded is ``models.transformer.storage_specs``:
+the MoE leaves, and the attention families' dense leaves where their
+heads, ``d_ff`` or vocab divide the model axis.  :func:`slice_leaf` /
+:func:`shard_tree` keep a
 rank's slices, :func:`gather_leaf` / :func:`gather_tree` rebuild the
 full logical arrays (a checkpoint's), leaf by leaf.
 """
@@ -32,25 +36,29 @@ import torch
 from repro_torch.distributed import context as dctx
 from repro_torch.tree import tree_paths, tree_unflatten
 
-# (path regex, spec for the logical [unstacked] shape)
+# (path regex, spec for the logical [unstacked] shape, the logical dim
+# the spec's "model" entry splits: what ``models.transformer.tp_split``
+# decides per model)
 # weight naming is a repo-wide convention (models/layers.py)
 _RULES_2D = [
-    (r"(^|/)(wq|wk|wv)$", (None, "model")),
-    (r"(^|/)wo$", ("model", None)),
-    (r"(^|/)(w_gate|w_up)$", (None, "model")),
-    (r"(^|/)w_down$", ("model", None)),
-    (r"(^|/)shared_(gate|up)$", (None, "model")),
-    (r"(^|/)shared_down$", ("model", None)),
-    (r"(^|/)embedding$", ("model", None)),
-    (r"(^|/)lm_head$", (None, "model")),
-    (r"(^|/)router$", ()),
-    (r"(^|/)vision_proj$", ()),
-    (r"(^|/)(w_in|w_x|w_y)$", (None, "model")),     # recurrent in-projs
-    (r"(^|/)w_out$", ("model", None)),              # recurrent out-proj
+    (r"(^|/)wq$", (None, "model"), "heads"),
+    (r"(^|/)(wk|wv)$", (None, "model"), "kv"),
+    (r"(^|/)wo$", ("model", None), "heads"),
+    (r"(^|/)(w_gate|w_up)$", (None, "model"), "mlp"),
+    (r"(^|/)w_down$", ("model", None), "mlp"),
+    (r"(^|/)shared_(gate|up)$", (None, "model"), "mlp"),
+    (r"(^|/)shared_down$", ("model", None), "mlp"),
+    (r"(^|/)embedding$", ("model", None), "vocab"),
+    (r"(^|/)lm_head$", (None, "model"), "vocab"),
+    (r"(^|/)router$", (), None),
+    (r"(^|/)vision_proj$", (), None),
+    (r"(^|/)(w_in|w_x|w_y)$", (None, "model"), "recurrent"),  # in-projs
+    (r"(^|/)w_out$", ("model", None), "recurrent"),           # out-proj
 ]
 _RULES_1D = [
-    (r"(^|/)b[qkv]$", ("model",)),
-    (r"(^|/)(b_in|b_x|b_y)$", ("model",)),
+    (r"(^|/)bq$", ("model",), "heads"),
+    (r"(^|/)b[kv]$", ("model",), "kv"),
+    (r"(^|/)(b_in|b_x|b_y)$", ("model",), "recurrent"),
 ]
 # MoE 3-D experts tensors: EP shards dim0 (experts); TP shards the d_ff dim
 _MOE_3D = {
@@ -60,22 +68,30 @@ _MOE_3D = {
 }
 
 
+def _rule(path: str, ndim: int) -> "tuple[tuple, Optional[str]]":
+    """(spec, logical dim) of the first rule matching ``path``."""
+    rules = _RULES_2D if ndim >= 2 else _RULES_1D
+    if "/moe/" in path or path.startswith("moe/"):
+        rules = _RULES_2D + _RULES_1D
+    return next(((spec, dim) for pat, spec, dim in rules
+                 if re.search(pat, path)), ((), None))
+
+
 def rule_spec(path: str, ndim: int, moe_mode: str) -> tuple:
     """The rule's spec of the leaf at ``path`` with ``ndim`` dims (an MoE
     layer's leaves lie under ``moe/``), before the divisibility guard."""
     last = path.rsplit("/", 1)[-1]
-    if "/moe/" in path or path.startswith("moe/"):
-        if last in _MOE_3D and ndim >= 3:
-            return _MOE_3D[last][moe_mode]
-        for pat, spec in _RULES_2D + _RULES_1D:
-            if re.search(pat, path):
-                return spec
-        return ()
-    rules = _RULES_2D if ndim >= 2 else _RULES_1D
-    for pat, spec in rules:
-        if re.search(pat, path):
-            return spec
-    return ()
+    if ("/moe/" in path or path.startswith("moe/")) and last in _MOE_3D \
+            and ndim >= 3:
+        return _MOE_3D[last][moe_mode]
+    return _rule(path, ndim)[0]
+
+
+def rule_dim(path: str, ndim: int) -> Optional[str]:
+    """The logical dim (``"heads"``, ``"kv"``, ``"mlp"``, ``"vocab"``,
+    ``"recurrent"``) that the rule of a dense leaf splits over the model
+    axis; None for a leaf the rules keep whole."""
+    return _rule(path, ndim)[1]
 
 
 def _axis_size(mesh, ax) -> int:
@@ -178,11 +194,38 @@ def shard_tree(tree, specs: dict, mesh):
                                  for p, x in tree_paths(tree)])
 
 
-def gather_tree(tree, specs: dict, mesh):
+def _gather_to(x: torch.Tensor, spec: tuple, mesh, dst: int):
+    """The full leaf on the model-axis rank ``dst`` from every model
+    rank's slice ``x`` (one ``gather``: each rank sends its slice once),
+    None on the others."""
+    import torch.distributed as dist
+    if set(spec) - {None, "model"}:
+        raise NotImplementedError(f"a gather to one rank over {spec}")
+    group, n = mesh.group("model"), mesh.shape["model"]
+    here = mesh.coord("model") == dst
+    raw = x.contiguous().reshape(-1).view(torch.uint8)   # any dtype
+    parts = [torch.empty_like(raw) for _ in range(n)] if here else None
+    dist.gather(raw, parts, dst=dist.get_global_rank(group, dst),
+                group=group)
+    if not here:
+        return None
+    return torch.cat([q.view(x.dtype).reshape(x.shape) for q in parts],
+                     spec.index("model"))
+
+
+def gather_tree(tree, specs: dict, mesh, dst: Optional[int] = None):
     """A tree of full logical leaves from this rank's slices (every rank
-    of each gathered axis takes part)."""
-    return tree_unflatten(tree, [gather_leaf(x, specs[p], mesh)
-                                 for p, x in tree_paths(tree)])
+    of each gathered axis takes part).  With ``dst``, only the rank at
+    that coordinate of the model axis receives them, and the others get
+    None: a quarter of the bytes of an all-gather on 4 ranks, for trees
+    sharded over the model axis alone."""
+    if dst is None:
+        return tree_unflatten(tree, [gather_leaf(x, specs[p], mesh)
+                                     for p, x in tree_paths(tree)])
+    out = [_gather_to(x, specs[p], mesh, dst) if any(specs[p]) else x
+           for p, x in tree_paths(tree)]
+    return tree_unflatten(tree, out) if mesh.coord("model") == dst \
+        else None
 
 
 def tree_specs(tree, param_specs: dict) -> dict:

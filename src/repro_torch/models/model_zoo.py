@@ -7,8 +7,12 @@ of :mod:`repro_torch.models.transformer`.
 The device defaults to CUDA; without a card, and without
 ``device="cpu"``, :func:`make_model` raises.  A ``mesh``
 (``launch.mesh.Mesh``) binds the model to its ranks: an MoE layer runs
-over the mesh's model axis, and ``init_params`` keeps this rank's slice
-of each MoE leaf.
+over the mesh's model axis, attention, the dense MLP, the embedding and
+the head are tensor-parallel over it, and ``init_params`` keeps this
+rank's slice of each leaf (``transformer.storage_specs``); the logits of
+``prefill`` and ``decode_step`` are then this rank's vocab columns (the
+serving engine gathers them).  Under a model axis larger than 1 the
+RG-LRU, xLSTM and audio families raise (ROADMAP A15b-2).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as dctx
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whs
 
@@ -37,6 +42,7 @@ class Model:
 
 def make_model(cfg: ModelConfig, device=None, mesh=None) -> Model:
     dev = resolve_device(device)
+    tfm.tp_split(cfg, dctx.model_axis_size(mesh))   # raises where unported
     if cfg.family == "audio":
         def init_params(generator: torch.Generator):
             return whs.init_whisper(cfg, generator=generator, device=dev)
@@ -80,7 +86,8 @@ def make_model(cfg: ModelConfig, device=None, mesh=None) -> Model:
             return logits, cache
 
         def init_cache(params, batch, batch_size, seq):
-            return tfm.init_cache(cfg, batch_size, seq, device=dev)
+            return tfm.init_cache(cfg, batch_size, seq, device=dev,
+                                  mesh=mesh)
 
     return Model(cfg=cfg, device=dev, init_params=init_params, loss=loss,
                  prefill=prefill, decode_step=decode_step,

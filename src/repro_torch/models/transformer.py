@@ -18,11 +18,21 @@ recurrent states returned anew).  Every GEMM call site takes
 ``cfg.resolved_kernel_config``, the kernel config with ``gemm_backend``
 folded in.
 
-With a ``mesh`` whose ``model`` axis is larger than 1, an MoE layer runs
-the reference's ``_apply_moe`` branch: its params are this rank's slice
-(:func:`init_decoder` keeps only that slice of each MoE leaf as it is
-drawn) and ``moe_apply`` sums the partials over the model axis's process
-group.  Every other layer is replicated over ``model``.
+Remat (``cfg.remat``, the reference's default True): a training forward
+with gradients runs each cycle of ``block_pattern`` under
+``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
+the cycle from its input; the ``pre`` and ``tail`` layers keep their
+activations, as the reference leaves them outside its scan.
+
+With a ``mesh`` whose ``model`` axis is larger than 1, the params are
+this rank's slices, as :func:`storage_specs` gives them
+(:func:`init_decoder` keeps only that slice of each leaf as it is
+drawn).  An MoE layer runs the reference's ``_apply_moe`` branch
+(``moe_apply`` sums the partials over the model axis's process group);
+attention, the dense MLP, the embedding and the head are tensor-parallel
+(:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.layers`),
+and the logits are this rank's vocab columns.  The RG-LRU, xLSTM and
+audio families raise there (their tensor parallelism is not ported).
 """
 from __future__ import annotations
 
@@ -32,15 +42,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import (MoEConfig, ep_size_for, init_moe_params,
-                                  moe_apply, shard_moe_params,
-                                  slice_moe_params)
+                                  moe_apply, shard_moe_params)
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed.sharding import rule_dim, rule_spec, shard_tree
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rg
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
                                        init_mlp, init_rms_norm, mlp, ninit,
-                                       rms_norm, unembed)
+                                       remat_scope, rms_norm, unembed)
 from repro_torch.tree import tree_paths
 
 #: the block kinds of ``block_pattern``
@@ -132,12 +142,17 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, positions, *, cache=None,
     """Returns (x, new_cache, aux_loss); new_cache is None in train
     mode."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    mlp_kw = dict(precision=cfg.precision, config=cfg.resolved_kernel_config)
+    split = tp_split(cfg, dctx.model_axis_size(mesh))
+    group = mesh.group("model") if split else None
+    mlp_kw = dict(precision=cfg.precision, config=cfg.resolved_kernel_config,
+                  group=group if split.get("mlp") else None)
     if kind == "attn":
         h, new_cache = attn.attention_block(
             p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg, positions,
             cache=cache, layer_window=cfg.window, mode=mode,
-            cache_capacity=cache_capacity, pos_offset=pos_offset)
+            cache_capacity=cache_capacity, pos_offset=pos_offset,
+            group=group if split.get("heads") else None,
+            kv_split=split.get("kv", False))
         x = x + h
         h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
         if "moe" not in p:
@@ -162,10 +177,10 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, positions, *, cache=None,
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq_len: int,
-                     *, device):
+                     *, device, group=None):
     if kind == "attn":
         return attn.init_kv_cache(cfg, batch, seq_len, cfg.window,
-                                  device=device)
+                                  device=device, group=group)
     if kind == "rglru":
         return rg.init_rglru_state(cfg, batch, device=device)
     if kind == "mlstm":
@@ -175,49 +190,82 @@ def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq_len: int,
     raise ValueError(kind)
 
 
+def tp_split(cfg: ModelConfig, n: int) -> dict:
+    """What a model axis of ``n`` ranks splits ({} for ``n == 1``): the q
+    heads (``"heads"``), the kv heads (``"kv"``: where they divide the
+    axis; the reference's ``spec_for`` guard, on heads, not columns),
+    the dense MLP's ``d_ff`` (``"mlp"``) and the vocab (``"vocab"``),
+    each where ``n`` divides it.  The RG-LRU, xLSTM and audio families
+    raise: their tensor parallelism is A15b-2, not ported yet, and
+    running them whole on every rank would look sharded and not be."""
+    if n == 1:
+        return {}
+    if cfg.family not in ("dense", "moe", "vlm") or \
+            set(cfg.block_pattern) - {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism of the {cfg.family} family "
+            f"({'/'.join(cfg.block_pattern)} blocks) is not ported yet "
+            f"(ROADMAP A15b-2); use a model axis of 1")
+    heads = cfg.num_heads % n == 0
+    return {"heads": heads, "kv": heads and cfg.num_kv_heads % n == 0,
+            "mlp": cfg.dense_ff_width() % n == 0,
+            "vocab": cfg.vocab_size % n == 0}
+
+
+def storage_specs(params, cfg: ModelConfig, mesh) -> dict:
+    """Path -> spec of every leaf of ``params`` (the model's tree, or any
+    subtree of it) as the port stores it on ``mesh``: an MoE layer's
+    leaves (under ``moe/``) as ``shard_moe_params`` lays them out (EP
+    where the experts divide the model axis, else TP on ``d_ff``), every
+    other leaf by the partition rules (``build_param_specs``) where
+    :func:`tp_split` splits it, else whole.  Read from ``cfg`` and the
+    leaf names, so ``params`` may hold full leaves or a rank's slices."""
+    n = dctx.model_axis_size(mesh)
+    split = tp_split(cfg, n)
+    per_name = {}
+    if split and cfg.moe is not None:
+        mcfg = moe_config(cfg)
+        per_name = shard_moe_params(None, mcfg, ep_size_for(mcfg, n))
+    specs = {}
+    for path, leaf in tree_paths(params):
+        parts = path.split("/")
+        if "moe" in parts[:-1]:
+            specs[path] = per_name.get(parts[-1], ())
+        elif split.get(rule_dim(path, leaf.dim())):
+            specs[path] = rule_spec(path, leaf.dim(), "ep")
+        else:
+            specs[path] = ()
+    return specs
+
+
 def init_decoder(cfg: ModelConfig, *, generator: torch.Generator, device,
                  mesh=None):
     """Random params drawn from ``generator`` in the reference's order.
-    With a mesh whose model axis is larger than 1, each MoE layer keeps
-    only this rank's slice, taken as the layer is drawn: every rank draws
-    the same values, and none holds more than one whole layer."""
+    With a mesh whose model axis is larger than 1, each leaf keeps only
+    this rank's slice (:func:`storage_specs`), taken as its layer is
+    drawn: every rank draws the same values, and none holds more than one
+    whole layer (or the embedding) at a time."""
     kinds = layer_kinds(cfg)
+    sharded = bool(tp_split(cfg, dctx.model_axis_size(mesh)))
+
+    def keep(tree):
+        return shard_tree(tree, storage_specs(tree, cfg, mesh), mesh) \
+            if sharded else tree
     params = {
-        "embed": init_embedding(cfg.vocab_size, cfg.d_model, cfg.dtype,
-                                cfg.tie_embeddings, generator=generator,
-                                device=device),
+        "embed": keep(init_embedding(cfg.vocab_size, cfg.d_model, cfg.dtype,
+                                     cfg.tie_embeddings, generator=generator,
+                                     device=device)),
         "final_norm": init_rms_norm(cfg.d_model, device=device),
     }
     if cfg.family == "vlm" and cfg.num_patches:
         params["vision_proj"] = ninit(
             (cfg.patch_embed_dim, cfg.d_model), cfg.patch_embed_dim ** -0.5,
             cfg.dtype, generator=generator, device=device)
-    params["layers"] = []
-    for i, kind in enumerate(kinds):
-        block = init_block(kind, cfg, generator=generator, device=device,
-                           moe_layer=is_moe_layer(cfg, i))
-        if "moe" in block and dctx.model_axis_size(mesh) > 1:
-            block["moe"] = slice_moe_params(block["moe"], moe_config(cfg),
-                                            mesh)
-        params["layers"].append(block)
+    params["layers"] = [keep(init_block(kind, cfg, generator=generator,
+                                        device=device,
+                                        moe_layer=is_moe_layer(cfg, i)))
+                        for i, kind in enumerate(kinds)]
     return params
-
-
-def storage_specs(params, cfg: ModelConfig, mesh) -> dict:
-    """Path -> spec of every leaf of ``params`` as this slice stores it on
-    ``mesh``: each MoE layer's leaves as ``shard_moe_params`` lays them
-    out (EP where the experts divide the model axis, else TP), every
-    other leaf replicated over ``model`` (A15b shards them)."""
-    specs = {path: () for path, _ in tree_paths(params)}
-    axis = dctx.model_axis_size(mesh)
-    if cfg.moe is None or axis == 1:
-        return specs
-    mcfg = moe_config(cfg)
-    per_name = shard_moe_params(None, mcfg, ep_size_for(mcfg, axis))
-    for i, layer in enumerate(params["layers"]):
-        for k in layer.get("moe", ()):
-            specs[f"layers/{i}/moe/{k}"] = per_name[k]
-    return specs
 
 
 def reference_stack(cfg: ModelConfig) -> dict:
@@ -238,10 +286,32 @@ def reference_stack(cfg: ModelConfig) -> dict:
                        else None for i in range(n)]}
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device):
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device,
+               mesh=None):
+    """Empty decode caches; on a mesh, the attention caches' slots are
+    split over the model axis where it divides them."""
+    group = mesh.group("model") if tp_split(
+        cfg, dctx.model_axis_size(mesh)) else None
     return {"layers": [init_block_cache(kind, cfg, batch, seq_len,
-                                        device=device)
+                                        device=device, group=group)
                        for kind in layer_kinds(cfg)]}
+
+
+def _segments(cfg: ModelConfig) -> list:
+    """The layers as runs to apply in order, with whether each is a cycle
+    of ``block_pattern`` (remat's unit) or a lone ``pre`` / ``tail``
+    layer."""
+    stack = reference_stack(cfg)["layers"]
+    period = len(tuple(cfg.block_pattern) or ("attn",))
+    out, i = [], 0
+    while i < len(stack):
+        if stack[i] is None:
+            out.append((range(i, i + 1), False))
+            i += 1
+        else:
+            out.append((range(i, i + period), True))
+            i += period
+    return out
 
 
 def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
@@ -254,7 +324,9 @@ def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
     prepended (their loss positions carry label -1 in :func:`lm_loss`).
     """
     kinds = layer_kinds(cfg)
-    x = embed(params["embed"], tokens)
+    split = tp_split(cfg, dctx.model_axis_size(mesh))
+    vgroup = mesh.group("model") if split.get("vocab") else None
+    x = embed(params["embed"], tokens, vgroup)
     if patch_embeds is not None:
         pe = patch_embeds.to(x.dtype) @ params["vision_proj"].to(x.dtype)
         x = torch.cat([pe, x], dim=1)
@@ -265,18 +337,28 @@ def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
                                               device=tokens.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     caches = []
-    for li, (kind, lp) in enumerate(zip(kinds, params["layers"])):
-        c = cache["layers"][li] if cache is not None else None
-        x, nc, aux = block_apply(kind, lp, x, cfg, positions, cache=c,
-                                 mode=mode, cache_capacity=cache_capacity,
-                                 pos_offset=pos_offset, mesh=mesh)
-        aux_total = aux_total + aux
-        caches.append(nc)
+
+    def run_layers(layers, x, aux_total):
+        for li in layers:
+            c = cache["layers"][li] if cache is not None else None
+            x, nc, aux = block_apply(kinds[li], params["layers"][li], x, cfg,
+                                     positions, cache=c, mode=mode,
+                                     cache_capacity=cache_capacity,
+                                     pos_offset=pos_offset, mesh=mesh)
+            aux_total = aux_total + aux
+            caches.append(nc)
+        return x, aux_total
+
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    cycle = remat_scope(run_layers) if remat else run_layers
+    for layers, is_cycle in _segments(cfg):
+        x, aux_total = (cycle if is_cycle else run_layers)(layers, x,
+                                                          aux_total)
     new_cache = {"layers": caches} if mode in ("prefill", "decode") else None
     if mode == "prefill":
         x = x[:, -1:]        # serving prefill needs only the last position
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x), new_cache, aux_total
+    return unembed(params["embed"], x, vgroup), new_cache, aux_total
 
 
 def lm_loss(params, batch, cfg: ModelConfig, *, aux_weight=0.01, mesh=None):
@@ -291,5 +373,7 @@ def lm_loss(params, batch, cfg: ModelConfig, *, aux_weight=0.01, mesh=None):
     if pe is not None:      # the patch positions carry no label
         labels = torch.cat([labels.new_full((labels.shape[0], pe.shape[1]),
                                             -1), labels], dim=1)
-    loss = cross_entropy(logits[:, :-1], labels[:, 1:])
+    vgroup = mesh.group("model") if tp_split(
+        cfg, dctx.model_axis_size(mesh)).get("vocab") else None
+    loss = cross_entropy(logits[:, :-1], labels[:, 1:], vgroup)
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}

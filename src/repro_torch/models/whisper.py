@@ -9,6 +9,10 @@ positions in both (the JAX package's substitution).  The decode cache
 holds the encoder output, each layer's self-attention K/V (written in
 place by a decode step, as in :mod:`repro_torch.models.attention`) and
 its cross-attention K/V, computed once at prefill and only read after.
+
+Remat, as in the JAX package: with ``cfg.remat`` each encoder layer runs
+under ``torch.utils.checkpoint`` whenever gradients are taken, and each
+decoder layer in a training forward.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
                                        init_mlp, init_rms_norm, mlp,
-                                       rms_norm, unembed)
+                                       remat_scope, rms_norm, unembed)
 
 
 def _mlp(lp, x, cfg: ModelConfig):
@@ -78,12 +82,17 @@ def whisper_encode(params, frames, cfg: ModelConfig):
     """frames: [B, Se, d_model] precomputed embeddings (stub frontend)."""
     x = frames.to(cfg.dtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for lp in params["enc_layers"]:
+
+    def layer(lp, x):
         h, _ = attn.attention_block(lp["attn"],
                                     rms_norm(lp["ln1"], x, cfg.norm_eps),
                                     cfg, positions, causal=False)
         x = x + h
-        x = x + _mlp(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg)
+        return x + _mlp(lp, rms_norm(lp["ln2"], x, cfg.norm_eps), cfg)
+    if cfg.remat and torch.is_grad_enabled():
+        layer = remat_scope(layer)
+    for lp in params["enc_layers"]:
+        x = layer(lp, x)
     return rms_norm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
@@ -99,8 +108,8 @@ def whisper_forward(params, tokens, frames, cfg: ModelConfig, *,
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)
     layers = []
-    for li, lp in enumerate(params["layers"]):
-        lc = cache["layers"][li] if cache is not None else None
+
+    def layer(lp, lc, x, enc_out):
         h, nc = attn.attention_block(
             lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps), cfg,
             positions, cache=lc["self"] if lc is not None else None,
@@ -112,7 +121,14 @@ def whisper_forward(params, tokens, frames, cfg: ModelConfig, *,
                                  rms_norm(lp["ln2"], x, cfg.norm_eps), xk,
                                  cfg)
         x = x + _mlp(lp, rms_norm(lp["ln3"], x, cfg.norm_eps), cfg)
-        layers.append({"self": nc, "xkv": xk})
+        if mode != "train":
+            layers.append({"self": nc, "xkv": xk})
+        return x
+    if cfg.remat and mode == "train" and torch.is_grad_enabled():
+        layer = remat_scope(layer)
+    for li, lp in enumerate(params["layers"]):
+        x = layer(lp, cache["layers"][li] if cache is not None else None,
+                  x, enc_out)
     new_cache = None
     if mode in ("prefill", "decode"):
         new_cache = {"layers": layers, "enc_out": enc_out}

@@ -30,6 +30,10 @@ Under a mesh (the model's, ``make_model(..., mesh=)``), every rank of the
 model axis decodes the same batch and the MoE layers sum their partials
 over the axis; the decode selection is made for this rank's share of
 the routed GEMM (its experts under EP, its ``d_ff`` slice under TP).
+The model's logits are then this rank's vocab columns: :meth:`prefill`
+and :meth:`decode_step` gather the last position's [B, V] over the axis,
+so sampling sees the whole vocab (a temperature sample draws from the
+same generator on every rank).
 Each step's tokens are checked equal on every rank of the axis (one
 MAX reduction): ranks that diverged would feed different tokens to the
 next step's collectives.
@@ -50,7 +54,7 @@ from repro_torch.kernels import plan as plan_mod
 from repro_torch.kernels.plan import KernelConfig
 from repro_torch.models import model_zoo
 from repro_torch.models.model_zoo import Model
-from repro_torch.models.transformer import moe_config
+from repro_torch.models.transformer import moe_config, tp_split
 
 
 @dataclasses.dataclass
@@ -90,6 +94,9 @@ class Engine:
         mesh = model.mesh
         self.group = (mesh.group("model") if mesh is not None
                       and mesh.shape.get("model", 1) > 1 else None)
+        # the model axis where it splits the logits' vocab columns
+        self.vocab_group = self.group if tp_split(
+            model.cfg, dctx.model_axis_size(mesh)).get("vocab") else None
         self.max_new = max_new_tokens
         self.eos_id = eos_id
         self.temperature = temperature
@@ -127,18 +134,25 @@ class Engine:
         probs = torch.softmax(logits.float() / self.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
+    def _whole_vocab(self, logits):
+        """[B, V] from the model's last-position logits (this rank's vocab
+        columns where the vocab is split over the model axis)."""
+        if self.vocab_group is not None:
+            logits = dctx.all_gather(logits, -1, self.vocab_group)
+        return logits
+
     def prefill(self, batch, cache_capacity: int):
         """Last-position logits [B, V] and the caches of the prompt."""
         logits, cache = self.model.prefill(self.params, batch,
                                            cache_capacity=cache_capacity)
-        return logits[:, -1], cache
+        return self._whole_vocab(logits[:, -1]), cache
 
     def decode_step(self, tokens, cache):
         """One token per row [B] against the caches -> (logits [B, V],
         caches); the caches are updated in place."""
         logits, cache = self._decode_model.decode_step(
             self.params, tokens[:, None], cache)
-        return logits[:, 0], cache
+        return self._whole_vocab(logits[:, 0]), cache
 
     @torch.inference_mode()
     def generate(self, batch, *, generator: Optional[torch.Generator] = None

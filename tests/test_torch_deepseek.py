@@ -54,6 +54,18 @@ from repro_torch.serve.engine import Engine
 from repro_torch.train.trainer import value_and_grad
 from repro_torch.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's ops while this file runs: the
+    smoke shapes gain nothing from more, and beside the other test
+    workers PyTorch's thread pool oversubscribes the cores.  Restored
+    afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 NAME = "deepseek-moe-16b"
 BATCH, PROMPT, NEW = 2, 16, 6
 TOL = 0.15

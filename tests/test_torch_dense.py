@@ -57,6 +57,18 @@ from repro_torch.serve.engine import Engine
 from repro_torch.train.trainer import make_train_step
 from repro_torch.tree import tree_leaves
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's ops while this file runs: the
+    smoke shapes gain nothing from more, and beside the other test
+    workers PyTorch's thread pool oversubscribes the cores.  Restored
+    afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 MODELS = ("qwen3-1.7b", "qwen2-moe-a2.7b")
 BATCH, PROMPT, NEW = 2, 128, 4
 
@@ -288,9 +300,10 @@ def test_flash_loss_trajectory_matches_jax(name, monkeypatch):
     for s in range(3):
         params, state, m = step(params, state, data.batch_at(s))
         got.append(float(m["loss"]))
-    # one flash forward per layer per step; the backward recomputes the
-    # oracle, not the flash forward
-    assert len(calls) == 3 * cfg.num_layers
+    # two flash forwards per layer per step: remat (the default)
+    # recomputes each layer's forward in the backward; the backward itself
+    # recomputes the oracle, not the flash forward
+    assert len(calls) == 2 * 3 * cfg.num_layers
     assert abs(got[0] - want[0]) <= 5e-3, (got, want)
     np.testing.assert_allclose(got, want, atol=2e-2)
     assert want[-1] < want[0] and got[-1] < got[0]

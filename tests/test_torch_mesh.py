@@ -174,10 +174,13 @@ def test_build_param_specs_match_reference(mesh, port_trees):
 
 
 def test_storage_specs_shard_only_the_moe_leaves(port_trees):
-    """This slice stores the MoE leaves sharded (EP on 8 experts / 4,
-    the shared experts' d_ff), as the partition rules lay them out, and
-    every other leaf whole; an optimizer state's leaves take their
-    params' specs."""
+    """The port stores the MoE leaves sharded (EP on 8 experts / 4, the
+    shared experts' d_ff) and, since tensor parallelism, every dense leaf
+    of attention, the MLP, the embedding and the head too, each as the
+    partition rules lay it out (its heads, d_ff and vocab divide the
+    4-way axis here); norms, the router and the qk-norm scales whole; an
+    optimizer state's leaves take their params' specs.  The name is
+    kept from when only the MoE leaves were sharded."""
     cfg, params = port_trees["deepseek-moe-16b"]
     m = tmesh.make_mesh((2, 4), ("data", "model"), with_groups=False)
     specs = storage_specs(params, cfg, m)
@@ -187,11 +190,13 @@ def test_storage_specs_shard_only_the_moe_leaves(port_trees):
     assert moe and set(specs) == set(ref)
     assert specs["layers/1/moe/w_gate"][0] == "model"
     for path, spec in specs.items():
-        if path in moe:
+        if path in moe or not path.endswith(("scale", "router")):
             assert spec + (None,) * (len(ref[path]) - len(spec)) == \
                 ref[path], path
         else:
             assert all(a is None for a in spec), path
+    assert specs["embed/embedding"] == ("model", None)
+    assert specs["layers/0/attn/wq"] == (None, "model")
     state = {"params": params, "opt": {"m": params, "step": torch.zeros(())}}
     state_specs = tsharding.tree_specs(state, specs)
     assert state_specs["opt/step"] == ()
@@ -206,7 +211,10 @@ def test_storage_specs_shard_only_the_moe_leaves(port_trees):
     n = sg.shape[1] // 4
     assert torch.equal(local["layers"][1]["moe"]["shared_gate"],
                        sg[:, 2 * n:3 * n])
-    assert local["embed"]["embedding"] is params["embed"]["embedding"]
+    emb = params["embed"]["embedding"]
+    n = emb.shape[0] // 4
+    assert torch.equal(local["embed"]["embedding"], emb[2 * n:3 * n])
+    assert local["final_norm"]["scale"] is params["final_norm"]["scale"]
     # a dim over ("model", "data"): 8 chunks, model major: chunk 2 * 2 + 1
     x = torch.arange(32).reshape(16, 2)
     assert torch.equal(tsharding.slice_leaf(x, (("model", "data"), None),

@@ -43,6 +43,18 @@ from repro_torch.train.trainer import make_train_step
 from repro_torch.tree import tree_leaves
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's ops while this file runs: the
+    smoke shapes gain nothing from more, and beside the other test
+    workers PyTorch's thread pool oversubscribes the cores.  Restored
+    afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a):
     return np.asarray(jnp.asarray(a, jnp.float32))
 
@@ -560,9 +572,10 @@ def test_variant_loss_trajectories_match_jax(variant):
             params, state, m = step(params, state, data.batch_at(s))
             got.append(float(m["loss"]))
     # fused: per layer and step, x, dy, dg, du of the routed and the
-    # shared FFN
+    # shared FFN, and x again in the forward that remat (the default)
+    # recomputes in the backward
     assert events.count(evs, "quantize_tilewise") == \
-        (8 * cfg.num_layers * 3 if fused else 0)
+        (10 * cfg.num_layers * 3 if fused else 0)
     assert abs(got[0] - want[0]) <= 5e-3, (got, want)
     np.testing.assert_allclose(got, want, atol=4e-2 if fused else 2e-2)
     assert want[-1] < want[0] and got[-1] < got[0]

@@ -11,10 +11,23 @@ under the paper's padded baseline."""
 import dataclasses
 
 import pytest
+import torch
 
 from repro_torch.checkpoint import checkpointer as ckpt
 from repro_torch.configs import smoke_config
 from repro_torch.launch import train as tlaunch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for the port's ops while this file runs: the
+    smoke shapes gain nothing from more, and beside the other test
+    workers PyTorch's thread pool oversubscribes the cores.  Restored
+    afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 STEPS, SAVE_EVERY, FAIL_AT = 30, 10, 17
 
