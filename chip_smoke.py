@@ -3399,20 +3399,19 @@ def step_params(keep):
         launch.make_train_step = real
 
 
-def one_process_at(snaps, cfg, data, pspecs, mesh) -> list:
+def one_process_at(snaps, cfg, data, pspecs, mesh, f32=False) -> list:
     """``[(loss, grad_norm)]`` of one process (no mesh) at each of
     ``snaps`` (this rank's slices of the params steps 1, 2, ... started
-    from, on the host), on that step's batch: the ranks of the first
-    data row gather each snapshot onto rank 0, which computes; the
-    others return [].  Also the seconds spent gathering and computing."""
+    from, on the host), on that step's batch: the ranks that hold a
+    part gather each snapshot onto rank 0, which computes; the others
+    return [].  With ``f32``, each tuple adds the loss and grad norm of
+    one process in f32 (the params upcast, plain products) at the same
+    params and each leaf's grad norm there.  Also the seconds spent
+    gathering and computing."""
     import torch.distributed as dist
     from repro_torch.distributed import sharding
-    from repro_torch.models.model_zoo import make_model
-    from repro_torch.optim import adamw
-    from repro_torch.train.trainer import make_grad_fn
     from repro_torch.tree import tree_map
     out, secs = [], {"gather": 0.0, "compute": 0.0}
-    grad_fn = make_grad_fn(make_model(cfg, "cuda").loss)
     for i, snap in enumerate(snaps, start=1):
         t0 = time.perf_counter()
         full = sharding.gather_tree(snap, pspecs, mesh, dst=0)
@@ -3420,13 +3419,36 @@ def one_process_at(snaps, cfg, data, pspecs, mesh) -> list:
         if mesh.rank == 0:
             t0 = time.perf_counter()
             full = tree_map(lambda x: x.to("cuda"), full)
-            (loss, _), grads = grad_fn(full, data.batch_at(i))
-            out.append((float(loss), float(adamw.global_norm(grads))))
+            out.append(loss_and_norm(cfg, full, data.batch_at(i), f32))
             secs["compute"] += time.perf_counter() - t0
-            del grads
         del full
     dist.barrier()
     return out, secs
+
+
+def loss_and_norm(cfg, params, batch, f32=False) -> tuple:
+    """One process's loss and grad norm at ``params`` on ``batch``; with
+    ``f32`` those of the f32 model too (the params upcast, plain
+    products, chunked attention) and each leaf's grad norm there (path
+    -> norm)."""
+    from repro_torch.models.model_zoo import make_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import make_grad_fn
+    from repro_torch.tree import tree_map, tree_paths
+    (loss, _), grads = make_grad_fn(make_model(cfg, "cuda").loss)(params,
+                                                                  batch)
+    out = (float(loss), float(adamw.global_norm(grads)))
+    del grads
+    if f32:
+        p32 = tree_map(lambda x: x.float(), params)
+        (loss, _), grads = make_grad_fn(make_model(f32_of(cfg), "cuda").loss)(
+            p32, batch)
+        out += (float(loss), float(adamw.global_norm(grads)),
+                {p: float(adamw.global_norm({"g": g}))
+                 for p, g in tree_paths(grads)})
+        del grads, p32
+        free_memory()
+    return out
 
 
 def mesh_loss(model, params, batch, mesh) -> float:
@@ -3925,6 +3947,7 @@ def tp_rank(rank: int, world: int) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.distributed import context as dctx
+    from repro_torch.distributed.sharding import spec_axes
     from repro_torch.kernels import plan as plan_mod
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import train
@@ -4027,9 +4050,8 @@ def tp_rank(rank: int, world: int) -> dict:
                               warmup_steps=5, use_master=True)
     adamw.apply_updates(run.params, tree_unflatten(run.params, grads),
                         run.opt_state, opt_cfg,
-                        sharded=[any(pspecs[p]) for p, _ in
-                                 tree_paths(run.params)],
-                        model_group=mesh.group("model"))
+                        axes=[spec_axes(pspecs[p]) for p, _ in
+                              tree_paths(run.params)], mesh=mesh)
     ev[3].record()
     torch.cuda.synchronize()
     split = {"forward_ms": ev[0].elapsed_time(ev[1]),
@@ -4224,11 +4246,494 @@ def phase_tensor_parallel() -> dict:
             "train_qwen3_flash_tp4": tr[0]["launches"]}
 
 
+# A15b-2: the recurrent and audio families served whole under tensor
+# parallelism (recurrentgemma-2b fp8 and xlstm-350m bf16 on (1, 4):
+# recurrentgemma's 10 q heads do not divide 4 and run whole beside its
+# split RG-LRU width and MLP; whisper-tiny fp8 + flash on (2, 2), TP 2),
+# each teacher-forced against one process; then recurrentgemma-2b at full
+# width, cut to one cycle, trained on (2, 2) under FSDP, sequence
+# parallelism and remat.  One spawn of 4 ranks on cuda:0 runs both.
+F32 = {"dtype": "float32"}      # the model in f32 (plain products)
+TPR_SERVE = {
+    # name: (arch, config fields, mesh, batch, prompt, new tokens)
+    "rg_fp8_tp4": ("recurrentgemma-2b", {"precision": "fp8"}, (1, 4), 4,
+                   128, 8),
+    "rg_f32_tp4": ("recurrentgemma-2b", F32, (1, 4), 4, 128, 8),
+    "xlstm_bf16_tp4": ("xlstm-350m", {}, (1, 4), 4, 256, 8),
+    "xlstm_f32_tp4": ("xlstm-350m", F32, (1, 4), 4, 256, 8),
+    "whisper_fp8_flash_tp2": ("whisper-tiny", {"precision": "fp8", **FLASH},
+                              (2, 2), 4, 128, 8),
+}
+# each step's TP logits against one process in the same recipe, of the
+# step's largest logit.  f32: no e4m3 rounding follows the ranks'
+# partial sums, so only f32 reassociation and the decode caches' bf16,
+# carried through the layers, separate them (read on the H100: 1.2e-4
+# recurrentgemma, 1.6e-4 xlstm); a wrong channel, head or gate slice is
+# O(1).
+# The rounded recipes: their largest readings on the H100 (fp8
+# recurrentgemma 0.199, its random-weight fp8 recipe 0.39 from f32 in one
+# process; xlstm bf16 0.076; whisper fp8 0.029) with a quarter or more
+# to spare, whisper at the tensor_parallel phase's bound
+TPR_TOL = {"rg_fp8_tp4": 0.25, "rg_f32_tp4": 1e-3, "xlstm_bf16_tp4": 0.1,
+           "xlstm_f32_tp4": 1e-3, "whisper_fp8_flash_tp2": TP_LOGIT_TOL}
+FSDP_TRAIN = {"arch": "recurrentgemma-2b", "layers": 3, "batch": 4,
+              "seq": 256, "steps": 3, "mesh": (2, 2)}
+# each rounded recipe's TP logits against one process in f32 no further
+# than this multiple of one process's own error (fp8 or bf16) against
+# f32, the largest over the teacher-forced steps each (the
+# tensor_parallel phase's witness)
+TPR_WITNESS_MULT = 1.5
+# the FSDP + SP run's fp8 grad norm against one process's fp8 recipe at
+# the same params: TP's row-parallel partials, summed in another order,
+# round to bf16 and then to e4m3 tiles differently.  The run equals TP
+# alone, and TP alone in f32 equals one process in f32 within
+# DIST_TRAIN_TOL, at each step's params; over seeds 0-3 on the H100
+# (``--fsdp-seeds``) the fp8 gap read 2.9e-3 at most, the fp8 recipe
+# itself 1.6e-2 from f32
+FSDP_FP8_NORM_TOL = 1e-2
+
+
+def f32_of(cfg):
+    """``cfg`` in f32 with plain products and chunked attention."""
+    import torch
+    return dataclasses.replace(cfg, dtype=torch.float32, precision="bf16",
+                               attn_backend="chunked")
+
+
+def tpr_config(name: str, **kw):
+    from repro_torch.configs import get_config
+    arch, repl = TPR_SERVE[name][:2]
+    cfg = dataclasses.replace(get_config(arch),
+                              **{k: v for k, v in repl.items()
+                                 if k != "dtype"}, **kw)
+    return f32_of(cfg) if repl.get("dtype") == "float32" else cfg
+
+
+def fsdp_config(**kw):
+    from repro_torch.configs import get_config
+    t = FSDP_TRAIN
+    return dataclasses.replace(get_config(t["arch"]), precision="fp8",
+                               num_layers=t["layers"], seq_shard=True, **kw)
+
+
+def spec_bytes(state, pspecs, cfg, mesh) -> int:
+    """Bytes a rank holds of ``state`` (the params, or a tree holding
+    trees of their structure) by the specs' arithmetic on the logical
+    shapes (``pspecs``: the params' storage specs)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.tree import tree_paths
+    shapes = param_shapes(cfg)
+    specs = sharding.tree_specs(state, pspecs)
+    n = 0
+    for path, x in tree_paths(state):
+        parts = path.split("/")
+        shape = next((shapes[q] for q in ("/".join(parts[j:])
+                                         for j in range(len(parts)))
+                      if q in shapes), tuple(x.shape))
+        n += sharding.local_numel(shape, specs[path], mesh) \
+            * x.element_size()
+    return n
+
+
+def a15b2_rank(rank: int, world: int, seeds=(0,), serve=True) -> dict:
+    """One of 4 ranks on cuda:0: with ``serve``, each TPR_SERVE model
+    served whole (a warm-up prefill, then a timed generate whose steps'
+    logits rank 0 keeps); then the FSDP_TRAIN run from each of ``seeds``
+    (:func:`fsdp_rank_run`)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import context as dctx
+    from repro_torch.kernels import plan as plan_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model_zoo import make_model, synthetic_batch
+    from repro_torch.serve.engine import Engine
+    torch.cuda.set_device(0)
+    os.environ[plan_mod.CACHE_ENV] = os.path.join(
+        HERE, "build", f"tileplan_cache_a15b2_{rank}.json")
+    meshes = {s: make_mesh(s, ("data", "model")) for s in ((1, 4), (2, 2))}
+    out = {"serve": {}, "train": {}}
+    for name, (_, _, sizes, b, prompt, new) in (TPR_SERVE.items() if serve
+                                                else ()):
+        mesh = meshes[sizes]
+        cfg = tpr_config(name)
+        model = make_model(cfg, "cuda", mesh)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        free_memory()
+        torch.cuda.reset_peak_memory_stats()
+        params = model.init_params(gen)
+        batch = synthetic_batch(gen, cfg, prompt, b)
+        cap = prompt + new
+        engine = Engine(model, params, max_new_tokens=new)
+        with torch.inference_mode():
+            engine.prefill(batch, cap)                          # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        dctx.reset_collectives()
+        reset_counts()
+        steps = []
+        with kept_logits(engine, steps):
+            res, gen_ms = event_ms(lambda: engine.generate(batch))
+        counts = read_counts()
+        colls = dict(dctx.COLLECTIVES)
+        with torch.inference_mode():
+            _, prefill_ms = event_ms(lambda: engine.prefill(batch, cap))
+        out["serve"][name] = {
+            "coords": mesh.coords, "generate_ms": gen_ms,
+            "prefill_ms": prefill_ms,
+            "decode_ms_per_step": (gen_ms - prefill_ms) / (new - 1),
+            "collectives": colls, "launches": counts,
+            "expected_launches": zoo_expected(cfg, prompt, new),
+            "weight_bytes": leaf_bytes(params),
+            "weight_bytes_rule": spec_bytes(params, model.specs, cfg, mesh),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "tokens": res.tokens.cpu().numpy(),
+            "step_logits": (torch.stack(steps).cpu().numpy() if rank == 0
+                            else None)}
+        del engine, params, model, res, batch, steps
+        free_memory()
+        dist.barrier()
+    for seed in seeds:
+        out["train"][seed] = fsdp_rank_run(meshes[FSDP_TRAIN["mesh"]], seed)
+    return out
+
+
+def fsdp_rank_run(mesh, seed: int) -> dict:
+    """This rank's part of the FSDP_TRAIN run from ``seed`` (recurrentgemma
+    at full width, one cycle, on (2, 2): FSDP, sequence parallelism,
+    remat), then, at the params each step started from: one process's
+    fp8 loss and grad norm and its f32 ones with each leaf's f32 grad
+    norm (rank 0's), and TP alone's (no FSDP, no sequence parallelism)
+    in fp8 and in f32 (with each leaf's)."""
+    import torch
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed.sharding import spec_axes, use_leaf
+    from repro_torch.launch.train import train
+    from repro_torch.models.model_zoo import make_model
+    from repro_torch.models.transformer import storage_specs
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import make_grad_fn
+    from repro_torch.tree import tree_map, tree_paths, tree_unflatten
+    t = FSDP_TRAIN
+    cfg = fsdp_config()
+    torch.cuda.reset_peak_memory_stats()
+    dctx.reset_collectives()
+    reset_counts()
+    snaps = []
+    t0 = time.perf_counter()
+    with step_params(snaps):
+        run = train(cfg, steps=t["steps"], batch=t["batch"], seq=t["seq"],
+                    seed=seed, device="cuda", mesh=mesh, fsdp=True,
+                    log=lambda line: None)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    colls = dict(dctx.COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated()
+    state = {"params": run.params, "opt": run.opt_state}
+    pspecs = storage_specs(run.params, cfg, mesh, fsdp=True)
+    state_bytes = leaf_bytes(state)
+    state_rule = spec_bytes(state, pspecs, cfg, mesh)
+    state_no_fsdp = spec_bytes(state, storage_specs(run.params, cfg, mesh),
+                               cfg, mesh)
+    history, data = run.history, run.data
+    del run, state
+    free_memory()
+    at_own, at_own_s = one_process_at(snaps, cfg, data, pspecs, mesh,
+                                      f32=True)
+
+    def loss_norm(model, params, specs, batch, leaves=False):
+        (loss, _), grads = make_grad_fn(model.loss, mesh=mesh, specs=specs)(
+            params, batch)
+        axes = [spec_axes(specs[p]) for p, _ in tree_paths(grads)]
+        out = (float(loss), float(adamw.global_norm(grads, axes=axes,
+                                                    mesh=mesh)))
+        if leaves:
+            out += ({p: float(adamw.global_norm({"g": g}, axes=[a],
+                                                mesh=mesh))
+                     for (p, g), a in zip(tree_paths(grads), axes)},)
+        return out
+
+    # the same params under TP alone in fp8, which the run should equal,
+    # and in f32, held against one process in f32 where no bf16 or e4m3
+    # rounding follows the partial sums
+    t0 = time.perf_counter()
+    tp_cfg = dataclasses.replace(cfg, seq_shard=False)
+    tp_model = make_model(tp_cfg, "cuda", mesh)
+    tp_model32 = make_model(f32_of(tp_cfg), "cuda", mesh)
+    tp_at, f32_at = [], []
+    for i in range(t["steps"]):
+        if i == 0:
+            own = make_model(cfg, "cuda", mesh, fsdp=True).init_params(
+                torch.Generator(device="cuda").manual_seed(seed))
+        else:
+            own = tree_map(lambda x: x.to("cuda"), snaps[i - 1])
+        with torch.no_grad():
+            params = tree_unflatten(own, [use_leaf(x, pspecs[p], mesh)
+                                          for p, x in tree_paths(own)])
+        del own
+        tp_at.append(loss_norm(tp_model, params,
+                               storage_specs(params, tp_cfg, mesh),
+                               data.batch_at(i)))
+        params = tree_map(lambda x: x.float(), params)
+        f32_at.append(loss_norm(
+            tp_model32, params, storage_specs(params, tp_model32.cfg, mesh),
+            data.batch_at(i), leaves=True))
+        del params
+        free_memory()
+    tp_s = time.perf_counter() - t0
+    del snaps
+    step0 = None
+    if mesh.rank == 0:
+        full = make_model(cfg, "cuda").init_params(
+            torch.Generator(device="cuda").manual_seed(seed))
+        step0 = loss_and_norm(cfg, full, data.batch_at(0), f32=True)
+        del full
+        free_memory()
+    return {
+        "coords": mesh.coords, "train_s": train_s,
+        "history": [(h["loss"], h["grad_norm"], h["step_ms"])
+                    for h in history],
+        "one_process_at_own_params": ([step0] + at_own if mesh.rank == 0
+                                      else []),
+        "tp_alone_at_own_params": tp_at,
+        "tp_alone_f32_at_own_params": f32_at, "tp_alone_s": tp_s,
+        "one_process_s": at_own_s, "launches": counts, "collectives": colls,
+        "peak_gb": peak / 1e9, "state_bytes": state_bytes,
+        "state_bytes_rule": state_rule,
+        "state_bytes_without_fsdp": state_no_fsdp}
+
+
+def teacher_forced(model, params, batch, toks, cap: int, new: int):
+    """One process's logits of a prefill and ``new - 1`` decode steps fed
+    ``toks`` [B, new], stacked [steps, B, V] in f32."""
+    import torch
+    from repro_torch.serve.engine import Engine
+    engine = Engine(model, params, max_new_tokens=new)
+    with torch.inference_mode():
+        last, cache = engine.prefill(batch, cap)
+        out = [last.float()]
+        for i in range(new - 1):
+            lg, cache = engine.decode_step(toks[:, i], cache)
+            out.append(lg.float())
+    return torch.stack(out)
+
+
+def check_serve(name: str, serve: list) -> "list[str]":
+    """The tp_recurrent gates of the TPR_SERVE model ``name`` on the
+    ranks' readings ``serve``: its every step teacher-forced in one
+    process in its own recipe (TP within TPR_TOL of it) and, for a
+    rounded recipe, in f32 (TP within TPR_WITNESS_MULT of one process's
+    own error); launches and weight bytes a rank exact.  Emits its line
+    and returns the failures."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model_zoo import make_model, synthetic_batch
+    from repro_torch.tree import tree_map
+    _, _, sizes, b, prompt, new = TPR_SERVE[name]
+    cfg = tpr_config(name)
+    rounded = cfg.dtype != torch.float32
+    cap = prompt + new
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_model(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init_params(gen)
+    batch = synthetic_batch(gen, cfg, prompt, b)
+    one_bytes = leaf_bytes(params)
+    toks = torch.from_numpy(serve[0]["tokens"]).cuda()
+    one = teacher_forced(model, params, batch, toks, cap, new)
+    one_peak = torch.cuda.max_memory_allocated()
+    f32 = one
+    if rounded:
+        params = tree_map(lambda x: x.float(), params)
+        free_memory()
+        f32 = teacher_forced(make_model(f32_of(cfg), "cuda"), params, batch,
+                             toks, cap, new)
+    del params, model
+    free_memory()
+    tp = torch.from_numpy(serve[0]["step_logits"]).cuda()
+
+    def rel(a, b):      # each step's max error, of its largest logit
+        return ((a - b).abs().amax(dim=(1, 2))
+                / b.abs().amax(dim=(1, 2))).tolist()
+    err = {"tp_vs_one": rel(tp, one), "tp_vs_f32": rel(tp, f32),
+           "one_vs_f32": rel(one, f32)}
+    argmax_equal = int((toks.T == one.argmax(-1)).sum())
+    del one, f32, tp, toks
+    free_memory()
+    tokens_equal = all(np.array_equal(x["tokens"], serve[0]["tokens"])
+                       for x in serve)
+    emit({"phase": "tp_recurrent_serve", "config": name, "arch": cfg.name,
+          "layers": cfg.num_layers, "mesh": list(sizes), "batch": b,
+          "prompt": prompt, "new": new, "precision": cfg.precision,
+          "dtype": str(cfg.dtype).removeprefix("torch."),
+          "attn_backend": cfg.attn_backend,
+          "tokens_equal_across_ranks": tokens_equal,
+          "logits_err_rel_to_max": err,
+          "largest_err_tp_vs_one": max(err["tp_vs_one"]),
+          "tol": TPR_TOL[name],
+          "witness_mult": TPR_WITNESS_MULT if rounded else None,
+          "tokens_argmax_equal": argmax_equal,
+          "tokens_total": int(serve[0]["tokens"].size),
+          "weight_bytes_rank": serve[0]["weight_bytes"],
+          "weight_bytes_rule": serve[0]["weight_bytes_rule"],
+          "weight_bytes_one_process": one_bytes,
+          "peak_gb_one_process": one_peak / 1e9,
+          "timing_note": "ms of ranks sharing one card",
+          "ranks": [{k: v for k, v in x.items()
+                     if k not in ("tokens", "step_logits")}
+                    for x in serve]})
+    failures = []
+    for r, x in enumerate(serve):
+        if x["launches"] != x["expected_launches"]:
+            failures.append(f"{name} rank {r}: launches {x['launches']}")
+        if x["weight_bytes"] != x["weight_bytes_rule"]:
+            failures.append(f"{name} rank {r}: {x['weight_bytes']} weight "
+                            f"bytes, the rule's {x['weight_bytes_rule']}")
+    if not tokens_equal:
+        failures.append(f"{name}: tokens differ between ranks")
+    if not all(map(math.isfinite, err["tp_vs_one"])) or \
+            not max(err["tp_vs_one"]) <= TPR_TOL[name]:
+        failures.append(f"{name}: TP vs one process {err['tp_vs_one']}, "
+                        f"bound {TPR_TOL[name]}")
+    if rounded and not max(err["tp_vs_f32"]) <= TPR_WITNESS_MULT * max(
+            err["one_vs_f32"]):
+        failures.append(f"{name}: against f32, TP {err['tp_vs_f32']} and "
+                        f"one process {err['one_vs_f32']}")
+    return failures
+
+
+def check_fsdp(tr: list, seed: int) -> "list[str]":
+    """The fsdp_seq_parallel gates on the ranks' readings ``tr`` of the
+    run from ``seed``, at each step's params: the fp8 loss within
+    DIST_TRAIN_TOL of one process's and the grad norm within
+    FSDP_FP8_NORM_TOL; loss and grad norm within DIST_TRAIN_TOL of TP
+    alone's; TP alone in f32: the loss, the grad norm and each leaf's
+    grad norm within DIST_TRAIN_TOL of one process's; the ranks'
+    histories and launches equal, B1-B4 launched, state bytes a rank
+    exact.  Emits its line and returns the failures."""
+    t = FSDP_TRAIN
+    hist = tr[0]["history"]
+    own = tr[0]["one_process_at_own_params"]
+    tp_alone, f32 = tr[0]["tp_alone_at_own_params"], \
+        tr[0]["tp_alone_f32_at_own_params"]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b) if b else abs(a)
+    steps = list(zip(hist, own, tp_alone, f32))
+    readings = {
+        "loss_vs_one": [rel(h[0], o[0]) for h, o, _, _ in steps],
+        "grad_norm_vs_one": [rel(h[1], o[1]) for h, o, _, _ in steps],
+        "one_grad_norm_vs_f32": [rel(o[1], o[3]) for _, o, _, _ in steps],
+        "vs_tp_alone": [max(rel(h[0], a[0]), rel(h[1], a[1]))
+                        for h, _, a, _ in steps],
+        "tp_f32_loss_vs_one": [rel(f[0], o[2]) for _, o, _, f in steps],
+        "tp_f32_grad_norm_vs_one": [rel(f[1], o[3])
+                                    for _, o, _, f in steps],
+        "tp_f32_worst_leaf": [max(((rel(f[2].get(p, math.inf), n), p)
+                                for p, n in o[4].items()),
+                               default=(math.inf, None))
+                           for _, o, _, f in steps]}
+    losses = [h[0] for h in hist]
+    emit({"phase": "fsdp_seq_parallel", "seed": seed, "arch": t["arch"],
+          "layers": t["layers"], "mesh": list(t["mesh"]), "fsdp": True,
+          "seq_shard": True, "remat": True, "precision": "fp8",
+          "batch": t["batch"], "seq": t["seq"], "steps": t["steps"],
+          "params": fsdp_config().param_count(), "losses": losses,
+          "grad_norms": [h[1] for h in hist],
+          "one_process_at_own_params": [o[:4] for o in own],
+          "tp_alone_at_own_params": tp_alone,
+          "tp_alone_f32_at_own_params": [f[:2] for f in f32],
+          "rel": readings, "tol": DIST_TRAIN_TOL,
+          "fp8_grad_norm_tol": FSDP_FP8_NORM_TOL,
+          "state_bytes_rank": tr[0]["state_bytes"],
+          "state_bytes_rule": tr[0]["state_bytes_rule"],
+          "state_bytes_rank_without_fsdp":
+              tr[0]["state_bytes_without_fsdp"],
+          "timing_note": "ms of ranks sharing one card",
+          "ranks": [{k: v for k, v in x.items()
+                     if k not in ("history", "one_process_at_own_params",
+                                  "tp_alone_at_own_params",
+                                  "tp_alone_f32_at_own_params")}
+                    | {"step_ms": [h[2] for h in x["history"]]}
+                    for x in tr]})
+    failures = []
+    for r, x in enumerate(tr):
+        if x["launches"] != tr[0]["launches"]:
+            failures.append(f"fsdp rank {r}: launches {x['launches']}")
+        if x["state_bytes"] != x["state_bytes_rule"]:
+            failures.append(f"fsdp rank {r}: {x['state_bytes']} state "
+                            f"bytes, the rule's {x['state_bytes_rule']}")
+        if [h[:2] for h in x["history"]] != [h[:2] for h in hist]:
+            failures.append(f"fsdp rank {r}: history differs from rank 0")
+    for k in ("quantize_tilewise", "act_quantize", "gmm", "wgrad"):
+        if not tr[0]["launches"].get(k):
+            failures.append(f"fsdp: {k} never launched")
+    if not len(own) == len(tp_alone) == len(f32) == t["steps"]:
+        failures.append(f"fsdp: one process at {len(own)} steps, TP alone "
+                        f"at {len(tp_alone)}, f32 at {len(f32)}")
+    bounds = {"loss_vs_one": DIST_TRAIN_TOL,
+              "grad_norm_vs_one": FSDP_FP8_NORM_TOL,
+              "vs_tp_alone": DIST_TRAIN_TOL,
+              "tp_f32_loss_vs_one": DIST_TRAIN_TOL,
+              "tp_f32_grad_norm_vs_one": DIST_TRAIN_TOL}
+    for k, bound in bounds.items():
+        for i, v in enumerate(readings[k]):
+            if not v <= bound:
+                failures.append(f"fsdp seed {seed}: step {i} {k} {v}, "
+                                f"bound {bound}")
+    for i, (v, path) in enumerate(readings["tp_f32_worst_leaf"]):
+        if not v <= DIST_TRAIN_TOL:
+            failures.append(f"fsdp seed {seed}: step {i} TP's f32 grad "
+                            f"norm of {path} {v} from one process's")
+    if not all(math.isfinite(v) for v in losses):
+        failures.append(f"fsdp: losses {losses}")
+    return failures
+
+
+def phase_a15b2(seeds=(0,), serve=True) -> dict:
+    """The ``tp_recurrent`` and ``fsdp_seq_parallel`` phases (A15b-2) on 4
+    ranks sharing the card over gloo: each TPR_SERVE model served whole
+    under TP (:func:`check_serve`), then the FSDP_TRAIN run from each of
+    ``seeds`` (:func:`check_fsdp`).  ``serve=False`` runs the training
+    alone.  Returns the launch counts of the paths (rank 0's, the first
+    seed's run)."""
+    from repro_torch.launch.ranks import run_ranks
+    t_phase = time.perf_counter()
+    emit({"phase": "tp_recurrent_setup", "ranks": 4, "backend": "gloo",
+          "device": "cuda:0", "why": TP_WHY, "seeds": list(seeds)})
+    free_memory()
+    d = os.path.join(HERE, "build", "chip_smoke_a15b2")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks(a15b2_rank, 4, backend="gloo", store_dir=d,
+                      timeout=900, args=(tuple(seeds), serve))
+    ranks_s = time.perf_counter() - t0
+    failures, paths = [], {}
+    for name in TPR_SERVE if serve else ():
+        serve_ranks = [r["serve"][name] for r in ranks]
+        failures += check_serve(name, serve_ranks)
+        paths[f"serve_{name}"] = serve_ranks[0]["launches"]
+    for seed in seeds:
+        tr = [r["train"][seed] for r in ranks]
+        failures += check_fsdp(tr, seed)
+        paths.setdefault("train_rg_fp8_fsdp_sp", tr[0]["launches"])
+    emit({"phase": "a15b2", "seconds": time.perf_counter() - t_phase,
+          "four_ranks_s": ranks_s})
+    if failures:
+        raise AssertionError("a15b2: " + "; ".join(failures))
+    return paths
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
                     help="probe, build, kernel, autotune and analysis "
                          "checks only")
+    ap.add_argument("--fsdp-seeds", default=None,
+                    help="comma-separated seeds: the fsdp_seq_parallel "
+                         "phase alone, its run from each")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4246,6 +4751,15 @@ def main(argv=None) -> int:
     emit({"phase": "probe", **info})
     t0 = time.perf_counter()
     build.build_all()
+    if args.fsdp_seeds is not None:
+        seeds = [int(x) for x in args.fsdp_seeds.split(",")]
+        with timed("fsdp_seq_parallel seeds"):
+            phase_a15b2(seeds, serve=False)
+        print(info["nvidia_smi"], flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     notes = build.LAST_BUILD.get("ptxas", {})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "dir": os.path.relpath(str(build.build_all()), HERE),
@@ -4327,6 +4841,9 @@ def main(argv=None) -> int:
         free_memory()
         with timed("tensor_parallel"):
             paths.update(phase_tensor_parallel())
+        free_memory()
+        with timed("tp_recurrent + fsdp_seq_parallel"):
+            paths.update(phase_a15b2())
         # launches: the sum over the main paths driven (serving and
         # training in each configuration, training with the fp8 wgrad),
         # each counted from 0
@@ -4367,7 +4884,8 @@ def main(argv=None) -> int:
         for p in ("serve_fp8_flash", "serve_qwen3_flash", "train_fp8_flash",
                   "train_qwen3_flash", "serve_yi_fp8_flash",
                   "serve_pixtral_fp8_flash", "serve_whisper_fp8_flash",
-                  "serve_yi_bf16_flash_tp4", "train_qwen3_flash_tp4"):
+                  "serve_yi_bf16_flash_tp4", "train_qwen3_flash_tp4",
+                  "serve_whisper_fp8_flash_tp2"):
             if not paths[p].get("flash_attention"):
                 raise AssertionError(f"{p}: flash attention never launched")
         emit({"kernels": rows})

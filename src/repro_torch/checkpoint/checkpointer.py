@@ -19,12 +19,13 @@ bit for bit.  Leaves go to and from the host one at a time.
 Sharded (``mesh`` and ``specs``, the path -> spec of every leaf as
 stored, ``distributed.sharding.tree_specs``): a checkpoint keeps the
 full logical arrays, the reference's format, so it restores onto any
-mesh.  :func:`save` gathers each sharded leaf over its axes on the
-ranks of the first data row, rank 0 writes, and every rank waits at a
-barrier until the step is published; :func:`restore` reads the full
-arrays on every rank and keeps each rank's slice for the mesh it
-restores onto, which may be another than the one that saved (the
-elastic restart).
+mesh, with or without FSDP.  :func:`save` gathers each sharded leaf
+over its axes on the ranks of the first pod and data row (a leaf
+sharded over ``data``, an FSDP shard, on every rank of that pod's data
+axis as well), rank 0 writes, and every rank waits at a barrier until
+the step is published; :func:`restore` reads the full arrays on every
+rank and keeps each rank's slice for the mesh it restores onto, which
+may be another than the one that saved (the elastic restart).
 """
 from __future__ import annotations
 
@@ -66,9 +67,14 @@ def _structure(tree) -> str:
     return "*"
 
 
-def _first_data_row(mesh) -> bool:
-    return all(mesh.coord(a) == 0 for a in ("pod", "data")
-               if a in mesh.axis_names)
+def _joins(mesh, spec) -> bool:
+    """Whether this rank takes part in gathering a leaf stored by
+    ``spec``: on the first pod, the first data row, and every data rank
+    where ``spec`` names ``data``."""
+    if "pod" in mesh.axis_names and mesh.coord("pod"):
+        return False
+    return "data" not in mesh.axis_names or mesh.coord("data") == 0 or \
+        "data" in sharding.spec_axes(spec)
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep_last: int = 3,
@@ -78,9 +84,10 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep_last: int = 3,
     named = tree_paths(tree)
     if mesh is not None:
         # the full arrays, gathered on the first data row's ranks
-        full = (sharding.gather_leaf(x, specs[p], mesh) for p, x in named)
+        full = (sharding.gather_leaf(x, specs[p], mesh) for p, x in named
+                if _joins(mesh, specs[p]))
         if mesh.rank != 0:
-            for _ in (full if _first_data_row(mesh) else ()):
+            for _ in full:
                 pass
             dist.barrier()
             return final

@@ -6,10 +6,12 @@ The fields carry the names and defaults of the JAX package's
 (``num_patches``, ``patch_embed_dim``) fields included, and ``remat``
 (default True, as in the JAX package: a training forward with gradients
 recomputes each cycle of ``block_pattern``, and whisper's layers, in the
-backward instead of keeping their activations).  ``scan_layers`` is left
-out, as the port keeps its layers in a list, and so are the distribution
-switches (``seq_shard``, ``moe_reduce_bf16``): a mesh is an argument of
-``make_model``, not a field.
+backward instead of keeping their activations), and ``seq_shard``
+(default False, as in the JAX package: under a model axis larger than 1
+the residual stream is split over it along the sequence, Megatron-SP;
+the mesh itself is an argument of ``make_model``, not a field).
+``scan_layers`` is left out, as the port keeps its layers in a list, and
+so is ``moe_reduce_bf16`` (ROADMAP C).
 ``block_pattern`` is cycled over the layers: ``"attn"`` (attention and
 an MLP or MoE), ``"rglru"`` (the RG-LRU recurrence and an MLP),
 ``"mlstm"`` or ``"slstm"`` (the xLSTM blocks).  ``moe_dispatch`` is
@@ -80,6 +82,7 @@ class ModelConfig:
     # tile shapes of every grouped GEMM; None = KernelConfig()
     kernel_config: Optional[KernelConfig] = None
     remat: bool = True
+    seq_shard: bool = False            # Megatron-SP: residual split on model
     attn_chunk: int = 512
     moe_dispatch: str = "ragged"       # "ragged" (paper) | "dense" (GShard)
     attn_backend: str = "chunked"      # "chunked" | "flash"

@@ -245,7 +245,8 @@ def _dense_experts(params, xs: torch.Tensor, gs: torch.Tensor,
 
 
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
-              ep_size: int = 1, group=None, batch_group=None):
+              ep_size: int = 1, group=None, batch_group=None,
+              seq: bool = False):
     """x: [T, d_model] (this data rank's tokens, replicated over the model
     axis).  Returns (y [T, d_model], aux dict).
 
@@ -254,7 +255,10 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
     without it the call returns this rank's partial.  ``batch_group``
     (the data axis, in training) averages the load-balance statistics
     over the data ranks, so the loss is the whole batch's, as one rank
-    computes it (each data rank holds as many tokens)."""
+    computes it (each data rank holds as many tokens).  ``seq`` (sequence
+    parallelism): ``x`` is the sequence gathered over ``group``, whose
+    gather sums the ranks' input gradients, and ``y`` is this rank's f32
+    partial, for the caller to reduce-scatter."""
     if cfg.dispatch not in ("ragged", "dense"):
         raise ValueError(f"unknown dispatch {cfg.dispatch!r}")
     if cfg.precision not in ("fp8", "bf16"):
@@ -272,7 +276,9 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
     router = params["router"]
     if sharded:
         # replicated inputs: every rank's gradient is a part of the whole
-        x, router = dctx.copy_to(x, group), dctx.copy_to(router, group)
+        router = dctx.copy_to(router, group)
+        if not seq:
+            x = dctx.copy_to(x, group)
 
     # ---- routing (real f32: TF32 is off for the whole port) -------------
     logits = x.to(cfg.router_dtype) @ router.to(cfg.router_dtype)
@@ -400,7 +406,7 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
                                 x @ params["shared_up"])
             out = out + (sh @ params["shared_down"]).float()
 
-    if sharded:
+    if sharded and not seq:
         out = dctx.reduce_from(out, group)     # f32 partials
 
     # ---- aux: load-balance loss + drop stats --------------------------------
@@ -421,7 +427,7 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *, ep_rank: int = 0,
         "dropped_fraction": 1.0 - kept / num_slots,
         "expert_ids": ids,
     }
-    return out.to(x.dtype), aux
+    return (out if seq else out.to(x.dtype)), aux
 
 
 # ---------------------------------------------------------------------------

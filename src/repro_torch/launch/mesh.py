@@ -8,7 +8,10 @@ mesh sits at ``(r // model, r % model)``.  Built while a default process
 group exists, the mesh also holds this rank's coordinates and, for each
 axis, the process group of the ranks that differ from this one only
 along that axis (``group("model")`` is this rank's row of the model
-axis).  Every rank builds every group, in the same order, as
+axis), and, on a mesh with both ``pod`` and ``data``, the group of the
+joint batch axis ``("pod", "data")`` (the reference's batch spec
+``P(("pod", "data"))``: the ranks that differ from this one in pod or
+data, pod-major).  Every rank builds every group, in the same order, as
 ``dist.new_group`` requires.  A mesh built with no process group (the
 production meshes, a dry run, the CPU tests) holds shapes, and
 coordinates where a rank is given; asking it for a group raises.
@@ -27,6 +30,8 @@ import torch.distributed as dist
 
 #: model-axis sizes the elastic re-mesh tries, largest first
 MODEL_PARALLEL_CANDIDATES = (16, 8, 4, 2, 1)
+#: the axes a batch's rows are split over, major first
+BATCH_AXES = ("pod", "data")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -67,27 +72,52 @@ class Mesh:
     def coord(self, axis: str) -> int:
         return self.coords[axis]
 
-    def group(self, axis: str):
-        """The process group of this rank's line along ``axis``."""
+    @property
+    def batch_axes(self) -> tuple:
+        """The axes of :data:`BATCH_AXES` this mesh has."""
+        return tuple(a for a in BATCH_AXES if a in self.axis_names)
+
+    @property
+    def batch_ranks(self) -> int:
+        """How many blocks a batch's rows split into."""
+        return math.prod(self.shape[a] for a in self.batch_axes)
+
+    def batch_coord(self) -> int:
+        """This rank's block of a batch's rows (pod-major)."""
+        idx = 0
+        for a in self.batch_axes:
+            idx = idx * self.shape[a] + self.coord(a)
+        return idx
+
+    def batch_group(self):
+        """The process group of the joint batch axis (``data`` alone on a
+        mesh without ``pod``)."""
+        axes = self.batch_axes
+        return self.group(axes if len(axes) > 1 else axes[0])
+
+    def group(self, axis):
+        """The process group of this rank's line along ``axis`` (or its
+        plane along a tuple of axes: ``("pod", "data")``)."""
         if self.groups is None:
             raise RuntimeError("this mesh holds shapes only: it was built "
                                "with no process group initialised")
         return self.groups[axis]
 
 
-def _lines(sizes: tuple, axis: int) -> list:
-    """Every line of ranks along ``axis`` (the others fixed), in
-    row-major order of the other coordinates."""
+def _lines(sizes: tuple, axes) -> list:
+    """Every line (or plane, for a tuple of axis indices) of ranks along
+    ``axes``, the others fixed, in row-major order of the other
+    coordinates; each lists its ranks row-major over ``axes``."""
+    axes = (axes,) if isinstance(axes, int) else tuple(axes)
     strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
-    others = [i for i in range(len(sizes)) if i != axis]
-    lines = []
-    for flat in range(math.prod(sizes[i] for i in others)):
-        base, rest = 0, flat
-        for i in reversed(others):
-            base += (rest % sizes[i]) * strides[i]
-            rest //= sizes[i]
-        lines.append([base + j * strides[axis] for j in range(sizes[axis])])
-    return lines
+    others = [i for i in range(len(sizes)) if i not in axes]
+
+    def offsets(dims):
+        out = [0]
+        for i in dims:
+            out = [o + j * strides[i] for o in out for j in range(sizes[i])]
+        return out
+    return [[base + o for o in offsets(axes)] for base in offsets(others)]
 
 
 def make_mesh(sizes, axis_names, *, with_groups: Optional[bool] = None
@@ -106,7 +136,11 @@ def make_mesh(sizes, axis_names, *, with_groups: Optional[bool] = None
                          f"the process group has {world}")
     rank = dist.get_rank()
     groups = {}
-    for i, name in enumerate(axis_names):
+    keys = list(enumerate(axis_names))
+    if all(a in axis_names for a in BATCH_AXES):
+        keys.append((tuple(axis_names.index(a) for a in BATCH_AXES),
+                     BATCH_AXES))
+    for i, name in keys:
         for line in _lines(sizes, i):
             g = dist.new_group(line)        # every rank, every line
             if rank in line:

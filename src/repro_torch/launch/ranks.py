@@ -8,7 +8,10 @@ process group is initialised through a ``FileStore`` under
 ``store_dir`` (no network port), with ``WORLD_SIZE``, ``RANK`` and
 ``LOCAL_RANK`` set as ``torchrun`` sets them and one intra-op thread.
 ``fn`` must be importable by name (a module-level function), and what it
-returns must pickle (numbers, numpy arrays, host tensors).  A rank that
+returns must pickle (numbers, numpy arrays, host tensors).  Each rank
+pickles its result to bytes itself: a tensor put on a queue as it is
+would travel as a handle to the rank's shared memory, which the parent
+cannot open once the rank has exited.  A rank that
 raises, dies, or outlives ``timeout`` seconds fails the whole run: the
 parent kills every rank still alive and raises, so a collective that
 hangs cannot hang the caller.  The ranks' devices are ``fn``'s choice;
@@ -39,7 +42,8 @@ def _rank_main(call_path, rank, world, backend, store_path, threads, out):
         dist.init_process_group(backend, rank=rank, world_size=world,
                                 store=dist.FileStore(store_path, world))
         try:
-            out.put((rank, True, fn(rank, world, *args)))
+            out.put((rank, True, pickle.dumps(fn(rank, world, *args),
+                                              pickle.HIGHEST_PROTOCOL)))
         finally:
             if dist.is_initialized():
                 dist.destroy_process_group()
@@ -87,7 +91,7 @@ def run_ranks(fn, world_size: int, *, backend: str = "gloo",
                 continue
             if not ok:
                 raise RuntimeError(f"rank {rank} failed:\n{res}")
-            results[rank] = res
+            results[rank] = pickle.loads(res)
         for p in procs:
             p.join(timeout=max(deadline - time.monotonic(), 1.0))
     finally:

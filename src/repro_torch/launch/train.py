@@ -95,15 +95,18 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           warmup_steps: Optional[int] = None,
           wgrad_precision: Optional[str] = None,
           ckpt_dir: Optional[str] = None, save_every: int = 50,
-          fail_at_step: int = -1, log=print, mesh=None) -> TrainRun:
+          fail_at_step: int = -1, log=print, mesh=None,
+          fsdp: bool = False) -> TrainRun:
     """Train ``cfg`` from random weights (drawn from ``seed``) on the
     synthetic pipeline up to step ``steps``.  Warmup defaults to the JAX
     package's ``max(steps // 20, 5)``; bf16 models keep f32 masters.  The
     optimizer config depends on the arguments alone, so a resumed run's
     schedule is the uninterrupted one's; its history starts at the
     resumed step.  On a ``mesh`` (process groups built) the run is
-    sharded: only rank 0 calls ``log`` and writes checkpoints."""
-    model = make_model(cfg, device, mesh)
+    sharded (``fsdp``: the big leaves over ``data`` too, the reference's
+    FSDP rule, on leaves of ``sharding.FSDP_MIN_SIZE`` elements or
+    more): only rank 0 calls ``log`` and writes checkpoints."""
+    model = make_model(cfg, device, mesh, fsdp=fsdp)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params = model.init_params(gen)
     if mesh is not None and mesh.rank != 0:
@@ -115,7 +118,8 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         use_master=cfg.dtype == torch.bfloat16)
     opt_state = adamw.init_opt_state(params, opt_cfg)
     state = {"params": params, "opt": opt_state}
-    pspecs = None if mesh is None else storage_specs(params, cfg, mesh)
+    pspecs = None if mesh is None else storage_specs(
+        params, cfg, mesh, fsdp=fsdp)
     specs = None if mesh is None else tree_specs(state, pspecs)
     step_fn = make_train_step(model.loss, opt_cfg, grad_accum=grad_accum,
                               wgrad_precision=wgrad_precision, mesh=mesh,

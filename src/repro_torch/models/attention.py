@@ -29,7 +29,10 @@ token's q/k/v over the heads, the rank owning slot ``pos`` writes it,
 every rank attends all heads over its slots, and the partial softmax
 statistics are combined over the group (flash-decode).  A cache whose
 slots (capacity, or ring window) the axis does not divide stays whole on
-every rank, as the reference's ``spec_for`` leaves it.
+every rank, as the reference's ``spec_for`` leaves it.  Under sequence
+parallelism (``seq``) the block takes the gathered sequence and
+reduce-scatters ``wo``'s partials (``layers.sublayer``); the caches
+stay on their slots (``kv_seq``).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from repro_torch.kernels.flash_attention_kernel import \
     flash_attention_trainable
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import (init_rms_norm, ninit, rms_norm,
-                                       row_parallel, rope)
+                                       row_parallel, rope, tp_in)
 
 
 def init_attention(cfg, dtype, *, generator, device):
@@ -251,20 +254,22 @@ def _gather_heads(group, *ts):
 
 def attention_block(p, x, cfg, positions, *, cache=None, layer_window=None,
                     causal=True, mode="train", cache_capacity=None,
-                    pos_offset: int = 0, group=None, kv_split=True):
+                    pos_offset: int = 0, group=None, kv_split=True,
+                    seq: bool = False):
     """Full attention sub-block.  With ``cache`` (dict k, v, len) performs
     one decode step, writing the new K/V into the cache IN PLACE, and
     returns (out, cache); in prefill mode builds the cache from the
     full-sequence K/V.  ``pos_offset`` is ``positions[0]`` as a host
     integer, so no step reads the device back.  ``group``: the model
     axis, whose ranks hold slices of the q heads, and of the kv heads
-    where ``kv_split`` (else ``wk``/``wv`` are whole; module docstring)."""
+    where ``kv_split`` (else ``wk``/``wv`` are whole; module docstring);
+    ``seq``: ``x`` is the sequence gathered over it."""
     b, s, d = x.shape
     tp = dctx.group_size(group) > 1
     if not tp:
         group = None
     else:
-        x = dctx.copy_to(x, group)
+        x = tp_in(x, group, seq)
     kv_whole = tp and not kv_split
     if cache is None:
         q, k, v = _project_qkv(p, x, cfg, positions, group=group,
@@ -327,7 +332,7 @@ def attention_block(p, x, cfg, positions, *, cache=None, layer_window=None,
         new_cache = {**cache, "len": pos + 1}
     out = out.reshape(b, s, -1)
     if tp:
-        return row_parallel(out, p["wo"], group), new_cache
+        return row_parallel(out, p["wo"], group, seq), new_cache
     return out @ p["wo"].to(x.dtype), new_cache
 
 

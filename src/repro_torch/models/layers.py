@@ -12,6 +12,15 @@ the rows of its vocab range; :func:`unembed` gives this rank's vocab
 columns of the logits and :func:`cross_entropy` their loss over the whole
 vocab without gathering them.  Row-parallel partials are f32 and summed
 in f32 before the one cast to the activations' dtype.
+
+Sequence parallelism (``seq``, the reference's ``seq_shard``): a
+tensor-parallel module's input is the sequence gathered over the group
+(``context.gather_seq``, whose backward sums the ranks' partial input
+gradients, so the module takes no ``copy_to``), and its row-parallel
+partials are reduce-scattered back to this rank's chunk of the sequence
+(``context.scatter_seq``) instead of summed whole.  :func:`sublayer`
+places a module so, and :func:`norm` gives the norms that run on a
+rank's chunk their summed scale gradient.
 """
 from __future__ import annotations
 
@@ -108,19 +117,59 @@ class _WideProduct(torch.autograd.Function):
                            @ g.reshape(-1, g.shape[-1]))
 
 
-def row_parallel(h, w, group):
+def tp_out(y, group, seq: bool, dtype):
+    """A row-parallel module's f32 partials ``y`` [B, S, ...], summed over
+    ``group`` (reduce-scattered over the sequence where ``seq``) and cast
+    once to ``dtype``."""
+    y = dctx.scatter_seq(y, group) if seq else dctx.reduce_from(y, group)
+    return y.to(dtype)
+
+
+def row_parallel(h, w, group, seq: bool = False):
     """``h @ w`` for a row slice ``w`` of the weight: this rank's f32
-    partial, summed over ``group`` in f32 and cast once to h's dtype.
-    16-bit operands on the card stay 16-bit (:class:`_WideProduct`);
-    elsewhere, and for f32 / f64 models, the product runs in the wider
-    of f32 and h's dtype."""
+    partial, summed over ``group`` in f32 (:func:`tp_out`) and cast once
+    to h's dtype.  16-bit operands on the card stay 16-bit
+    (:class:`_WideProduct`); elsewhere, and for f32 / f64 models, the
+    product runs in the wider of f32 and h's dtype."""
     if h.is_cuda and h.dtype == w.dtype and \
             h.dtype in (torch.bfloat16, torch.float16):
         y = _WideProduct.apply(h, w)
     else:
         wide = _wide(h.dtype)
         y = h.to(wide) @ w.to(wide)
-    return dctx.reduce_from(y, group).to(h.dtype)
+    return tp_out(y, group, seq, h.dtype)
+
+
+def tp_in(x, group, seq: bool):
+    """A tensor-parallel module's input: ``copy_to`` (each rank's gradient
+    is a part) unless it is the gathered sequence, whose gather sums
+    the parts."""
+    return x if seq else dctx.copy_to(x, group)
+
+
+def norm(p, x, eps, group=None):
+    """:func:`rms_norm`; with ``group`` (a norm on this rank's chunk of a
+    sequence-parallel residual) the scale's gradient is summed over it."""
+    if group is not None:
+        p = {"scale": dctx.copy_to(p["scale"], group)}
+    return rms_norm(p, x, eps)
+
+
+def sublayer(fn, h, group, split: bool, sp: bool):
+    """``fn(h, g, seq) -> (y, extra)`` placed on the model axis ``group``:
+    tensor-parallel over it where ``split`` (``g`` is the group), whole
+    on every rank otherwise (``g`` None).  With ``sp`` (``h`` is this
+    rank's chunk of a sequence-parallel residual) a split module takes
+    the gathered sequence and reduce-scatters its output (``seq``
+    True); a whole one runs on the gathered sequence, replicated, and
+    keeps this rank's chunk of its output."""
+    g = group if split else None
+    if not sp:
+        return fn(h, g, False)
+    if g is None:
+        y, extra = fn(dctx.gather_seq(h, group, grad="own"), None, False)
+        return dctx.split_seq(y, group), extra
+    return fn(dctx.gather_seq(h, group), g, True)
 
 
 def _check_fp8_slice(precision: str, width: int, n: int) -> None:
@@ -137,24 +186,25 @@ def _check_fp8_slice(precision: str, width: int, n: int) -> None:
 
 
 def mlp(p, x, act: str = "swiglu", *, precision="bf16", config=None,
-        group=None):
+        group=None, seq: bool = False):
     """SwiGLU (``silu(x w_gate) * (x w_up)``) or tanh-GELU MLP, then
     ``w_down``.  fp8 with 128-multiple widths: the activation and its
     1x128 quantization run fused into the down GEMM's input; with
     ``config.fuse_producer`` the gate/up GEMMs store fp8 themselves.
     bf16: the activation in x's dtype, one rounding per operation, as the
     reference's.  With ``group`` the weights are this rank's ``d_ff``
-    slice: the down product's f32 partials are summed over the group."""
+    slice: the down product's f32 partials are summed over the group
+    (reduce-scattered over the sequence where ``seq``)."""
     f, d_out = p["w_down"].shape
     n = dctx.group_size(group)
     tp = n > 1
     if tp:
         _check_fp8_slice(precision, f * n, n)
-        x = dctx.copy_to(x, group)
+        x = tp_in(x, group, seq)
     out_dtype = _wide(x.dtype) if tp else None
 
     def done(y):
-        return (dctx.reduce_from(y, group) if tp else y).to(x.dtype)
+        return tp_out(y, group, seq, x.dtype) if tp else y.to(x.dtype)
     if (precision == "fp8" and config is not None and config.fuse_producer
             and x.shape[-1] % 128 == 0 and f % 128 == 0 and d_out % 128 == 0):
         # producer-fused FFN: one quantization of x, nothing wider than
@@ -181,7 +231,7 @@ def mlp(p, x, act: str = "swiglu", *, precision="bf16", config=None,
                 out_dtype=out_dtype))
         h = F.gelu(up, approximate="tanh")
     if tp:
-        return row_parallel(h, p["w_down"], group)
+        return row_parallel(h, p["w_down"], group, seq)
     return linear(h, p["w_down"], precision=precision, config=config)
 
 

@@ -7,12 +7,17 @@ of :mod:`repro_torch.models.transformer`.
 The device defaults to CUDA; without a card, and without
 ``device="cpu"``, :func:`make_model` raises.  A ``mesh``
 (``launch.mesh.Mesh``) binds the model to its ranks: an MoE layer runs
-over the mesh's model axis, attention, the dense MLP, the embedding and
-the head are tensor-parallel over it, and ``init_params`` keeps this
-rank's slice of each leaf (``transformer.storage_specs``); the logits of
-``prefill`` and ``decode_step`` are then this rank's vocab columns (the
-serving engine gathers them).  Under a model axis larger than 1 the
-RG-LRU, xLSTM and audio families raise (ROADMAP A15b-2).
+over the mesh's model axis; attention (whisper's cross-attention too),
+the dense and GELU MLPs, the embedding and the head, the RG-LRU and the
+xLSTM blocks are tensor-parallel over it wherever it divides their
+heads, widths or vocab (``transformer.tp_split``); and ``init_params``
+keeps this rank's slice of each leaf (``Model.specs``,
+``transformer.storage_specs``).  ``fsdp=True`` also shards the big
+leaves over ``data`` (the reference's FSDP rule), gathered at use;
+``cfg.seq_shard`` keeps the residual split over the model axis along
+the sequence.  The logits of ``prefill`` and ``decode_step`` are this
+rank's vocab columns where the vocab is split (the serving engine
+gathers them).
 """
 from __future__ import annotations
 
@@ -23,7 +28,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed import context as dctx
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whs
 
@@ -38,51 +42,58 @@ class Model:
     decode_step: Callable    # (params, tokens, cache) -> (logits, cache)
     init_cache: Callable     # (params, batch, batch_size, seq) -> cache
     mesh: object = None      # launch.mesh.Mesh, or None: one rank
+    fsdp: bool = False
+    specs: dict = None       # path -> storage spec of every leaf on mesh
 
 
-def make_model(cfg: ModelConfig, device=None, mesh=None) -> Model:
+def make_model(cfg: ModelConfig, device=None, mesh=None,
+               fsdp: bool = False) -> Model:
     dev = resolve_device(device)
-    tfm.tp_split(cfg, dctx.model_axis_size(mesh))   # raises where unported
+    specs = None if mesh is None else tfm.param_specs(cfg, mesh, fsdp=fsdp)
+    # the specs the forward gathers FSDP shards by
+    used = specs if fsdp and mesh is not None else None
+    kw = dict(mesh=mesh, specs=used)
     if cfg.family == "audio":
         def init_params(generator: torch.Generator):
-            return whs.init_whisper(cfg, generator=generator, device=dev)
+            return whs.init_whisper(cfg, generator=generator, device=dev,
+                                    mesh=mesh, fsdp=fsdp)
 
         def loss(params, batch):
-            return whs.whisper_loss(params, batch, cfg)
+            return whs.whisper_loss(params, batch, cfg, **kw)
 
         def prefill(params, batch, cache_capacity=None):
             logits, cache, _ = whs.whisper_forward(
                 params, batch["tokens"], batch["frames"], cfg,
-                mode="prefill", cache_capacity=cache_capacity)
+                mode="prefill", cache_capacity=cache_capacity, **kw)
             return logits, cache
 
         def decode_step(params, tokens, cache):
             logits, cache, _ = whs.whisper_forward(
-                params, tokens, None, cfg, mode="decode", cache=cache)
+                params, tokens, None, cfg, mode="decode", cache=cache, **kw)
             return logits, cache
 
         def init_cache(params, batch, batch_size, seq):
             return whs.whisper_init_cache(params, batch["frames"], cfg,
-                                          batch_size, seq)
+                                          batch_size, seq, **kw)
     else:
         def init_params(generator: torch.Generator):
             return tfm.init_decoder(cfg, generator=generator, device=dev,
-                                    mesh=mesh)
+                                    mesh=mesh, fsdp=fsdp)
 
         def loss(params, batch):
-            return tfm.lm_loss(params, batch, cfg, mesh=mesh)
+            return tfm.lm_loss(params, batch, cfg, **kw)
 
         def prefill(params, batch, cache_capacity=None):
             logits, cache, _ = tfm.decoder_forward(
                 params, batch["tokens"], cfg, mode="prefill",
                 patch_embeds=batch.get("patch_embeds"),
-                cache_capacity=cache_capacity, mesh=mesh)
+                cache_capacity=cache_capacity, **kw)
             return logits, cache
 
         def decode_step(params, tokens, cache):
             logits, cache, _ = tfm.decoder_forward(params, tokens, cfg,
                                                    mode="decode", cache=cache,
-                                                   mesh=mesh)
+                                                   **kw)
             return logits, cache
 
         def init_cache(params, batch, batch_size, seq):
@@ -91,7 +102,8 @@ def make_model(cfg: ModelConfig, device=None, mesh=None) -> Model:
 
     return Model(cfg=cfg, device=dev, init_params=init_params, loss=loss,
                  prefill=prefill, decode_step=decode_step,
-                 init_cache=init_cache, mesh=mesh)
+                 init_cache=init_cache, mesh=mesh, fsdp=fsdp,
+                 specs=specs)
 
 
 def with_kernel_config(model: Model, kernel_config) -> Model:
@@ -102,7 +114,7 @@ def with_kernel_config(model: Model, kernel_config) -> Model:
         return model
     return make_model(dataclasses.replace(model.cfg,
                                           kernel_config=kernel_config),
-                      model.device, model.mesh)
+                      model.device, model.mesh, model.fsdp)
 
 
 def synthetic_batch(generator: torch.Generator, cfg: ModelConfig,

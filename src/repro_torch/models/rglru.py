@@ -17,13 +17,27 @@ the reference noted in ROADMAP C; nothing there calls it that way).
 
 As in the JAX package, the recurrence and input gates use dense [w, w]
 projections (the released model's are block-diagonal per head).
+
+Tensor parallelism (``group``, the model axis; the reference's rules
+split ``w_x`` / ``w_y`` by columns and ``w_out`` by rows, and its
+``constrain(out, "batch", "seq", "mlp")`` keeps the LRU width split):
+each rank holds its columns of the width (its channels) of ``w_x`` and
+``w_y`` and those rows of ``w_out``, whose f32 partials the group sums.
+The conv, ``lam`` and the recurrence are per channel, so each rank runs
+its own; the leaves the rules keep whole (``conv``, ``lam``, ``w_a``,
+``w_i``) are sliced to its channels at use, through ``copy_to`` so each
+rank's gradient (its columns) is summed into the whole leaf's.  The
+gates contract over the whole width: ``u`` is gathered over the group
+(the gather's backward sums the ranks' parts).  The decode state ``h``
+and ``conv`` keep this rank's channels.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ninit
+from repro_torch.distributed import context as dctx
+from repro_torch.models.layers import ninit, row_parallel, tp_in
 
 _C = 8.0      # Griffin's fixed gate temperature
 #: time steps of one chunk of the recurrence
@@ -45,22 +59,34 @@ def init_rglru(cfg, dtype, *, generator, device):
     }
 
 
-def _gates(p, u):
-    """u: [B, S, w] post-conv activations -> (log_a, gated input), f32."""
+def _gates(p, u, group=None):
+    """u: [B, S, w] post-conv activations (this rank's channels under
+    ``group``) -> (log_a, gated input), f32."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p["w_a"].float())
-    i = torch.sigmoid(uf @ p["w_i"].float())
-    log_a = r * (-_C * F.softplus(p["lam"].float()))     # [B, S, w], <= 0
+    u_all = uf
+    if dctx.group_size(group) > 1:
+        u_all = dctx.gather_seq(u, group, dim=-1).float()
+    r = torch.sigmoid(u_all @ _mine(p["w_a"], group).float())
+    i = torch.sigmoid(u_all @ _mine(p["w_i"], group).float())
+    log_a = r * (-_C * F.softplus(_mine(p["lam"], group).float()))
     a2 = torch.exp(2.0 * log_a)
     x_in = torch.sqrt(torch.clamp(1.0 - a2, min=1e-12)) * (i * uf)
     return log_a, x_in
 
 
-def _conv1d(p, x, conv_state=None):
+def _mine(w, group):
+    """This rank's channels (the last dim's chunk) of a leaf every rank
+    holds whole; its gradient is summed over ``group``."""
+    if dctx.group_size(group) == 1:
+        return w
+    return dctx.own_chunk(dctx.copy_to(w, group), -1, group)
+
+
+def _conv1d(p, x, conv_state=None, group=None):
     """Causal depthwise conv of width cw over x [B, S, w], after the
     previous inputs ``conv_state`` [B, cw-1, w] (zeros when None).
     Returns the output and the last cw-1 inputs, in x's dtype."""
-    kern = p["conv"].float()                             # [cw, w]
+    kern = _mine(p["conv"], group).float()               # [cw, w]
     cw, s = kern.shape[0], x.shape[1]
     xf = x.float()
     prev = (xf.new_zeros((x.shape[0], cw - 1, x.shape[2]))
@@ -95,15 +121,20 @@ def linear_scan(log_a, x_in, h0=None, chunk: int = CHUNK):
     return torch.cat(outs, dim=1)
 
 
-def rglru_apply(p, x, *, state=None):
+def rglru_apply(p, x, *, state=None, group=None, seq: bool = False):
     """x: [B, S, d].  ``state`` None (from scratch) or {h [B, w] f32, conv
     [B, cw-1, w]}: one decode step when S == 1, else a chunked prefill
-    continuing from it.  Returns (y [B, S, d], new_state)."""
+    continuing from it.  Returns (y [B, S, d], new_state).  ``group``:
+    the model axis, over which the width is split (module docstring);
+    ``seq``: ``x`` is the sequence gathered over it."""
+    tp = dctx.group_size(group) > 1
+    if tp:
+        x = tp_in(x, group, seq)
     xb = x.to(p["w_x"].dtype) @ p["w_x"]                 # [B, S, w]
     yb = x.to(p["w_y"].dtype) @ p["w_y"]
     u, new_conv = _conv1d(p, xb, state["conv"] if state is not None
-                          else None)
-    log_a, x_in = _gates(p, u)
+                          else None, group)
+    log_a, x_in = _gates(p, u, group)
     if state is not None and x.shape[1] == 1:
         h = torch.exp(log_a[:, 0]) * state["h"].float() + x_in[:, 0]
         hs = h[:, None]
@@ -113,12 +144,15 @@ def rglru_apply(p, x, *, state=None):
         h = hs[:, -1]
     gate = F.gelu(yb.float(), approximate="tanh")
     out = (gate * hs).to(x.dtype)
-    y = out @ p["w_out"].to(x.dtype)
+    y = row_parallel(out, p["w_out"], group, seq) if tp \
+        else out @ p["w_out"].to(x.dtype)
     return y, {"h": h.float(), "conv": new_conv}
 
 
-def init_rglru_state(cfg, batch, *, device):
-    w, cw = cfg.lru_width or cfg.d_model, cfg.conv_width
+def init_rglru_state(cfg, batch, *, device, ways: int = 1):
+    """The zero state; ``ways``: the model axis's ranks the width is
+    split over (each keeps its channels)."""
+    w, cw = (cfg.lru_width or cfg.d_model) // ways, cfg.conv_width
     return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cw - 1, w), dtype=torch.bfloat16,
                                 device=device)}

@@ -29,13 +29,24 @@ this rank's slices, as :func:`storage_specs` gives them
 (:func:`init_decoder` keeps only that slice of each leaf as it is
 drawn).  An MoE layer runs the reference's ``_apply_moe`` branch
 (``moe_apply`` sums the partials over the model axis's process group);
-attention, the dense MLP, the embedding and the head are tensor-parallel
-(:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.layers`),
-and the logits are this rank's vocab columns.  The RG-LRU, xLSTM and
-audio families raise there (their tensor parallelism is not ported).
+attention, the dense MLP, the embedding and the head, the RG-LRU and
+both xLSTM blocks are tensor-parallel wherever :func:`tp_split` splits
+them (:mod:`repro_torch.models.attention`, :mod:`~repro_torch.models.
+layers`, :mod:`~repro_torch.models.rglru`, :mod:`~repro_torch.models.
+xlstm`), and the logits are this rank's vocab columns.  ``fsdp``
+(:func:`storage_specs`) also shards the big leaves over ``data``, the
+reference's FSDP rule: each block gathers its layer's shards at use,
+inside the remat scope, so the backward's recomputation gathers them
+again rather than keeping them.  ``cfg.seq_shard`` (the reference's
+Megatron-SP) keeps the residual stream split over ``model`` along the
+sequence where the axis divides it: each block gathers the sequence
+before attention, the MLP, the MoE and each recurrent block (a
+recurrence needs its whole sequence) and reduce-scatters their
+row-parallel outputs; the head gathers it back.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -44,13 +55,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.moe import (MoEConfig, ep_size_for, init_moe_params,
                                   moe_apply, shard_moe_params)
 from repro_torch.distributed import context as dctx
-from repro_torch.distributed.sharding import rule_dim, rule_spec, shard_tree
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (rule_dim, rule_spec,
+                                             rule_storage, shard_tree,
+                                             slice_leaf, use_leaf, use_tree)
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rg
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import (cross_entropy, embed, init_embedding,
                                        init_mlp, init_rms_norm, mlp, ninit,
-                                       remat_scope, rms_norm, unembed)
+                                       norm, remat_scope, rms_norm, sublayer,
+                                       tp_out, unembed)
 from repro_torch.tree import tree_paths
 
 #: the block kinds of ``block_pattern``
@@ -118,58 +133,82 @@ def init_block(kind: str, cfg: ModelConfig, *, generator, device,
     raise ValueError(kind)
 
 
-def _apply_moe(p, x, cfg: ModelConfig, mesh, mode: str):
+def _apply_moe(p, x, cfg: ModelConfig, mesh, mode: str, seq: bool = False):
     """The MoE FFN of [B, S, d] ``x``: on one rank, or over the mesh's
     model axis (EP where the experts divide it, else TP); in training on
     a mesh, the load-balance loss is the whole batch's (its statistics
-    averaged over the data axis)."""
+    averaged over the batch axes).  ``seq``: ``x`` is the sequence
+    gathered over the model axis, and the output is reduce-scattered
+    back to this rank's chunk."""
     mcfg = moe_config(cfg)
     b, s, d = x.shape
     kw = {}
-    if mode == "train" and mesh is not None and mesh.shape["data"] > 1:
-        kw["batch_group"] = mesh.group("data")
+    if mode == "train" and mesh is not None and mesh.batch_ranks > 1:
+        kw["batch_group"] = mesh.batch_group()
+    group = None
     if dctx.model_axis_size(mesh) > 1:
         ep = ep_size_for(mcfg, dctx.model_axis_size(mesh))
+        group = mesh.group("model")
         kw.update(ep_rank=mesh.coord("model") if ep > 1 else 0, ep_size=ep,
-                  group=mesh.group("model"))
+                  group=group, seq=seq)
     y, aux = moe_apply(p, x.reshape(b * s, d), mcfg, **kw)
-    return y.reshape(b, s, d), aux["load_balance_loss"]
+    y = y.reshape(b, s, d)
+    if seq:
+        y = tp_out(y, group, True, x.dtype)
+    return y, aux["load_balance_loss"]
 
 
 def block_apply(kind: str, p, x, cfg: ModelConfig, positions, *, cache=None,
                 mode: str = "train", cache_capacity=None, pos_offset: int = 0,
-                mesh=None):
+                mesh=None, sp: bool = False):
     """Returns (x, new_cache, aux_loss); new_cache is None in train
-    mode."""
+    mode.  ``sp``: ``x`` is this rank's chunk of a sequence-parallel
+    residual (module docstring)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     split = tp_split(cfg, dctx.model_axis_size(mesh))
     group = mesh.group("model") if split else None
-    mlp_kw = dict(precision=cfg.precision, config=cfg.resolved_kernel_config,
-                  group=group if split.get("mlp") else None)
+    ngroup = group if sp else None
+
+    def mlp_fn(pm):
+        return lambda h, g, seq: (mlp(pm, h, "swiglu", precision=cfg.precision,
+                                      config=cfg.resolved_kernel_config,
+                                      group=g, seq=seq), None)
     if kind == "attn":
-        h, new_cache = attn.attention_block(
-            p["attn"], rms_norm(p["ln1"], x, cfg.norm_eps), cfg, positions,
-            cache=cache, layer_window=cfg.window, mode=mode,
-            cache_capacity=cache_capacity, pos_offset=pos_offset,
-            group=group if split.get("heads") else None,
-            kv_split=split.get("kv", False))
+        h, new_cache = sublayer(
+            lambda h, g, seq: attn.attention_block(
+                p["attn"], h, cfg, positions, cache=cache,
+                layer_window=cfg.window, mode=mode,
+                cache_capacity=cache_capacity, pos_offset=pos_offset,
+                group=g, kv_split=split.get("kv", False), seq=seq),
+            norm(p["ln1"], x, cfg.norm_eps, ngroup), group,
+            split.get("heads", False), sp)
         x = x + h
-        h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+        h2 = norm(p["ln2"], x, cfg.norm_eps, ngroup)
         if "moe" not in p:
-            return x + mlp(p["mlp"], h2, "swiglu", **mlp_kw), new_cache, aux
-        ff, lb = _apply_moe(p["moe"], h2, cfg, mesh, mode)
+            ff, _ = sublayer(mlp_fn(p["mlp"]), h2, group,
+                             split.get("mlp", False), sp)
+            return x + ff, new_cache, aux
+        if sp:
+            h2 = dctx.gather_seq(h2, group)
+        ff, lb = _apply_moe(p["moe"], h2, cfg, mesh, mode, sp)
         return x + ff, new_cache, lb
     if kind == "rglru":
-        h, state = rg.rglru_apply(p["rglru"],
-                                  rms_norm(p["ln1"], x, cfg.norm_eps),
-                                  state=cache)
+        h, state = sublayer(
+            lambda h, g, seq: rg.rglru_apply(p["rglru"], h, state=cache,
+                                             group=g, seq=seq),
+            norm(p["ln1"], x, cfg.norm_eps, ngroup), group,
+            split.get("recurrent", False), sp)
         x = x + h
-        x = x + mlp(p["mlp"], rms_norm(p["ln2"], x, cfg.norm_eps), "swiglu",
-                    **mlp_kw)
+        ff, _ = sublayer(mlp_fn(p["mlp"]),
+                         norm(p["ln2"], x, cfg.norm_eps, ngroup), group,
+                         split.get("mlp", False), sp)
+        x = x + ff
     elif kind in ("mlstm", "slstm"):
         fn = xl.mlstm_apply if kind == "mlstm" else xl.slstm_apply
-        h, state = fn(p[kind], rms_norm(p["ln1"], x, cfg.norm_eps),
-                      state=cache)
+        h, state = sublayer(
+            lambda h, g, seq: fn(p[kind], h, state=cache, group=g, seq=seq),
+            norm(p["ln1"], x, cfg.norm_eps, ngroup), group,
+            split.get(kind, False), sp)
         x = x + h
     else:
         raise ValueError(kind)
@@ -177,123 +216,187 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, positions, *, cache=None,
 
 
 def init_block_cache(kind: str, cfg: ModelConfig, batch: int, seq_len: int,
-                     *, device, group=None):
+                     *, device, group=None, split=None):
+    """An empty cache of one layer; ``group`` (the model axis) with
+    ``split`` (:func:`tp_split`) keeps this rank's part of each state
+    the layer splits."""
+    split = split or {}
+    ways = dctx.group_size(group)
     if kind == "attn":
         return attn.init_kv_cache(cfg, batch, seq_len, cfg.window,
-                                  device=device, group=group)
+                                  device=device,
+                                  group=group if split.get("heads") else None)
     if kind == "rglru":
-        return rg.init_rglru_state(cfg, batch, device=device)
+        return rg.init_rglru_state(
+            cfg, batch, device=device,
+            ways=ways if split.get("recurrent") else 1)
     if kind == "mlstm":
-        return xl.init_mlstm_state(cfg, batch, device=device)
+        return xl.init_mlstm_state(cfg, batch, device=device,
+                                   ways=ways if split.get("mlstm") else 1)
     if kind == "slstm":
-        return xl.init_slstm_state(cfg, batch, device=device)
+        return xl.init_slstm_state(cfg, batch, device=device,
+                                   ways=ways if split.get("slstm") else 1)
     raise ValueError(kind)
 
 
 def tp_split(cfg: ModelConfig, n: int) -> dict:
-    """What a model axis of ``n`` ranks splits ({} for ``n == 1``): the q
-    heads (``"heads"``), the kv heads (``"kv"``: where they divide the
-    axis; the reference's ``spec_for`` guard, on heads, not columns),
-    the dense MLP's ``d_ff`` (``"mlp"``) and the vocab (``"vocab"``),
-    each where ``n`` divides it.  The RG-LRU, xLSTM and audio families
-    raise: their tensor parallelism is A15b-2, not ported yet, and
-    running them whole on every rank would look sharded and not be."""
+    """What a model axis of ``n`` ranks splits ({} for ``n == 1``), each
+    where ``n`` divides it: the q heads (``"heads"``), the kv heads
+    (``"kv"``: the reference's ``spec_for`` guard, on heads, not
+    columns), the dense MLP's ``d_ff`` (``"mlp"``), the vocab
+    (``"vocab"``), the RG-LRU's width (``"recurrent"``), the mLSTM's
+    heads (``"mlstm"``) and the sLSTM's channels (``"slstm"``).  A module
+    whose dim ``n`` does not divide runs whole on every rank."""
     if n == 1:
         return {}
-    if cfg.family not in ("dense", "moe", "vlm") or \
-            set(cfg.block_pattern) - {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism of the {cfg.family} family "
-            f"({'/'.join(cfg.block_pattern)} blocks) is not ported yet "
-            f"(ROADMAP A15b-2); use a model axis of 1")
     heads = cfg.num_heads % n == 0
     return {"heads": heads, "kv": heads and cfg.num_kv_heads % n == 0,
             "mlp": cfg.dense_ff_width() % n == 0,
-            "vocab": cfg.vocab_size % n == 0}
+            "vocab": cfg.vocab_size % n == 0,
+            "recurrent": (cfg.lru_width or cfg.d_model) % n == 0,
+            "mlstm": heads, "slstm": cfg.d_model % n == 0}
 
 
-def storage_specs(params, cfg: ModelConfig, mesh) -> dict:
-    """Path -> spec of every leaf of ``params`` (the model's tree, or any
-    subtree of it) as the port stores it on ``mesh``: an MoE layer's
-    leaves (under ``moe/``) as ``shard_moe_params`` lays them out (EP
-    where the experts divide the model axis, else TP on ``d_ff``), every
-    other leaf by the partition rules (``build_param_specs``) where
-    :func:`tp_split` splits it, else whole.  Read from ``cfg`` and the
-    leaf names, so ``params`` may hold full leaves or a rank's slices."""
+def _leaf_dim(path: str, ndim: int) -> Optional[str]:
+    """The :func:`tp_split` key that decides whether the leaf at ``path``
+    is split: the rule's logical dim, read as the xLSTM blocks' heads or
+    channels under ``mlstm/`` and ``slstm/``."""
+    dim = rule_dim(path, ndim)
+    parts = path.split("/")
+    if "mlstm" in parts and dim in ("heads", "kv"):
+        return "mlstm"
+    if "slstm" in parts and dim == "heads":
+        return "slstm"
+    return dim
+
+
+@functools.lru_cache(maxsize=64)
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Path -> logical shape of every leaf of ``cfg``'s param tree (drawn
+    on the meta device: nothing is allocated)."""
+    gen = torch.Generator()
+    if cfg.family == "audio":
+        from repro_torch.models.whisper import init_whisper
+        tree = init_whisper(cfg, generator=gen, device="meta")
+    else:
+        tree = init_decoder(cfg, generator=gen, device="meta")
+    return {p: tuple(x.shape) for p, x in tree_paths(tree)}
+
+
+def param_specs(cfg: ModelConfig, mesh, *, fsdp: bool = False) -> dict:
+    """Path -> storage spec of every leaf of ``cfg``'s param tree on
+    ``mesh`` (:func:`storage_specs`)."""
+    return _param_specs(cfg, mesh, fsdp, sharding.FSDP_MIN_SIZE)
+
+
+@functools.lru_cache(maxsize=64)
+def _param_specs(cfg, mesh, fsdp, fsdp_min_size) -> dict:
     n = dctx.model_axis_size(mesh)
     split = tp_split(cfg, n)
     per_name = {}
     if split and cfg.moe is not None:
         mcfg = moe_config(cfg)
         per_name = shard_moe_params(None, mcfg, ep_size_for(mcfg, n))
+    stack = reference_stack(cfg) if fsdp else None
     specs = {}
-    for path, leaf in tree_paths(params):
+    for path, shape in param_shapes(cfg).items():
         parts = path.split("/")
-        if "moe" in parts[:-1]:
-            specs[path] = per_name.get(parts[-1], ())
-        elif split.get(rule_dim(path, leaf.dim())):
-            specs[path] = rule_spec(path, leaf.dim(), "ep")
+        if fsdp and n == 1:
+            # a model axis of 1 splits nothing: the rules' own specs place
+            # the data shards where the reference's do
+            spec = rule_spec(path, len(shape), "ep")
+        elif "moe" in parts[:-1]:
+            spec = per_name.get(parts[-1], ())
+        elif split.get(_leaf_dim(path, len(shape))):
+            spec = rule_spec(path, len(shape), "ep")
         else:
-            specs[path] = ()
+            spec = ()
+        specs[path] = rule_storage(path, shape, spec, mesh, fsdp=fsdp,
+                                   fsdp_min_size=fsdp_min_size, stack=stack)
     return specs
 
 
+def storage_specs(params, cfg: ModelConfig, mesh, *,
+                  fsdp: bool = False) -> dict:
+    """Path -> spec of every leaf of ``params`` (the model's tree; full
+    leaves or a rank's slices) as the port stores it on ``mesh``: an MoE
+    layer's leaves (under ``moe/``) as ``shard_moe_params`` lays them out
+    (EP where the experts divide the model axis, else TP on ``d_ff``),
+    every other leaf by the partition rules (``build_param_specs``) where
+    :func:`tp_split` splits it, else whole.  With ``fsdp``, each is then
+    extended over ``data`` by the reference's FSDP rule, decided on the
+    logical shapes (``distributed.sharding.rule_storage``; a leaf whose
+    stacked layer axis the reference would shard is kept whole by the
+    data rank that owns its layer, an ``Owner``)."""
+    specs = param_specs(cfg, mesh, fsdp=fsdp)
+    return {path: specs[path] for path, _ in tree_paths(params)}
+
+
 def init_decoder(cfg: ModelConfig, *, generator: torch.Generator, device,
-                 mesh=None):
+                 mesh=None, fsdp: bool = False):
     """Random params drawn from ``generator`` in the reference's order.
-    With a mesh whose model axis is larger than 1, each leaf keeps only
-    this rank's slice (:func:`storage_specs`), taken as its layer is
+    With a mesh, each leaf keeps only this rank's slice
+    (:func:`storage_specs`; ``fsdp`` as there), taken as its layer is
     drawn: every rank draws the same values, and none holds more than one
     whole layer (or the embedding) at a time."""
     kinds = layer_kinds(cfg)
-    sharded = bool(tp_split(cfg, dctx.model_axis_size(mesh)))
+    specs = None if mesh is None else param_specs(cfg, mesh, fsdp=fsdp)
 
-    def keep(tree):
-        return shard_tree(tree, storage_specs(tree, cfg, mesh), mesh) \
-            if sharded else tree
+    def keep(tree, prefix):
+        return tree if specs is None else shard_tree(tree, specs, mesh,
+                                                     prefix)
     params = {
         "embed": keep(init_embedding(cfg.vocab_size, cfg.d_model, cfg.dtype,
                                      cfg.tie_embeddings, generator=generator,
-                                     device=device)),
+                                     device=device), "embed/"),
         "final_norm": init_rms_norm(cfg.d_model, device=device),
     }
     if cfg.family == "vlm" and cfg.num_patches:
         params["vision_proj"] = ninit(
             (cfg.patch_embed_dim, cfg.d_model), cfg.patch_embed_dim ** -0.5,
             cfg.dtype, generator=generator, device=device)
+        if specs is not None:
+            params["vision_proj"] = slice_leaf(
+                params["vision_proj"], specs["vision_proj"], mesh)
     params["layers"] = [keep(init_block(kind, cfg, generator=generator,
                                         device=device,
-                                        moe_layer=is_moe_layer(cfg, i)))
+                                        moe_layer=is_moe_layer(cfg, i)),
+                             f"layers/{i}/")
                         for i, kind in enumerate(kinds)]
     return params
 
 
 def reference_stack(cfg: ModelConfig) -> dict:
-    """Top-level list key -> for each entry, the layer copies the JAX
-    package stacks it with (``None``: stored unstacked there), the
-    ``stack`` of ``distributed.sharding.build_param_specs``: a decoder's
-    cycles of ``block_pattern`` stack ``(num_layers - n_pre) //
-    len(pattern)`` copies, its ``pre``/``tail`` layers are unstacked;
-    whisper stacks every encoder layer and every decoder layer."""
+    """Top-level list key -> for each entry, ``(copies, position)``: the
+    layer copies the JAX package stacks it with and its place among
+    them (``None``: stored unstacked there), the ``stack`` of
+    ``distributed.sharding.build_param_specs``: a decoder's cycles of
+    ``block_pattern`` stack ``(num_layers - n_pre) // len(pattern)``
+    copies, its ``pre``/``tail`` layers are unstacked; whisper stacks
+    every encoder layer and every decoder layer."""
     if cfg.family == "audio":
-        return {"enc_layers": [cfg.encoder_layers] * cfg.encoder_layers,
-                "layers": [cfg.num_layers] * cfg.num_layers}
+        return {"enc_layers": [(cfg.encoder_layers, i)
+                               for i in range(cfg.encoder_layers)],
+                "layers": [(cfg.num_layers, i)
+                           for i in range(cfg.num_layers)]}
     pattern = tuple(cfg.block_pattern) or ("attn",)
     n_pre = cfg.moe.first_dense_layers if cfg.moe is not None else 0
     cycles = (cfg.num_layers - n_pre) // len(pattern)
     n = len(layer_kinds(cfg))
-    return {"layers": [cycles if n_pre <= i < n_pre + cycles * len(pattern)
+    return {"layers": [(cycles, (i - n_pre) // len(pattern))
+                       if n_pre <= i < n_pre + cycles * len(pattern)
                        else None for i in range(n)]}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device,
                mesh=None):
-    """Empty decode caches; on a mesh, the attention caches' slots are
-    split over the model axis where it divides them."""
-    group = mesh.group("model") if tp_split(
-        cfg, dctx.model_axis_size(mesh)) else None
+    """Empty decode caches; on a mesh, each layer keeps this rank's part
+    of what the model axis splits (:func:`init_block_cache`)."""
+    split = tp_split(cfg, dctx.model_axis_size(mesh))
+    group = mesh.group("model") if split else None
     return {"layers": [init_block_cache(kind, cfg, batch, seq_len,
-                                        device=device, group=group)
+                                        device=device, group=group,
+                                        split=split)
                        for kind in layer_kinds(cfg)]}
 
 
@@ -314,37 +417,60 @@ def _segments(cfg: ModelConfig) -> list:
     return out
 
 
+def seq_parallel(cfg: ModelConfig, mesh, s: int) -> bool:
+    """Whether a forward of ``s`` positions keeps its residual split over
+    the model axis: ``cfg.seq_shard`` and an axis larger than 1 that
+    divides ``s`` (the reference's ``spec_for`` guard; decode's S = 1
+    stays whole)."""
+    n = dctx.model_axis_size(mesh)
+    return cfg.seq_shard and n > 1 and s % n == 0
+
+
 def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
                     cache=None, patch_embeds=None, pos_offset: int = 0,
-                    cache_capacity: Optional[int] = None, mesh=None):
+                    cache_capacity: Optional[int] = None, mesh=None,
+                    specs: Optional[dict] = None):
     """tokens: [B, S] int.  Returns (logits, new_cache, aux_loss).
 
     decode mode: S == 1 and ``cache`` holds the per-layer state.
     vlm: ``patch_embeds`` [B, P, patch_embed_dim] are projected and
     prepended (their loss positions carry label -1 in :func:`lm_loss`).
+    ``specs``: the params' storage specs where they are FSDP shards
+    (gathered at use), else None.
     """
     kinds = layer_kinds(cfg)
     split = tp_split(cfg, dctx.model_axis_size(mesh))
-    vgroup = mesh.group("model") if split.get("vocab") else None
-    x = embed(params["embed"], tokens, vgroup)
+    group = mesh.group("model") if split else None
+    vgroup = group if split.get("vocab") else None
+
+    def used(tree, prefix):
+        return tree if specs is None else use_tree(tree, specs, mesh, prefix)
+    x = embed(used(params["embed"], "embed/"), tokens, vgroup)
     if patch_embeds is not None:
-        pe = patch_embeds.to(x.dtype) @ params["vision_proj"].to(x.dtype)
+        vp = params["vision_proj"] if specs is None else \
+            use_leaf(params["vision_proj"], specs["vision_proj"], mesh)
+        pe = patch_embeds.to(x.dtype) @ vp.to(x.dtype)
         x = torch.cat([pe, x], dim=1)
     b, s = x.shape[:2]
     positions = None
     if mode != "decode":
         positions = pos_offset + torch.arange(s, dtype=torch.int32,
                                               device=tokens.device)
+    sp = seq_parallel(cfg, mesh, s)
+    if sp:
+        x = dctx.split_seq(x, group)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     caches = []
 
     def run_layers(layers, x, aux_total):
         for li in layers:
             c = cache["layers"][li] if cache is not None else None
-            x, nc, aux = block_apply(kinds[li], params["layers"][li], x, cfg,
-                                     positions, cache=c, mode=mode,
+            x, nc, aux = block_apply(kinds[li],
+                                     used(params["layers"][li],
+                                          f"layers/{li}/"),
+                                     x, cfg, positions, cache=c, mode=mode,
                                      cache_capacity=cache_capacity,
-                                     pos_offset=pos_offset, mesh=mesh)
+                                     pos_offset=pos_offset, mesh=mesh, sp=sp)
             aux_total = aux_total + aux
             caches.append(nc)
         return x, aux_total
@@ -354,21 +480,25 @@ def decoder_forward(params, tokens, cfg: ModelConfig, *, mode="train",
     for layers, is_cycle in _segments(cfg):
         x, aux_total = (cycle if is_cycle else run_layers)(layers, x,
                                                           aux_total)
+    if sp:
+        x = dctx.gather_seq(x, group, grad="own")
     new_cache = {"layers": caches} if mode in ("prefill", "decode") else None
     if mode == "prefill":
         x = x[:, -1:]        # serving prefill needs only the last position
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, vgroup), new_cache, aux_total
+    return (unembed(used(params["embed"], "embed/"), x, vgroup), new_cache,
+            aux_total)
 
 
-def lm_loss(params, batch, cfg: ModelConfig, *, aux_weight=0.01, mesh=None):
+def lm_loss(params, batch, cfg: ModelConfig, *, aux_weight=0.01, mesh=None,
+            specs: Optional[dict] = None):
     """batch: {tokens [B, S], labels [B, S] (-1 = ignore), optional
     patch_embeds}.  Next-token cross-entropy plus ``aux_weight`` times the
     MoE load-balance loss; returns ``(loss, {"ce", "aux"})``."""
     pe = batch.get("patch_embeds")
     logits, _, aux = decoder_forward(params, batch["tokens"], cfg,
                                      mode="train", patch_embeds=pe,
-                                     mesh=mesh)
+                                     mesh=mesh, specs=specs)
     labels = batch["labels"]
     if pe is not None:      # the patch positions carry no label
         labels = torch.cat([labels.new_full((labels.shape[0], pe.shape[1]),

@@ -12,13 +12,27 @@ As in the JAX package: sigmoid input and forget gates (GLA-style) in
 place of the paper's exponential gating and stabilizer; decays stay in
 log space and <= 0, and every exponent is masked to <= 0 before ``exp``.
 The gate projections ``w_if`` are f32.
+
+Tensor parallelism (``group``, the model axis; the reference's rules
+split ``wq`` / ``wk`` / ``wv`` by columns and ``wo`` by rows, and keep
+``w_if``, ``w_og`` and ``w_z`` whole).  mLSTM: each rank runs its heads
+(its columns of ``wq`` / ``wk`` / ``wv``, the same heads' columns of each
+half of ``w_if`` and of ``w_og``, and those rows of ``wo``); sLSTM: the
+recurrence is elementwise over ``d``, so each rank runs its channels
+(``wo``'s rows, the same columns of ``w_z``, of each half of ``w_if``
+and of ``w_og``).  The whole leaves are sliced at use through
+``copy_to``, so their gradients are summed over the group; ``wo``'s f32
+partials are summed over it.  The states (``C`` and ``n`` of the mLSTM,
+``c`` and ``n`` of the sLSTM) keep this rank's heads or channels; the
+reference's dry run keeps them whole on every rank (ROADMAP C).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ninit
+from repro_torch.distributed import context as dctx
+from repro_torch.models.layers import ninit, row_parallel, tp_in
 
 #: the mLSTM's chunk (RUN_HINTS["mlstm_chunk"] of xlstm-350m)
 MLSTM_CHUNK = 256
@@ -67,18 +81,43 @@ def _mlstm_chunk(c_prev, n_prev, qf, kf, vf, lf, ig):
     return c_new, n_new, yc
 
 
-def mlstm_apply(p, x, *, state=None, chunk: int = MLSTM_CHUNK):
-    """x: [B, S, d] -> (y, state={C: [B, H, dk, dv], n: [B, H, dk]})."""
+def _halves(w, lo: int, n: int, group):
+    """Columns ``[lo, lo + n)`` of each half of the whole leaf ``w``
+    (``w_if``: forget, then input), its gradient summed over
+    ``group``."""
+    w = dctx.copy_to(w, group)
+    half = w.shape[1] // 2
+    return torch.cat([w[:, lo:lo + n], w[:, half + lo:half + lo + n]], 1)
+
+
+def _cols(w, lo: int, n: int, group):
+    """Columns ``[lo, lo + n)`` of the whole leaf ``w``, its gradient
+    summed over ``group``."""
+    return dctx.copy_to(w, group)[:, lo:lo + n]
+
+
+def mlstm_apply(p, x, *, state=None, chunk: int = MLSTM_CHUNK, group=None,
+                seq: bool = False):
+    """x: [B, S, d] -> (y, state={C: [B, H, dk, dv], n: [B, H, dk]}).
+    ``group``: the model axis, whose ranks run their heads (module
+    docstring); ``seq``: ``x`` is the sequence gathered over it."""
     b, s, d = x.shape
+    ways = dctx.group_size(group)
     hhd = p["wq"].shape[1]
-    h = p["w_if"].shape[1] // 2
+    h = p["w_if"].shape[1] // 2 // ways
     hd = hhd // h
     scale = hd ** -0.5
+    w_if, w_og = p["w_if"], p["w_og"]
+    if ways > 1:
+        x = tp_in(x, group, seq)
+        h0 = dctx.group_rank(group) * h
+        w_if = _halves(w_if, h0, h, group)
+        w_og = _cols(w_og, h0 * hd, h * hd, group)
 
     def heads(w):                                        # [B, H, S, D]
         return (x @ w.to(x.dtype)).reshape(b, s, h, hd).transpose(1, 2)
     q, k, v = heads(p["wq"]), heads(p["wk"]), heads(p["wv"])
-    gates = x.float() @ p["w_if"]                        # [B, S, 2H]
+    gates = x.float() @ w_if                             # [B, S, 2H]
     log_f = (-F.softplus(-gates[..., :h])).transpose(1, 2)   # log sigmoid
     i_g = torch.sigmoid(gates[..., h:]).transpose(1, 2)      # [B, H, S]
     if state is None:
@@ -113,9 +152,11 @@ def mlstm_apply(p, x, *, state=None, chunk: int = MLSTM_CHUNK):
             outs.append(yc)
         ys = torch.cat(outs, dim=2)
     merged = ys.transpose(1, 2).reshape(b, s, h * hd)
-    og = torch.sigmoid(x.float() @ p["w_og"].float())
+    og = torch.sigmoid(x.float() @ w_og.float())
     out = (og * merged.float()).to(x.dtype)
-    return out @ p["wo"].to(x.dtype), {"C": c_new, "n": n_new}
+    y = row_parallel(out, p["wo"], group, seq) if ways > 1 \
+        else out @ p["wo"].to(x.dtype)
+    return y, {"C": c_new, "n": n_new}
 
 
 def init_mlstm_state_like(b, h, hd, *, device):
@@ -124,9 +165,11 @@ def init_mlstm_state_like(b, h, hd, *, device):
             "n": torch.zeros((b, h, hd), dtype=torch.float32, device=device)}
 
 
-def init_mlstm_state(cfg, batch, *, device):
-    return init_mlstm_state_like(batch, cfg.num_heads, cfg.resolved_head_dim,
-                                 device=device)
+def init_mlstm_state(cfg, batch, *, device, ways: int = 1):
+    """The zero state of this rank's heads (``ways``: the model axis's
+    ranks the heads are split over)."""
+    return init_mlstm_state_like(batch, cfg.num_heads // ways,
+                                 cfg.resolved_head_dim, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -144,11 +187,21 @@ def init_slstm(cfg, dtype, *, generator, device):
     }
 
 
-def slstm_apply(p, x, *, state=None):
-    """x: [B, S, d] -> (y, state={c: [B, d], n: [B, d]})."""
-    b, s, d = x.shape
-    z = torch.tanh((x @ p["w_z"].to(x.dtype)).float())
-    gates = x.float() @ p["w_if"]
+def slstm_apply(p, x, *, state=None, group=None, seq: bool = False):
+    """x: [B, S, d] -> (y, state={c: [B, d], n: [B, d]}).  ``group``: the
+    model axis, whose ranks run their channels (module docstring);
+    ``seq``: ``x`` is the sequence gathered over it."""
+    b, s, _ = x.shape
+    d = p["wo"].shape[0]                   # this rank's channels
+    w_z, w_if, w_og = p["w_z"], p["w_if"], p["w_og"]
+    tp = dctx.group_size(group) > 1
+    if tp:
+        x = tp_in(x, group, seq)
+        c0 = dctx.group_rank(group) * d
+        w_z, w_og = _cols(w_z, c0, d, group), _cols(w_og, c0, d, group)
+        w_if = _halves(w_if, c0, d, group)
+    z = torch.tanh((x @ w_z.to(x.dtype)).float())
+    gates = x.float() @ w_if
     f = torch.sigmoid(gates[..., :d])
     i = torch.sigmoid(gates[..., d:])
     if state is None:
@@ -159,9 +212,11 @@ def slstm_apply(p, x, *, state=None):
         c = f[:, t] * c + i[:, t] * z[:, t]
         n = f[:, t] * n + i[:, t]
         hs.append(c / torch.clamp(n, min=1.0))
-    og = torch.sigmoid(x.float() @ p["w_og"].float())
+    og = torch.sigmoid(x.float() @ w_og.float())
     out = (og * torch.stack(hs, dim=1)).to(x.dtype)
-    return out @ p["wo"].to(x.dtype), {"c": c, "n": n}
+    y = row_parallel(out, p["wo"], group, seq) if tp \
+        else out @ p["wo"].to(x.dtype)
+    return y, {"c": c, "n": n}
 
 
 def init_slstm_state_like(b, d, *, device):
@@ -169,5 +224,7 @@ def init_slstm_state_like(b, d, *, device):
             "n": torch.zeros((b, d), dtype=torch.float32, device=device)}
 
 
-def init_slstm_state(cfg, batch, *, device):
-    return init_slstm_state_like(batch, cfg.d_model, device=device)
+def init_slstm_state(cfg, batch, *, device, ways: int = 1):
+    """The zero state of this rank's channels (``ways``: the model axis's
+    ranks ``d`` is split over)."""
+    return init_slstm_state_like(batch, cfg.d_model // ways, device=device)

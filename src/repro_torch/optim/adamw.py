@@ -13,10 +13,13 @@ compression scales each tensor by its own max; the port's decoder keeps
 one tensor per layer where the JAX package stacks the layers, so there
 each layer gets its own scale.
 
-Sharded params (``sharded``: a flag per leaf, in ``tree_leaves`` order)
-hold only this rank's slice; the clipping norm is the whole logical
-tree's: the sharded leaves' squares are summed over ``model_group``,
-the replicated ones counted once.
+Sharded params (``axes``: per leaf, in ``tree_leaves`` order, the mesh
+axes its storage spec names, ``distributed.sharding.spec_axes``; with
+``mesh``) hold only this rank's slice.  The clipping norm is the whole
+logical tree's: each leaf's squares are summed over every axis its spec
+names (``data`` too, under FSDP), the replicated ones counted once; the
+int8 compression's max is the whole logical tensor's, a max over the
+same axes.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.distributed import context as dctx
 from repro_torch.tree import tree_leaves, tree_map
@@ -76,34 +80,45 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
     return state
 
 
-def _norm(squares, sharded, model_group) -> torch.Tensor:
-    """sqrt of the sum of ``squares`` (one 0-d f32 tensor a leaf), the
-    ``sharded`` leaves' summed over ``model_group`` too."""
-    total, part = 0.0, 0.0
+def _norm(squares, axes, mesh) -> torch.Tensor:
+    """sqrt of the sum of ``squares`` (one 0-d f32 tensor a leaf), each
+    leaf's summed over the mesh axes ``axes`` gives it (none without
+    ``axes``)."""
+    parts = {}
     for i, sq in enumerate(squares):
-        if sharded and sharded[i]:
-            part = part + sq
-        else:
-            total = total + sq
-    if sharded and any(sharded):
-        total = total + dctx.all_reduce(part, model_group)
-    return torch.sqrt(total)
+        key = tuple(sorted(set(axes[i]))) if axes else ()
+        parts[key] = parts.get(key, 0.0) + sq
+    total = 0.0
+    for key in sorted(parts):
+        part = parts[key]
+        for a in key:
+            part = dctx.all_reduce(part, mesh.group(a))
+        total = total + part
+    return torch.sqrt(torch.as_tensor(total))
 
 
-def global_norm(tree, *, sharded=None, model_group=None) -> torch.Tensor:
+def global_norm(tree, *, axes=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf of the logical tree, in
     f32, one leaf at a time."""
     return _norm((torch.sum(xf * xf) for xf in
-                   (x.float() for x in tree_leaves(tree))),
-                  sharded, model_group)
+                   (x.float() for x in tree_leaves(tree))), axes, mesh)
 
 
-def _compress_int8(g: torch.Tensor, ef: torch.Tensor):
+def _amax(t: torch.Tensor, axes, mesh) -> torch.Tensor:
+    """The largest ``|t|`` of the logical tensor whose slice ``t`` is, a
+    max over the mesh axes ``axes`` (an empty slice counts 0)."""
+    m = t.abs().amax() if t.numel() else t.new_zeros(())
+    for a in axes:
+        m = dctx.all_reduce(m, mesh.group(a), op=dist.ReduceOp.MAX)
+    return m
+
+
+def _compress_int8(g: torch.Tensor, ef: torch.Tensor, axes=(), mesh=None):
     """Error-feedback int8 compression: quantize (g + residual) per
-    tensor; return the dequantized value actually 'transmitted' and the
-    new residual."""
+    tensor (the whole logical tensor's max, over ``axes``); return the
+    dequantized value actually 'transmitted' and the new residual."""
     t = g.float() + ef
-    scale = torch.clamp(t.abs().max(), min=1e-30) * INT8_MAX_RECIP
+    scale = torch.clamp(_amax(t, axes, mesh), min=1e-30) * INT8_MAX_RECIP
     q = torch.clamp(torch.round(t / scale), -127, 127)
     # XLA fuses the reference's t - q * scale into one multiply-add, one
     # rounding; q * scale is exact in f64, so this rounds the same way
@@ -111,19 +126,21 @@ def _compress_int8(g: torch.Tensor, ef: torch.Tensor):
     return q * scale, resid
 
 
-def _grad_f32(g: torch.Tensor, ef):
+def _grad_f32(g: torch.Tensor, ef, axes=(), mesh=None):
     """The gradient as the optimizer sees it, a fresh f32 tensor, with the
     new error-feedback residual (None without compression)."""
     if ef is None:
         return g.to(torch.float32, copy=True), None
-    return _compress_int8(g, ef)
+    return _compress_int8(g, ef, axes, mesh)
 
 
 @torch.no_grad()
 def apply_updates(params, grads, state: dict, cfg: OptConfig, *,
-                  sharded=None, model_group=None):
+                  axes=None, mesh=None):
     """One AdamW step, in place.  Returns ``(params, state, metrics)``
-    (the same param and state objects) with ``lr`` and ``grad_norm``."""
+    (the same param and state objects) with ``lr`` and ``grad_norm``.
+    ``axes`` (with ``mesh``): per leaf, the mesh axes its slice is taken
+    over (module docstring)."""
     step = state["step"] + 1
     lr = schedule(step, cfg)
     ps, gs = tree_leaves(params), tree_leaves(grads)
@@ -132,19 +149,20 @@ def apply_updates(params, grads, state: dict, cfg: OptConfig, *,
     efs = tree_leaves(state["ef"]) if cfg.compress_grads else [None] * len(ps)
     if len(gs) != len(ps):
         raise ValueError(f"{len(gs)} gradients for {len(ps)} params")
+    lax = axes or [()] * len(ps)
 
     # the norm of what is transmitted; each compressed gradient is made
     # again below rather than kept (compression is deterministic)
     gnorm = _norm((torch.sum(gf * gf) for gf in
-                   (_grad_f32(g, ef)[0] for g, ef in zip(gs, efs))),
-                  sharded, model_group)
+                   (_grad_f32(g, ef, a, mesh)[0]
+                    for g, ef, a in zip(gs, efs, lax))), axes, mesh)
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                        max=1.0)
     b1c = 1 - torch.pow(torch.tensor(cfg.b1, device=step.device), step.float())
     b2c = 1 - torch.pow(torch.tensor(cfg.b2, device=step.device), step.float())
 
-    for p, g, m, v, master, ef in zip(ps, gs, ms, vs, masters, efs):
-        gf, new_ef = _grad_f32(g, ef)
+    for p, g, m, v, master, ef, a in zip(ps, gs, ms, vs, masters, efs, lax):
+        gf, new_ef = _grad_f32(g, ef, a, mesh)
         if ef is not None:
             ef.copy_(new_ef)
         gf.mul_(clip)

@@ -7,11 +7,14 @@ one optimizer update runs.  Params and optimizer state are updated in
 place (see :mod:`repro_torch.optim.adamw`).
 
 On a mesh (the reference's batch spec ``P(("pod", "data"))`` on dim 0
-under ``jit``; a pod axis is not ported yet): every rank is handed the
-same global batch and takes its data rank's rows; the loss and every gradient are averaged over the
-``data`` group (the gradients in f32, one leaf at a time), and the
-clipping norm counts the model-sharded leaves (``specs``, the storage
-specs of the params) over the ``model`` group.
+under ``jit``): every rank is handed the same global batch and takes its
+block of rows along the joint ``("pod", "data")`` axis; the loss, the
+metrics and every gradient are averaged over that joint group (the
+gradients in f32, one leaf at a time).  An FSDP leaf (its spec in
+``specs``, the storage specs of the params, names ``data``) takes its
+gradient from its gather's reduce-scatter, the mean over ``data``
+already, and is then averaged over ``pod`` alone.  The clipping norm
+counts each leaf over every axis its spec names.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed.sharding import spec_axes
 from repro_torch.kernels import plan as plan_mod
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
@@ -44,15 +48,15 @@ def value_and_grad(loss_fn: Callable, params, batch):
 
 def data_rows(batch: dict, mesh) -> dict:
     """This rank's rows (dim 0) of the global ``batch``: its block of the
-    data axis."""
-    n, i = mesh.shape["data"], mesh.coord("data")
+    joint ``("pod", "data")`` axis."""
+    n, i = mesh.batch_ranks, mesh.batch_coord()
     if n == 1:
         return batch
     out = {}
     for k, v in batch.items():
         if v.shape[0] % n:
             raise ValueError(f"batch {k} of {v.shape[0]} rows does not "
-                             f"split over {n} data ranks")
+                             f"split over {n} batch ranks")
         out[k] = v.chunk(n)[i]
     return out
 
@@ -62,16 +66,17 @@ def _mean_over(x: torch.Tensor, group, n: int) -> torch.Tensor:
     return dctx.all_reduce(x.float(), group).div_(n).to(x.dtype)
 
 
-def make_grad_fn(loss_fn: Callable, grad_accum: int = 1, mesh=None):
+def make_grad_fn(loss_fn: Callable, grad_accum: int = 1, mesh=None,
+                 specs: Optional[dict] = None):
     """``grad_fn(params, batch) -> ((loss, metrics), grads)`` over the
     global ``batch``: its ``grad_accum`` microbatches' gradients summed in
-    f32 and averaged; on a mesh, this rank's data rows, and the loss,
-    the metrics and the gradients averaged over the ``data`` group."""
-    if mesh is not None and mesh.shape.get("pod", 1) > 1:
-        raise NotImplementedError("the pod axis is not ported yet "
-                                  "(ROADMAP A15b)")
-    n_data = 1 if mesh is None else mesh.shape["data"]
-    data_group = None if mesh is None else mesh.group("data")
+    f32 and averaged; on a mesh, this rank's rows, and the loss, the
+    metrics and the gradients averaged over the joint batch group (an
+    FSDP leaf of ``specs`` over ``pod`` alone)."""
+    n_data = 1 if mesh is None else mesh.batch_ranks
+    data_group = None if mesh is None else mesh.batch_group()
+    n_pod = 1 if mesh is None else mesh.shape.get("pod", 1)
+    pod_group = mesh.group("pod") if n_pod > 1 else None
 
     def grad_fn(params, batch):
         if mesh is not None:
@@ -99,8 +104,12 @@ def make_grad_fn(loss_fn: Callable, grad_accum: int = 1, mesh=None):
             loss = _mean_over(torch.as_tensor(loss), data_group, n_data)
             metrics = {k: _mean_over(v, data_group, n_data)
                        for k, v in metrics.items()}
-            for g in tree_leaves(grads) if n_data > 1 else ():
-                g.copy_(_mean_over(g, data_group, n_data))
+            for p, g in tree_paths(grads) if n_data > 1 else ():
+                if specs is not None and "data" in spec_axes(specs[p]):
+                    if n_pod > 1:
+                        g.copy_(_mean_over(g, pod_group, n_pod))
+                else:
+                    g.copy_(_mean_over(g, data_group, n_data))
         return (loss, metrics), grads
 
     return grad_fn
@@ -120,8 +129,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: adamw.OptConfig,
     (``"fp8"`` for the all-fp8 wgrad, ``None``/``"bf16"`` for the default)
     folds into it.  Both reach the layers through the plan module's
     default-config seam.  ``mesh`` (with ``specs``, the path -> spec of
-    the params as stored) makes the step data-parallel over its ``data``
-    axis: each rank's step takes the same global batch.
+    the params as stored) makes the step data-parallel over its batch
+    axes: each rank's step takes the same global batch.
     """
     if kernel_config is not None or wgrad_precision is not None:
         inner_loss = loss_fn
@@ -133,18 +142,14 @@ def make_train_step(loss_fn: Callable, opt_cfg: adamw.OptConfig,
             with plan_mod.default_config(cfg):
                 return inner_loss(params, batch)
 
-    grad_fn = make_grad_fn(loss_fn, grad_accum, mesh)
-    model_group = None if mesh is None or "model" not in mesh.axis_names \
-        else mesh.group("model")
+    grad_fn = make_grad_fn(loss_fn, grad_accum, mesh, specs)
 
     def train_step(params, opt_state, batch):
-        sharded = None if mesh is None else \
-            [any(a is not None for a in specs[p])
-             for p, _ in tree_paths(params)]
+        axes = None if mesh is None else \
+            [spec_axes(specs[p]) for p, _ in tree_paths(params)]
         (loss, metrics), grads = grad_fn(params, batch)
         params, opt_state, opt_metrics = adamw.apply_updates(
-            params, grads, opt_state, opt_cfg, sharded=sharded,
-            model_group=model_group)
+            params, grads, opt_state, opt_cfg, axes=axes, mesh=mesh)
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return params, opt_state, metrics
 

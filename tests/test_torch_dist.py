@@ -49,6 +49,9 @@ process keeps one intra-op thread while it computes.
    reassociation noise.
 4. A checkpoint saved from (2, 2) restored on (1, 2): every leaf
    bitwise the gathered state, and the next batch's loss within 1e-5.
+5. ``run_ranks`` hands back a rank's host tensor after the rank has
+   exited: the parent is kept busy loading rank 0's result while rank
+   1 returns its tensor and ends.
 
 The bounds are f32 reassociation: the ranks sum their partials (and the
 data ranks their gradients) in another order than one rank does.
@@ -476,3 +479,27 @@ def test_mesh_ranks_and_groups_need_a_process_group():
     assert tmesh._lines((2, 2), 0) == [[0, 2], [1, 3]]
     assert tmesh._lines((2, 2, 2), 1) == [[0, 2], [1, 3], [4, 6], [5, 7]]
 
+
+
+class _SlowToLoad:
+    """Takes ``_SLOW_S`` seconds to unpickle, so the parent is still busy
+    with it when the next rank's result arrives."""
+
+    def __reduce__(self):
+        return time.sleep, (_SLOW_S,)
+
+
+_SLOW_S = 3.0
+
+
+def _tensor_rank(rank, world):
+    if rank == 0:
+        return _SlowToLoad()
+    time.sleep(1.0)         # after rank 0's result is in the queue
+    return torch.arange(1000, dtype=torch.float32) * rank
+
+
+def test_ranks_return_host_tensors_after_exiting(tmp_path):
+    res = run_ranks(_tensor_rank, 2, store_dir=str(tmp_path), timeout=120)
+    assert res[0] is None
+    assert torch.equal(res[1], torch.arange(1000, dtype=torch.float32))

@@ -35,12 +35,13 @@ scales, ``vision_proj``) get bitwise equal gradients on every rank of
 the model axis.  The vocab-parallel cross-entropy on its own, logits
 with ignored labels: loss and gradient within 1e-5 of one process's.  A
 cache whose slots the axis does not divide (a 38-slot capacity on 4
-ranks) stays whole and decodes the same tokens.  The raises: an fp8 MLP
-whose 4-way slice is no multiple of 128 (d_ff 768 -> 192), and
-recurrentgemma-2b, xlstm-350m and whisper-tiny under a model axis of 2.
-The storage specs of every dense leaf are the partition rules' where the
-heads divide the axis (the rules themselves are held against the JAX
-package's in ``tests/test_torch_mesh.py``), whole otherwise.  A
+ranks) stays whole and decodes the same tokens.  The raise: an fp8 MLP
+whose 4-way slice is no multiple of 128 (d_ff 768 -> 192).  The storage
+specs of every dense leaf, of every arch, are the partition rules' where
+the heads (widths, channels) divide the axis (the rules themselves are
+held against the JAX package's in ``tests/test_torch_mesh.py``), whole
+otherwise; the recurrent and audio families run in
+``tests/test_torch_tp_recurrent.py``.  A
 checkpoint of a (1, 4) train step restores onto (1, 2) bit for bit.
 """
 import dataclasses
@@ -352,21 +353,15 @@ def test_fp8_slice_off_128_raises(ranks):
         assert x["fp8_raise"] and "multiple of 128" in x["fp8_raise"]
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m",
-                                  "whisper-tiny"])
-def test_unported_families_raise_under_a_model_axis(arch):
-    cfg = smoke_config(arch)
-    mesh = tmesh.make_mesh((1, 2), ("data", "model"), with_groups=False)
-    with pytest.raises(NotImplementedError, match="A15b-2"):
-        make_model(cfg, "cpu", mesh)
-    make_model(cfg, "cpu", tmesh.make_mesh((2, 1), ("data", "model"),
-                                           with_groups=False))
-
-
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "yi-9b", "pixtral-12b",
                                   "qwen2-moe-a2.7b", "deepseek-moe-16b",
-                                  "minitron-8b", "qwen1.5-110b"])
+                                  "minitron-8b", "qwen1.5-110b",
+                                  "recurrentgemma-2b", "xlstm-350m",
+                                  "whisper-tiny"])
 def test_dense_storage_specs_follow_the_rules(arch):
+    """The recurrent and audio families' leaves too: the RG-LRU's width,
+    the mLSTM's heads and the sLSTM's channels split where the axis
+    divides them; the leaves the rules keep whole stay whole."""
     cfg = smoke_config(arch)
     params = make_model(cfg, "cpu").init_params(
         torch.Generator().manual_seed(0))
@@ -380,9 +375,13 @@ def test_dense_storage_specs_follow_the_rules(arch):
             if "/moe/" in path:
                 continue
             leaf = path.rsplit("/", 1)[-1]
-            whole = leaf in ("scale", "vision_proj") or (
+            whole = leaf in ("scale", "vision_proj", "conv", "lam", "w_a",
+                             "w_i", "w_if", "w_og", "w_z") or (
                 leaf in ("wk", "wv", "bk", "bv") and kv_whole) or (
-                leaf in ("wq", "wo", "bq") and cfg.num_heads % n)
+                leaf in ("wq", "wo", "bq") and cfg.num_heads % n
+                and "/slstm/" not in path) or (
+                "/slstm/" in path and cfg.d_model % n) or (
+                "/rglru/" in path and (cfg.lru_width or cfg.d_model) % n)
             if whole:
                 assert all(a is None for a in spec), (arch, sizes, path)
             else:
