@@ -177,6 +177,21 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              from; launch counts exact (B8 alone), peak memory, CUDA-
              event ms (of ranks sharing one card), collectives, and one
              more step split into forward, backward and AdamW.
+  13. dryrun  in a process of its own, off the card (host time only):
+             ``launch/dryrun.py``'s ``lower_cell`` on fake tensors and a
+             fake process group predicts (a) the ``remat`` phase's fp8
+             run on a 1 x 1 mesh, remat on and off: its param and
+             gradient bytes exactly, and its peak printed beside
+             ``max_memory_allocated`` with the gap; (b) each rank of the
+             ``fsdp_seq_parallel`` run: its param and AdamW bytes and its
+             collectives' calls and bytes by type (a step's, times the
+             steps) exactly; (c) one production cell a family (16 x 16,
+             one cycle, ``decode_32k``); the dry run's card memory figure
+             equals the card's ``total_memory``;
+  14. examples  ``examples/quickstart_torch.py`` (loss falls) and
+             ``examples/serve_decode_torch.py`` (batch x max-new tokens)
+             at smoke size on the card, while the dry run traces; no
+             phase of the card's process took a shape-only kernel.
 Each phase's seconds are printed.  Then the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
 "device": {...}}``.  Any failure raises and the script exits non-zero.
@@ -3161,6 +3176,10 @@ def split_step(cfg, run, batch):
 
 
 REMAT_VARIANTS = ("fp8", "ds_fp8")
+#: what the dry run phase predicts, as the earlier phases measured it:
+#: ``remat`` by variant (``phase_remat``'s records), ``fsdp`` the
+#: fsdp_seq_parallel run's ranks (state bytes and collectives)
+MEASURED = {"remat": {}, "fsdp": None}
 
 
 def phase_remat(variant: str) -> None:
@@ -3197,21 +3216,25 @@ def phase_remat(variant: str) -> None:
                 lambda: value_and_grad(loss_fn, params, batch))
             ms.append(t)
             grads[remat] = (loss, tree_leaves(g))
+            grad_bytes = leaf_bytes(g)
             del g
         grads[remat] = (grads[remat][0].cpu(),
                         [x.cpu() for x in grads[remat][1]])
         rows[remat] = {"forward_backward_ms": ms,
                        "forward_backward_ms_median": statistics.median(ms),
-                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "grad_bytes": grad_bytes}
     (la, ga), (lb, gb) = grads[True], grads[False]
     unequal = [i for i, (a, b) in enumerate(zip(ga, gb))
                if not torch.equal(a, b)]
     rec = {"phase": "remat", "config": variant, "arch": cfg.name,
            "layers": cfg.num_layers, "batch": 8, "seq": 512,
+           "params_bytes": leaf_bytes(params),
            "remat_on": rows[True], "remat_off": rows[False],
            "loss_bitwise": bool(torch.equal(la, lb)),
            "grad_leaves": len(ga), "grad_leaves_not_bitwise": unequal}
     emit(rec)
+    MEASURED["remat"][variant] = rec
     del grads, ga, gb, params
     free_memory()
     if unequal or not rec["loss_bitwise"]:
@@ -4719,11 +4742,179 @@ def phase_a15b2(seeds=(0,), serve=True) -> dict:
         tr = [r["train"][seed] for r in ranks]
         failures += check_fsdp(tr, seed)
         paths.setdefault("train_rg_fp8_fsdp_sp", tr[0]["launches"])
+        if MEASURED["fsdp"] is None:
+            MEASURED["fsdp"] = [{"state_bytes": x["state_bytes"],
+                                 "collectives": x["collectives"]}
+                                for x in tr]
     emit({"phase": "a15b2", "seconds": time.perf_counter() - t_phase,
           "four_ranks_s": ranks_s})
     if failures:
         raise AssertionError("a15b2: " + "; ".join(failures))
     return paths
+
+
+#: one production cell a family for the dry run phase (16 x 16, one
+#: cycle of the block pattern): the dense, MoE, hybrid, ssm, audio and
+#: vlm families
+DRYRUN_FAMILIES = ("qwen3-1.7b", "deepseek-moe-16b", "recurrentgemma-2b",
+                   "xlstm-350m", "whisper-tiny", "pixtral-12b")
+DRYRUN_SHAPE = "decode_32k"
+
+
+def dryrun_check(measured: dict) -> "list[str]":
+    """The dry run's predictions of the ``measured`` runs (``MEASURED``,
+    read back from JSON), traced on fake tensors with no device: (a) the
+    remat phase's fp8 run on a 1 x 1 mesh, (b) each rank of the
+    fsdp_seq_parallel run, (c) one production cell a family.  Emits a
+    line each; returns the failures."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    failures = []
+    one = ((1, 1), ("data", "model"))
+    got = measured["remat"]["fp8"]
+    cfg = variant_config("fp8", num_layers=got["layers"])
+    shape = ShapeConfig("remat", got["seq"], got["batch"], "train")
+    for remat, key in ((True, "remat_on"), (False, "remat_off")):
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(cfg.name, shape, multi_pod=False,
+                                mesh_sizes=one, config=dataclasses.replace(
+                                    cfg, remat=remat))
+        mem = rec["memory"]
+        args = mem["argument_breakdown"]
+        # the phase times forward and backward alone: params, the batch,
+        # then the gradient pass's own peak
+        peak = args["params"] + args["batch"] + mem["grad_phase_peak_bytes"]
+        row = {"phase": "dryrun_remat", "config": "fp8", "remat": remat,
+               "params_bytes": [args["params"], got["params_bytes"]],
+               "grad_bytes": [rec["train"]["grad_bytes"],
+                              got[key]["grad_bytes"]],
+               "peak_gb_predicted": peak / 1e9,
+               "peak_gb_measured": got[key]["peak_gb"],
+               "peak_gap_gb": peak / 1e9 - got[key]["peak_gb"],
+               "kernels": {k: w["calls"] for k, w in
+                           rec["cost"]["kernels"].items()},
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+        for what in ("params_bytes", "grad_bytes"):
+            if row[what][0] != row[what][1]:
+                failures.append(f"dryrun remat={remat}: {what} predicted "
+                                f"{row[what][0]}, measured {row[what][1]}")
+    t = FSDP_TRAIN
+    cfg = fsdp_config()
+    shape = ShapeConfig("fsdp", t["seq"], t["batch"], "train")
+    for rank, got in enumerate(measured["fsdp"]):
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(cfg.name, shape, multi_pod=False, rank=rank,
+                                mesh_sizes=(t["mesh"], ("data", "model")),
+                                config=cfg)
+        args = rec["memory"]["argument_breakdown"]
+        # a step's collectives, times the run's steps
+        pred = {k: {f: v * t["steps"] for f, v in c.items()}
+                for k, c in rec["collectives"]["per_type"].items()}
+        row = {"phase": "dryrun_fsdp_seq_parallel", "rank": rank,
+               "state_bytes": [args["params"] + args["opt_state"],
+                               got["state_bytes"]],
+               "collectives_predicted": pred,
+               "collectives_measured": got["collectives"]["per_type"],
+               "temp_gb_predicted": rec["memory"]["temp_bytes"] / 1e9,
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+        if row["state_bytes"][0] != row["state_bytes"][1]:
+            failures.append(f"dryrun fsdp rank {rank}: state bytes "
+                            f"{row['state_bytes']}")
+        if pred != row["collectives_measured"]:
+            failures.append(f"dryrun fsdp rank {rank}: collectives "
+                            f"predicted {pred}, measured "
+                            f"{row['collectives_measured']}")
+    for arch in DRYRUN_FAMILIES:
+        t0 = time.perf_counter()
+        rec = dryrun.lower_cell(arch, DRYRUN_SHAPE, multi_pod=False,
+                                config=dryrun.cut_to_cycles(
+                                    get_config(arch)), rank=17)
+        emit({"phase": "dryrun_cell", "arch": arch, "shape": DRYRUN_SHAPE,
+              "mesh": rec["mesh"], "layers": rec["layers"],
+              "memory": rec["memory"], "cache_bytes": rec["cache_bytes"],
+              "cache_bytes_reference_layout":
+                  rec["cache_bytes_reference_layout"],
+              "collectives": rec["collectives"],
+              "kernels": rec["cost"]["kernels"],
+              "roofline": rec["roofline"],
+              "seconds": time.perf_counter() - t0})
+    return failures
+
+
+def start_dryrun() -> "tuple":
+    """Start the dry run phase (:func:`dryrun_check` on ``MEASURED``) in a
+    process of its own that sees no card: its fake process group never
+    meets the gloo phases.  Returns the process and the card memory
+    check's failures."""
+    import subprocess
+    import torch
+    from repro_torch.launch import dryrun
+    failures = []
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit({"phase": "dryrun_card", "card_bytes": dryrun.CARD_BYTES,
+          "total_memory": total, "card": dryrun.CARD})
+    if total != dryrun.CARD_BYTES:
+        failures.append(f"dryrun: CARD_BYTES {dryrun.CARD_BYTES}, the "
+                        f"card's total_memory {total}")
+    path = os.path.join(HERE, "build", "dryrun_measured.json")
+    with open(path, "w") as f:
+        json.dump(MEASURED, f)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--dryrun-check", path], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, failures
+
+
+def phase_examples() -> None:
+    """Both unported examples' ports at smoke size on the card, through
+    their ``main``: quickstart's loss falls (its main raises otherwise)
+    and the serve example returns batch x max-new tokens."""
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    import quickstart_torch
+    import serve_decode_torch
+    t0 = time.perf_counter()
+    first, last, _ = quickstart_torch.main(["--device", "cuda"])
+    t1 = time.perf_counter()
+    res = serve_decode_torch.main(["--device", "cuda"])
+    t2 = time.perf_counter()
+    emit({"phase": "examples", "quickstart_loss": [first, last],
+          "quickstart_s": t1 - t0, "serve_decode_tokens":
+              list(res.tokens.shape), "serve_decode_s": t2 - t1})
+    if tuple(res.tokens.shape) != (4, 16):
+        raise AssertionError(f"serve_decode_torch: tokens of shape "
+                             f"{tuple(res.tokens.shape)}, not (4, 16)")
+
+
+def phase_dryrun_examples() -> None:
+    """The dry run phase in its process, the examples on the card
+    meanwhile; then the dry run's lines and gates."""
+    from repro_torch.kernels import abstract
+    proc, failures = start_dryrun()
+    try:
+        with timed("examples"):
+            phase_examples()
+        # every phase of this process ran on real tensors: none took a
+        # kernel's shape-only route (the dry run's is the child's)
+        emit({"phase": "abstract_route", "launches_here": abstract.WORK})
+        if abstract.WORK:
+            failures.append(f"real tensors took the shape-only kernels: "
+                            f"{abstract.WORK}")
+        out, err = proc.communicate(timeout=600)
+    finally:
+        # a failed phase or an expired wait leaves no tracing child
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    print(out, end="", flush=True)
+    if proc.returncode:
+        failures.append(f"dryrun: exit {proc.returncode}: {err[-3000:]}")
+    if failures:
+        raise AssertionError("; ".join(failures))
 
 
 def main(argv=None) -> int:
@@ -4734,7 +4925,15 @@ def main(argv=None) -> int:
     ap.add_argument("--fsdp-seeds", default=None,
                     help="comma-separated seeds: the fsdp_seq_parallel "
                          "phase alone, its run from each")
+    ap.add_argument("--dryrun-check", default=None,
+                    help=argparse.SUPPRESS)    # the dry run phase's process
     args = ap.parse_args(argv)
+    if args.dryrun_check:
+        with open(args.dryrun_check) as f:
+            failures = dryrun_check(json.load(f))
+        for line in failures:
+            print(line, file=sys.stderr)
+        return 1 if failures else 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4844,6 +5043,9 @@ def main(argv=None) -> int:
         free_memory()
         with timed("tp_recurrent + fsdp_seq_parallel"):
             paths.update(phase_a15b2())
+        free_memory()
+        with timed("dryrun + examples"):
+            phase_dryrun_examples()
         # launches: the sum over the main paths driven (serving and
         # training in each configuration, training with the fp8 wgrad),
         # each counted from 0

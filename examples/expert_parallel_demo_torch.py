@@ -6,11 +6,11 @@ against the single-rank layer, and the collectives each rank made are
 printed (the reference's demo prints the ones in its compiled HLO).
 
   PYTHONPATH=src python examples/expert_parallel_demo_torch.py
-  PYTHONPATH=src python examples/expert_parallel_demo_torch.py --device cuda
+  PYTHONPATH=src python examples/expert_parallel_demo_torch.py --device cpu
 
-On the CPU each rank runs the kernels' plain versions; with ``--device
-cuda`` the four ranks share ``cuda:0`` (gloo: NCCL takes one rank a
-device) and launch the CUDA kernels.
+By default the four ranks share ``cuda:0`` (gloo: NCCL takes one rank a
+device) and launch the CUDA kernels; with ``--device cpu`` each rank
+runs the kernels' plain versions.
 """
 import argparse
 import os
@@ -53,7 +53,7 @@ def rank_main(rank, world, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("no CUDA device is available")

@@ -26,13 +26,14 @@ from repro_torch.analysis.findings import Finding, relpath
 _KERNEL_ENTRIES = ("gmm", "gmm_quant", "gmm_bf16", "gmm_wgrad",
                    "gmm_wgrad_fp8", "act_quantize", "quantize_tilewise",
                    "flash_attention")
-# kernel-internal callables: the launch wrappers and their plain twins.
+# kernel-internal callables: the launch wrappers, their plain twins and
+# their shape-only versions.
 # The public functions (gmm, act_quantize, ...) stay allowed everywhere;
 # only kernels/ itself (and tests, not in the default scan scope) may
 # call these.
 KERNEL_INTERNAL_CALLS = frozenset(
     f"{name}_{route}" for name in _KERNEL_ENTRIES
-    for route in ("cuda", "plain"))
+    for route in ("cuda", "plain", "abstract"))
 
 BLOCK_KWARGS = ("block_m", "block_n", "block_k")
 _BLOCK_ALIGN = {"block_m": 8, "block_n": 128, "block_k": 128}

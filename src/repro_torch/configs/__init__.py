@@ -6,13 +6,17 @@ a reduced same-family config for CPU tests; ``run_hints(name)`` the
 launcher hints (microbatch sizes; xlstm's mLSTM chunk).  The presets keep
 the JAX package's fields, with one difference: ``qwen2-moe-a2.7b`` and
 ``deepseek-moe-16b`` default to ``precision="fp8"``; every other preset
-keeps the reference's bf16.
+keeps the reference's bf16.  ``SHAPES`` (the dry run's input shapes),
+``ShapeConfig``, ``FULL_ATTENTION_ARCHS`` and ``cell_is_runnable`` are
+the JAX package's.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoESpec  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    FULL_ATTENTION_ARCHS, SHAPES, ModelConfig, MoESpec, ShapeConfig,
+    cell_is_runnable)
 
 #: every architecture of the JAX package
 ARCHS = (

@@ -164,3 +164,34 @@ class ModelConfig:
         if kind == "slstm":
             return d + 5 * d * d
         raise ValueError(kind)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # "train" | "prefill" | "decode"
+    grad_accum: int = 1        # microbatch count for train shapes
+
+
+#: the dry run's input shapes, the JAX package's
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+#: architectures whose attention is strictly O(S^2) full attention: the
+#: long_500k cell is skipped for these
+FULL_ATTENTION_ARCHS = frozenset({
+    "yi-9b", "minitron-8b", "qwen3-1.7b", "qwen1.5-110b", "whisper-tiny",
+    "qwen2-moe-a2.7b", "deepseek-moe-16b", "pixtral-12b",
+})
+
+
+def cell_is_runnable(arch: str, shape: str) -> bool:
+    if shape == "long_500k" and arch in FULL_ATTENTION_ARCHS:
+        return False
+    return True

@@ -12,7 +12,9 @@ place, so it has no counterpart here: the collectives it implies are
 explicit (below).
 
 The collectives go through :func:`all_reduce` and :func:`all_gather`,
-which count their calls and bytes in :data:`COLLECTIVES`.
+which count their calls and bytes in :data:`COLLECTIVES`, in all and by
+type (the reference dry run's names: ``all-reduce``, ``all-gather``;
+``gather`` for a checkpoint's gathers).
 :func:`reduce_from` and :func:`copy_to` are the two halves of a sharded
 layer's gradient that ``shard_map``'s transpose gives the reference: the
 sum of the ranks' partial outputs (forward sum, backward identity) and
@@ -56,8 +58,12 @@ _DEFAULT_RULES = {
     "kv_seq": "model",      # decode KV caches: sequence-sharded (flash-decode)
 }
 
-#: calls and bytes of every collective this process made
-COLLECTIVES = {"calls": 0, "bytes": 0}
+#: calls and bytes of every collective this process made, in all and
+#: under ``per_type``: collective type -> {"calls", "bytes",
+#: "result_bytes"}.  ``bytes`` are the inputs this rank hands in;
+#: ``result_bytes`` the result buffers, the reference dry run's unit (an
+#: all-gather's result is the group's size times its input)
+COLLECTIVES = {"calls": 0, "bytes": 0, "per_type": {}}
 
 
 def model_axis_size(mesh) -> int:
@@ -111,18 +117,29 @@ def default_backend(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def _count(x: torch.Tensor) -> None:
+def count_collective(x: torch.Tensor, kind: str, parts: int = 1) -> None:
+    """Count one collective of type ``kind`` on input ``x`` whose result
+    holds ``parts`` such inputs (an all-gather's or a gather's: the
+    group's size).  The ``per_type`` table is replaced, never changed in
+    place, so a shallow copy of :data:`COLLECTIVES` stays a consistent
+    snapshot."""
+    nbytes = x.numel() * x.element_size()
     COLLECTIVES["calls"] += 1
-    COLLECTIVES["bytes"] += x.numel() * x.element_size()
+    COLLECTIVES["bytes"] += nbytes
+    old = COLLECTIVES["per_type"].get(
+        kind, {"calls": 0, "bytes": 0, "result_bytes": 0})
+    COLLECTIVES["per_type"] = {**COLLECTIVES["per_type"], kind: {
+        "calls": old["calls"] + 1, "bytes": old["bytes"] + nbytes,
+        "result_bytes": old["result_bytes"] + parts * nbytes}}
 
 
 def reset_collectives() -> None:
-    COLLECTIVES.update(calls=0, bytes=0)
+    COLLECTIVES.update(calls=0, bytes=0, per_type={})
 
 
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """Reduce ``x`` over ``group`` in place (and return it)."""
-    _count(x)
+    count_collective(x, "all-reduce")
     dist.all_reduce(x, op=op, group=group)
     return x
 
@@ -139,7 +156,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
         x = x.cpu()
     raw = x.reshape(-1).view(torch.uint8)
     parts = [torch.empty_like(raw) for _ in range(n)]
-    _count(raw)
+    count_collective(raw, "all-gather", n)
     dist.all_gather(parts, raw, group=group)
     return torch.cat([p.view(x.dtype).reshape(x.shape) for p in parts],
                      dim).to(dev)

@@ -331,8 +331,7 @@ def _gather_one(x: torch.Tensor, dim: int, group, dst: int):
     if raw.device.type == "cuda" and dist.get_backend(group) == "gloo":
         raw = raw.cpu()
     parts = [torch.empty_like(raw) for _ in range(n)] if here else None
-    dctx.COLLECTIVES["calls"] += 1
-    dctx.COLLECTIVES["bytes"] += raw.numel()
+    dctx.count_collective(raw, "gather", n)
     dist.gather(raw, parts, dst=dist.get_global_rank(group, dst),
                 group=group)
     if not here:

@@ -14,6 +14,12 @@ Two input modes: bf16 or f32 operands, or (the fused-producer path) e4m3
 operands with their 1x128 scales ``s_g``/``s_u``, dequantized on load as
 ``float(q) * s``, so the activation runs on exactly the values the
 quantizing GEMM kept.
+
+:func:`act_quantize` chooses by its tensor: a ``FakeTensor`` goes to
+:func:`act_quantize_abstract` (shape-only,
+:mod:`~repro_torch.kernels.abstract`), a CPU tensor to the plain version,
+a CUDA tensor to :func:`act_quantize_cuda`, which launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import abstract, build
+from repro_torch.kernels.plan import act_quant_bytes
 from repro_torch.kernels.ref import ACTIVATIONS, FP8, QUANT_BLOCK, \
     act_quantize_ref, dequantize_tilewise_ref
 
@@ -117,10 +124,29 @@ act_quantize_cuda.launches = 0
 act_quantize_cuda.fp8_launches = 0
 
 
+def act_quantize_abstract(g, u=None, *, s_g=None, s_u=None,
+                          act: str = "silu_mul"):
+    """Shape-only :func:`act_quantize`: its checks, the [M, K] e4m3 payload
+    and [M, K/128] f32 scales, and the pass's bytes
+    (``plan.act_quant_bytes``: one or two operands, bf16 / f32, or e4m3
+    with scales; no operations counted), under ``act_quantize`` or, for
+    fp8 operands, ``act_quantize_fp8``; reads nothing."""
+    _check(g, u, act, s_g, s_u)
+    m, k = g.shape
+    q = g.new_empty((m, k), dtype=FP8)
+    s = g.new_empty((m, k // QUANT_BLOCK), dtype=torch.float32)
+    fp8 = s_g is not None
+    abstract.count("act_quantize_fp8" if fp8 else "act_quantize", 0.0,
+                   act_quant_bytes(m, k, g.element_size(), in_scales=fp8,
+                                   operands=1 if u is None else 2))
+    return q, s
+
+
 def act_quantize(g, u=None, *, s_g=None, s_u=None, act: str = "silu_mul"):
     """g (and u for silu_mul): [M, K], K % 128 == 0: bf16 or f32, or e4m3
     with 1x128 scales ``s_g`` (and ``s_u``) of shape [M, K/128] f32.
     Returns ``(q[M, K] e4m3, s[M, K/128] f32)``."""
     _check(g, u, act, s_g, s_u)
-    fn = act_quantize_cuda if g.is_cuda else act_quantize_plain
+    fn = act_quantize_abstract if abstract.is_fake(g) else \
+        act_quantize_cuda if g.is_cuda else act_quantize_plain
     return fn(g, u, s_g=s_g, s_u=s_u, act=act)

@@ -10,7 +10,9 @@ tiles, and causal k tiles wholly above the diagonal are skipped, so the
 Layout: q [B, Hq, S, D], k/v [B, Hkv, S, D] -> [B, Hq, S, D] in q's
 dtype.
 
-:func:`flash_attention` chooses by the tensors' device: CPU tensors go to
+:func:`flash_attention` chooses by its tensors: ``FakeTensor``s go to
+:func:`flash_attention_abstract` (shape-only,
+:mod:`~repro_torch.kernels.abstract`), CPU tensors to
 :func:`flash_attention_plain`, CUDA tensors to
 :func:`flash_attention_cuda`, which launches the kernel or raises.
 :func:`flash_attention_trainable` adds the gradient: as in the JAX
@@ -23,7 +25,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import abstract, build
+from repro_torch.kernels.plan import flash_attention_work
 from repro_torch.kernels.ref import NEG_INF, flash_attention_ref
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -124,9 +127,22 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
 flash_attention_cuda.launches = 0
 
 
+def flash_attention_abstract(q, k, v, *, causal: bool = True):
+    """Shape-only :func:`flash_attention`: its checks, the [B, Hq, S, D]
+    output in q's dtype and the kernel's work
+    (``plan.flash_attention_work``); reads nothing to the host."""
+    _check(q, k, v)
+    b, hq, s, d = q.shape
+    abstract.count("flash_attention", *flash_attention_work(
+        b, hq, k.shape[1], s, d, causal, BLOCK))
+    return q.new_empty(q.shape)
+
+
 def flash_attention(q, k, v, *, causal: bool = True):
     """q [B, Hq, S, D], k/v [B, Hkv, S, D] -> [B, Hq, S, D] (q's dtype)."""
     _check(q, k, v)
+    if abstract.is_fake(q):
+        return flash_attention_abstract(q, k, v, causal=causal)
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal)
     return flash_attention_plain(q, k, v, causal=causal)

@@ -28,9 +28,10 @@ the :class:`~repro_torch.kernels.plan.TilePlan`: one CTA per (visit,
 sources for why the Pallas kernels' read-modify-write store does not
 carry over).
 
-Each function chooses by the tensor's device: CPU -> its ``*_plain``
-version, CUDA -> its ``*_cuda`` wrapper, which launches the kernel or
-raises.
+Each function chooses by its tensor: a ``FakeTensor`` -> its
+``*_abstract`` version (shape-only, :mod:`~repro_torch.kernels.abstract`),
+CPU -> its ``*_plain`` version, CUDA -> its ``*_cuda`` wrapper, which
+launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -39,9 +40,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import abstract, build
 from repro_torch.kernels.plan import QUANT_BLOCK, KernelConfig, TilePlan, \
-    make_tile_plan
+    device_spec, gemm_work, make_tile_plan
 from repro_torch.kernels.ref import FP8, gmm_bf16_exact_ref, \
     gmm_quant_ref, grouped_gemm_blockscaled_ref
 
@@ -108,16 +109,27 @@ def _check_cuda(block_m, block_n, block_k, plan: TilePlan, out_dtype,
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _output(out, shape, dtype, dev, name):
+def _output(out, shape, dtype, like, name):
     """``out``, checked as a kernel's TMA stores take it, or a new tensor
-    when it is None."""
+    on ``like``'s device (a fake one for a fake ``like``) when it is
+    None."""
+    dev = like.device
     if out is None:
-        return torch.empty(shape, dtype=dtype, device=dev)
+        return like.new_empty(shape, dtype=dtype)
     if (tuple(out.shape) != shape or out.dtype != dtype or out.device != dev
-            or not out.is_contiguous() or out.data_ptr() % 16):
+            or not out.is_contiguous() or not abstract.aligned(out)):
         raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                          f"{list(shape)} {dtype} tensor on {dev}")
     return out
+
+
+def _count_work(name, m, k, n, num_groups, block_m, block_n, block_k,
+                **kw) -> None:
+    """Add one shape-only launch's work (the cost model's, at the static
+    M) to ``abstract.WORK``."""
+    cfg = KernelConfig(block_m=block_m, block_n=block_n, block_k=block_k)
+    abstract.count(name, *gemm_work(m, k, n, num_groups, cfg,
+                                    device_spec("nvidia h100"), **kw))
 
 
 def _plan_args(plan: TilePlan):
@@ -166,7 +178,7 @@ def gmm_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
                 (("a_fp8", a_fp8, FP8), ("s_a", s_a, torch.float32),
                  ("b_fp8", b_fp8, FP8), ("s_b", s_b, torch.float32)))
     dev = a_fp8.device
-    out = _output(out, (m, n), out_dtype, dev, "out")
+    out = _output(out, (m, n), out_dtype, a_fp8, "out")
     if m == 0:
         return out
     fn = build.function("grouped_gemm", "gmm_fp8", [_P] * 8 + [_I] * 7 + [_P])
@@ -183,6 +195,24 @@ def gmm_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
 gmm_cuda.launches = 0
 
 
+def gmm_abstract(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
+                 num_groups: Optional[int] = None, block_m: int = 128,
+                 block_n: int = 128, block_k: int = 128,
+                 out_dtype: torch.dtype = torch.bfloat16,
+                 plan: Optional[TilePlan] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shape-only :func:`gmm` (:mod:`~repro_torch.kernels.abstract`): its
+    checks, its [M, N] output (``out`` checked as the kernel takes it) and
+    the kernel's work at the static M; reads nothing to the host."""
+    m, k, n, num_groups, plan = _prepare(
+        a_fp8, s_a, b_fp8, s_b, group_sizes, num_groups, block_m, block_n,
+        block_k, plan)
+    out = _output(out, (m, n), out_dtype, a_fp8, "out")
+    _count_work("gmm", m, k, n, num_groups, block_m, block_n, block_k,
+                out_itemsize=out_dtype.itemsize)
+    return out
+
+
 def gmm(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
         num_groups: Optional[int] = None, block_m: int = 128,
         block_n: int = 128, block_k: int = 128,
@@ -197,7 +227,8 @@ def gmm(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
     when absent); it must come from exactly these sizes.
     Returns [M, N] ``out_dtype``; rows >= sum(group_sizes) are zeros.
     """
-    fn = gmm_cuda if a_fp8.is_cuda else gmm_plain
+    fn = gmm_abstract if abstract.is_fake(a_fp8) else \
+        gmm_cuda if a_fp8.is_cuda else gmm_plain
     return fn(a_fp8, s_a, b_fp8, s_b, group_sizes, num_groups=num_groups,
               block_m=block_m, block_n=block_n, block_k=block_k,
               out_dtype=out_dtype, plan=plan, out=out)
@@ -243,8 +274,8 @@ def gmm_quant_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
                  ("b_fp8", b_fp8, FP8), ("s_b", s_b, torch.float32)))
     dev = a_fp8.device
     q, s = out if out is not None else (None, None)
-    q = _output(q, (m, n), FP8, dev, "q")
-    s = _output(s, (m, n // QUANT_BLOCK), torch.float32, dev, "s")
+    q = _output(q, (m, n), FP8, a_fp8, "q")
+    s = _output(s, (m, n // QUANT_BLOCK), torch.float32, a_fp8, "s")
     if m == 0:
         return q, s
     fn = build.function("grouped_gemm", "gmm_fp8_quant",
@@ -261,6 +292,24 @@ def gmm_quant_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
 gmm_quant_cuda.launches = 0
 
 
+def gmm_quant_abstract(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
+                       num_groups: Optional[int] = None, block_m: int = 128,
+                       block_n: int = 128, block_k: int = 128,
+                       out_dtype: torch.dtype = torch.bfloat16,
+                       plan: Optional[TilePlan] = None):
+    """Shape-only :func:`gmm_quant`: its checks, ``(q [M, N] e4m3, s [M,
+    N/128] f32)`` and the kernel's work (a quantizing store) at the static
+    M; reads nothing to the host."""
+    m, k, n, num_groups, plan = _prepare(
+        a_fp8, s_a, b_fp8, s_b, group_sizes, num_groups, block_m, block_n,
+        block_k, plan)
+    q = _output(None, (m, n), FP8, a_fp8, "q")
+    s = _output(None, (m, n // QUANT_BLOCK), torch.float32, a_fp8, "s")
+    _count_work("gmm_quant", m, k, n, num_groups, block_m, block_n, block_k,
+                quant_output=True)
+    return q, s
+
+
 def gmm_quant(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
               num_groups: Optional[int] = None, block_m: int = 128,
               block_n: int = 128, block_k: int = 128,
@@ -274,7 +323,8 @@ def gmm_quant(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
     ``quantize_tilewise(gmm(..., out_dtype=out_dtype).float())``.  Rows
     >= sum(group_sizes) get payload 0 and scale 1.
     """
-    fn = gmm_quant_cuda if a_fp8.is_cuda else gmm_quant_plain
+    fn = gmm_quant_abstract if abstract.is_fake(a_fp8) else \
+        gmm_quant_cuda if a_fp8.is_cuda else gmm_quant_plain
     return fn(a_fp8, s_a, b_fp8, s_b, group_sizes, num_groups=num_groups,
               block_m=block_m, block_n=block_n, block_k=block_k,
               out_dtype=out_dtype, plan=plan)
@@ -345,7 +395,7 @@ def gmm_bf16_cuda(x, w, group_sizes, *, num_groups: Optional[int] = None,
     if w.dtype != torch.bfloat16:
         raise TypeError(f"w must be {torch.bfloat16}, got {w.dtype}")
     k_major = weight_layout(w)
-    out = _output(out, (m, n), out_dtype, dev, "out")
+    out = _output(out, (m, n), out_dtype, x, "out")
     if m == 0:
         return out
     fn = build.function("gmm_bf16", "gmm_bf16", [_P] * 6 + [_I] * 9 + [_P])
@@ -361,6 +411,23 @@ def gmm_bf16_cuda(x, w, group_sizes, *, num_groups: Optional[int] = None,
 gmm_bf16_cuda.launches = 0
 
 
+def gmm_bf16_abstract(x, w, group_sizes, *,
+                      num_groups: Optional[int] = None, block_m: int = 128,
+                      block_n: int = 128, block_k: int = 128,
+                      out_dtype: torch.dtype = torch.bfloat16,
+                      plan: Optional[TilePlan] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shape-only :func:`gmm_bf16`: its checks, its [M, N] output and the
+    kernel's work at the static M; reads nothing to the host."""
+    m, k, n, num_groups, plan = _prepare(
+        x, None, w, None, group_sizes, num_groups, block_m, block_n, block_k,
+        plan)
+    out = _output(out, (m, n), out_dtype, x, "out")
+    _count_work("gmm_bf16", m, k, n, num_groups, block_m, block_n, block_k,
+                precision="bf16", out_itemsize=out_dtype.itemsize)
+    return out
+
+
 def gmm_bf16(x, w, group_sizes, *, num_groups: Optional[int] = None,
              block_m: int = 128, block_n: int = 128, block_k: int = 128,
              out_dtype: torch.dtype = torch.bfloat16,
@@ -374,7 +441,8 @@ def gmm_bf16(x, w, group_sizes, *, num_groups: Optional[int] = None,
     dot, added in f32.  Returns [M, N] ``out_dtype``; rows >=
     sum(group_sizes) are zeros.
     """
-    fn = gmm_bf16_cuda if x.is_cuda else gmm_bf16_plain
+    fn = gmm_bf16_abstract if abstract.is_fake(x) else \
+        gmm_bf16_cuda if x.is_cuda else gmm_bf16_plain
     return fn(x, w, group_sizes, num_groups=num_groups, block_m=block_m,
               block_n=block_n, block_k=block_k, out_dtype=out_dtype,
               plan=plan, out=out)

@@ -650,18 +650,19 @@ def _eff_rows(block_m: int, mma_m: int) -> int:
     return -(-block_m // mma_m) * mma_m
 
 
-def estimate_cost_s(m: int, k: int, n: int, g: int, config: KernelConfig,
-                    spec: Optional[DeviceSpec] = None,
-                    quant_output: bool = False,
-                    precision: str = "fp8") -> float:
-    """Roofline estimate of one grouped GEMM under ``config``: max of the
-    compute and memory terms, with the visit inflation the plan implies
-    (worst case: every group boundary splits a tile, +G-1 visits).
-    Compute charges MMA occupancy (``_eff_rows``); memory charges the
-    bytes actually moved.  ``quant_output`` models the quantizing store
-    (``op="gemm_quant"``): fp8 payload + f32 1x128 scale rows instead of
-    the bf16 C.  ``precision="bf16"`` models the bf16 kernel: 2-byte
-    operands, no scales."""
+def gemm_work(m: int, k: int, n: int, g: int, config: KernelConfig,
+              spec: Optional[DeviceSpec] = None,
+              quant_output: bool = False, precision: str = "fp8",
+              out_itemsize: int = 2) -> "tuple[float, int]":
+    """``(flops, bytes)`` of one grouped GEMM under ``config`` at the
+    static M: the worst-case plan's visits (every group boundary splits a
+    tile, +G-1 visits), each computing a full ``(bm, k) x (k, n)`` tile
+    row at MMA occupancy (``_eff_rows``), and the bytes those visits move
+    (A re-read per N tile, B per visit, one C flush of ``out_itemsize``
+    bytes an element).  ``quant_output``: the quantizing store (fp8
+    payload + f32 1x128 scale rows instead of C); ``precision="bf16"``:
+    2-byte operands, no scales.  The terms of :func:`estimate_cost_s`,
+    and the work the shape-only kernels count."""
     spec = spec or device_spec()
     bm, bn = config.block_m, config.block_n
     num_tiles = -(-m // bm)
@@ -680,9 +681,20 @@ def estimate_cost_s(m: int, k: int, n: int, g: int, config: KernelConfig,
     if quant_output:
         c_bytes = num_tiles * bm * (n + 4 * nb)        # fp8 C + f32 scales
     else:
-        c_bytes = num_tiles * bm * n * 2               # bf16 C flush
-    return max(flops / spec.peak_flops,
-               (a_bytes + b_bytes + c_bytes) / spec.hbm_bw)
+        c_bytes = num_tiles * bm * n * out_itemsize    # C flush
+    return flops, a_bytes + b_bytes + c_bytes
+
+
+def estimate_cost_s(m: int, k: int, n: int, g: int, config: KernelConfig,
+                    spec: Optional[DeviceSpec] = None,
+                    quant_output: bool = False,
+                    precision: str = "fp8") -> float:
+    """Roofline estimate of one grouped GEMM under ``config``: max of the
+    compute and memory terms of :func:`gemm_work` (a bf16 C)."""
+    spec = spec or device_spec()
+    flops, nbytes = gemm_work(m, k, n, g, config, spec, quant_output,
+                              precision)
+    return max(flops / spec.peak_flops, nbytes / spec.hbm_bw)
 
 
 def wgrad_operand_bytes(m: int, k: int, n: int, g: int,
@@ -713,48 +725,87 @@ def wgrad_operand_bytes(m: int, k: int, n: int, g: int,
     return int(x_bytes + dy_bytes)
 
 
-def estimate_cost_s_wgrad(m: int, k: int, n: int, g: int,
-                          config: KernelConfig,
-                          spec: Optional[DeviceSpec] = None,
-                          precision: str = "bf16") -> float:
-    """Roofline estimate of the ragged-contraction (wgrad) grouped GEMM
-    ``dw[g] = x_g^T @ dy_g`` under ``config``: the forward's visit
-    inflation, :func:`wgrad_operand_bytes` of operand traffic and one f32
-    ``[G, K, N]`` dw flush."""
+def wgrad_work(m: int, k: int, n: int, g: int, config: KernelConfig,
+               spec: Optional[DeviceSpec] = None, precision: str = "bf16",
+               dw_itemsize: int = 4) -> "tuple[float, int]":
+    """``(flops, bytes)`` of one ragged-contraction (wgrad) grouped GEMM
+    ``dw[g] = x_g^T @ dy_g`` at the static M: the forward's visit
+    inflation, :func:`wgrad_operand_bytes` of operand traffic and one
+    ``[G, K, N]`` dw flush of ``dw_itemsize`` bytes an element.  The terms
+    of :func:`estimate_cost_s_wgrad`, and the work the shape-only kernels
+    count."""
     spec = spec or device_spec()
     bm = config.block_m
     visits = -(-m // bm) + max(g - 1, 0)
     flops = 2.0 * visits * _eff_rows(bm, spec.mma_m) * k * n
     operand_bytes = wgrad_operand_bytes(m, k, n, g, config,
                                         precision=precision)
-    dw_bytes = g * k * n * 4                             # f32 dw flush
-    return max(flops / spec.peak_flops,
-               (operand_bytes + dw_bytes) / spec.hbm_bw)
+    dw_bytes = g * k * n * dw_itemsize                   # dw flush
+    return flops, operand_bytes + dw_bytes
+
+
+def estimate_cost_s_wgrad(m: int, k: int, n: int, g: int,
+                          config: KernelConfig,
+                          spec: Optional[DeviceSpec] = None,
+                          precision: str = "bf16") -> float:
+    """Roofline estimate of the wgrad grouped GEMM under ``config``: max of
+    the terms of :func:`wgrad_work` (an f32 dw)."""
+    spec = spec or device_spec()
+    flops, nbytes = wgrad_work(m, k, n, g, config, spec, precision)
+    return max(flops / spec.peak_flops, nbytes / spec.hbm_bw)
+
+
+def quantize_bytes(m: int, k: int) -> int:
+    """Bytes one 1x128 tilewise quantization pass moves: read the f32
+    payload, write fp8 + f32 scale rows (the pass is memory-bound: the
+    cost model counts no operations)."""
+    kb = -(-k // QUANT_BLOCK)
+    return m * k * 4 + m * k * 1 + m * kb * 4
+
+
+def act_quant_bytes(m: int, k: int, in_itemsize: int = 2,
+                    in_scales: bool = False, operands: int = 2) -> int:
+    """Bytes one fused activation->quantize pass moves: read ``operands``
+    inputs (the gate and up outputs; one for gelu) of ``in_itemsize``
+    bytes an element (with ``in_scales``, e4m3 operands and their f32
+    1x128 scale rows), write fp8 payload + f32 scale rows."""
+    kb = -(-k // QUANT_BLOCK)
+    read = operands * m * (k * in_itemsize + (4 * kb if in_scales else 0))
+    return read + m * k * 1 + m * kb * 4
+
+
+def flash_attention_work(b: int, hq: int, hkv: int, s: int, d: int,
+                         causal: bool = True,
+                         block: int = 64) -> "tuple[float, int]":
+    """``(flops, bytes)`` of one flash-attention forward (bf16 q, k, v and
+    output): the two products (QK^T and P.V) of every (q tile, k tile)
+    pair the kernel visits, the causal skip leaving ``nb (nb + 1) / 2`` of
+    ``nb^2`` pairs, and each operand read once and the output written
+    once."""
+    nb = -(-s // block)
+    pairs = nb * (nb + 1) // 2 if causal else nb * nb
+    flops = 4.0 * b * hq * pairs * block * block * d
+    return flops, 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
 
 
 def estimate_cost_s_quantize(m: int, k: int, config: KernelConfig,
                              spec: Optional[DeviceSpec] = None) -> float:
     """Roofline estimate of one 1x128 tilewise quantization pass (tile
-    height ``block_m``): memory-bound, read the f32 payload, write fp8 +
-    f32 scale rows; the grid term models per-tile dispatch overhead."""
+    height ``block_m``): memory-bound, :func:`quantize_bytes`; the grid
+    term models per-tile dispatch overhead."""
     spec = spec or device_spec()
     tiles = -(-m // config.block_m)
-    kb = -(-k // QUANT_BLOCK)
-    bytes_moved = m * k * 4 + m * k * 1 + m * kb * 4
-    return bytes_moved / spec.hbm_bw + tiles * 1e-6
+    return quantize_bytes(m, k) / spec.hbm_bw + tiles * 1e-6
 
 
 def estimate_cost_s_act_quant(m: int, k: int, config: KernelConfig,
                               spec: Optional[DeviceSpec] = None) -> float:
     """Roofline estimate of one fused activation->quantize pass
-    (``op="act_quant"``): reads the gate and up outputs (bf16), writes
-    fp8 payload + f32 scale rows; the grid term as in
-    :func:`estimate_cost_s_quantize`."""
+    (``op="act_quant"``): :func:`act_quant_bytes` of bf16 gate and up
+    outputs; the grid term as in :func:`estimate_cost_s_quantize`."""
     spec = spec or device_spec()
     tiles = -(-m // config.block_m)
-    kb = -(-k // QUANT_BLOCK)
-    bytes_moved = 2 * m * k * 2 + m * k * 1 + m * kb * 4
-    return bytes_moved / spec.hbm_bw + tiles * 1e-6
+    return act_quant_bytes(m, k) / spec.hbm_bw + tiles * 1e-6
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,10 @@ This is the producer of the grouped GEMM's ``(a_fp8, s_a)`` operands.
 Per-row scale layout contract (shared by every consumer): the scales are
 ``[M, K/128]`` f32, one per 1x128 tile of the row.
 
-:func:`quantize_tilewise` chooses by the tensor's device: a CPU tensor
-goes to :func:`quantize_tilewise_plain`, a CUDA tensor to
+:func:`quantize_tilewise` chooses by its tensor: a ``FakeTensor`` goes
+to :func:`quantize_tilewise_abstract` (shape-only,
+:mod:`~repro_torch.kernels.abstract`), a CPU tensor to
+:func:`quantize_tilewise_plain`, a CUDA tensor to
 :func:`quantize_tilewise_cuda`, which launches the kernel or raises.
 """
 from __future__ import annotations
@@ -15,7 +17,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import abstract, build
+from repro_torch.kernels.plan import quantize_bytes
 from repro_torch.kernels.ref import FP8, QUANT_BLOCK, quantize_tilewise_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -63,9 +66,23 @@ def quantize_tilewise_cuda(x: torch.Tensor):
 quantize_tilewise_cuda.launches = 0
 
 
+def quantize_tilewise_abstract(x: torch.Tensor):
+    """Shape-only :func:`quantize_tilewise`: its checks, the [M, K] e4m3
+    payload and [M, K/128] f32 scales, and the pass's bytes
+    (``plan.quantize_bytes``; no operations counted); reads nothing."""
+    _check(x)
+    m, k = x.shape
+    q = x.new_empty((m, k), dtype=FP8)
+    s = x.new_empty((m, k // QUANT_BLOCK), dtype=torch.float32)
+    abstract.count("quantize_tilewise", 0.0, quantize_bytes(m, k))
+    return q, s
+
+
 def quantize_tilewise(x: torch.Tensor):
     """x: [M, K] f32, K % 128 == 0 -> (q [M, K] e4m3, s [M, K/128] f32)."""
     _check(x)
+    if abstract.is_fake(x):
+        return quantize_tilewise_abstract(x)
     if x.is_cuda:
         return quantize_tilewise_cuda(x)
     return quantize_tilewise_plain(x)

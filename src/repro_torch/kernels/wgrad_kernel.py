@@ -25,9 +25,10 @@ spans: K and N must be multiples of the span-widened tiles, the plain
 versions compute the same dw for any span, and the CUDA kernels, which
 have no spans, raise on a span > 1 rather than run span 1 in its place.
 
-Each public function chooses by the tensor's device: a CPU tensor goes
-to the plain version, a CUDA tensor to the ``*_cuda`` wrapper, which
-launches the kernel or raises.
+Each public function chooses by its tensor: a ``FakeTensor`` goes to the
+``*_abstract`` version (shape-only, :mod:`~repro_torch.kernels.abstract`),
+a CPU tensor to the plain version, a CUDA tensor to the ``*_cuda``
+wrapper, which launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -36,8 +37,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
-from repro_torch.kernels.plan import QUANT_BLOCK, KernelConfig, TilePlan
+from repro_torch.kernels import abstract, build
+from repro_torch.kernels.plan import QUANT_BLOCK, KernelConfig, TilePlan, \
+    device_spec, wgrad_work
 from repro_torch.kernels.ref import FP8, wgrad_exact_ref, \
     wgrad_fp8_exact_ref
 
@@ -212,6 +214,52 @@ def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
 gmm_wgrad_fp8_cuda.launches = 0
 
 
+def _abstract(name, m, k, n, num_groups, block_m, block_n, block_k,
+              n_span, k_span, out_dtype, precision, like):
+    """The shape-only wgrad: dw [G, K, N] in ``out_dtype`` and the work of
+    ``plan.wgrad_work`` at the static M."""
+    cfg = KernelConfig(block_m=block_m, block_n=block_n, block_k=block_k,
+                       n_span=n_span, k_span=k_span)
+    abstract.count(name, *wgrad_work(m, k, n, num_groups, cfg,
+                                     device_spec("nvidia h100"), precision,
+                                     dw_itemsize=out_dtype.itemsize))
+    return like.new_empty((num_groups, k, n), dtype=out_dtype)
+
+
+def gmm_wgrad_abstract(x, dy, group_sizes, *,
+                       num_groups: Optional[int] = None, block_m: int = 128,
+                       block_n: int = 128, block_k: int = 128,
+                       out_dtype: torch.dtype = torch.float32,
+                       plan: Optional[TilePlan] = None, n_span: int = 1,
+                       k_span: int = 1) -> torch.Tensor:
+    """Shape-only :func:`gmm_wgrad` (:mod:`~repro_torch.kernels.abstract`):
+    its checks, dw [G, K, N] in ``out_dtype`` and B4's work at the static
+    M; reads nothing to the host."""
+    (m, k), (m2, n) = x.shape, dy.shape
+    num_groups, _ = _prepare(m, k, m2, n, group_sizes, num_groups,
+                             block_m, block_n, block_k, plan, n_span, k_span)
+    return _abstract("gmm_wgrad", m, k, n, num_groups, block_m, block_n,
+                     block_k, n_span, k_span, out_dtype, "bf16", x)
+
+
+def gmm_wgrad_fp8_abstract(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
+                           num_groups: Optional[int] = None,
+                           block_m: int = 128, block_n: int = 128,
+                           block_k: int = 128,
+                           out_dtype: torch.dtype = torch.float32,
+                           plan: Optional[TilePlan] = None, n_span: int = 1,
+                           k_span: int = 1) -> torch.Tensor:
+    """Shape-only :func:`gmm_wgrad_fp8`: its checks, dw [G, K, N] in
+    ``out_dtype`` and B6's work at the static M; reads nothing."""
+    (m, k), (m2, n) = x_fp8.shape, dy_fp8.shape
+    num_groups, _ = _prepare(m, k, m2, n, group_sizes, num_groups,
+                             block_m, block_n, block_k, plan, n_span, k_span)
+    _check_scales(m, k, n, s_x, s_dy)
+    return _abstract("gmm_wgrad_fp8", m, k, n, num_groups, block_m,
+                     block_n, block_k, n_span, k_span, out_dtype, "fp8",
+                     x_fp8)
+
+
 def gmm_wgrad(x, dy, group_sizes, *, num_groups: Optional[int] = None,
               block_m: int = 128, block_n: int = 128, block_k: int = 128,
               out_dtype: torch.dtype = torch.float32,
@@ -226,7 +274,8 @@ def gmm_wgrad(x, dy, group_sizes, *, num_groups: Optional[int] = None,
     Returns [G, K, N] ``out_dtype`` with f32 accumulation; empty groups
     are exactly zero.
     """
-    fn = gmm_wgrad_cuda if x.is_cuda else gmm_wgrad_plain
+    fn = gmm_wgrad_abstract if abstract.is_fake(x) else \
+        gmm_wgrad_cuda if x.is_cuda else gmm_wgrad_plain
     return fn(x, dy, group_sizes, num_groups=num_groups, block_m=block_m,
               block_n=block_n, block_k=block_k, out_dtype=out_dtype,
               plan=plan, n_span=n_span, k_span=k_span)
@@ -241,7 +290,8 @@ def gmm_wgrad_fp8(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
     """:func:`gmm_wgrad` on e4m3 operands: x_fp8 [M, K] with s_x [M, K/128]
     and dy_fp8 [M, N] with s_dy [M, N/128], each row dequantized by its
     own 1x128 scales before the f32-accumulated contraction."""
-    fn = gmm_wgrad_fp8_cuda if x_fp8.is_cuda else gmm_wgrad_fp8_plain
+    fn = gmm_wgrad_fp8_abstract if abstract.is_fake(x_fp8) else \
+        gmm_wgrad_fp8_cuda if x_fp8.is_cuda else gmm_wgrad_fp8_plain
     return fn(x_fp8, s_x, dy_fp8, s_dy, group_sizes, num_groups=num_groups,
               block_m=block_m, block_n=block_n, block_k=block_k,
               out_dtype=out_dtype, plan=plan, n_span=n_span, k_span=k_span)

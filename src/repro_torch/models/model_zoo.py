@@ -22,11 +22,11 @@ gathers them).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whs
@@ -115,6 +115,33 @@ def with_kernel_config(model: Model, kernel_config) -> Model:
     return make_model(dataclasses.replace(model.cfg,
                                           kernel_config=kernel_config),
                       model.device, model.mesh, model.fsdp)
+
+
+def batch_struct(cfg: ModelConfig, shape: ShapeConfig,
+                 batch_size: Optional[int] = None, *,
+                 decode: bool = False) -> dict:
+    """Empty tensors of one step's data inputs, the JAX package's
+    ``batch_struct``: tokens (and, unless ``decode``, labels) [B, S], and
+    the stub frontends' bf16 ``frames`` / ``patch_embeds`` as
+    :func:`synthetic_batch` draws them.  Tokens take the port's int64
+    (the reference's are int32), as :func:`synthetic_batch`'s do.  Meant
+    to be made under the dry run's ``FakeTensorMode``, where they hold no
+    data; on the CPU."""
+    b = batch_size or shape.global_batch
+    s = 1 if decode else shape.seq_len
+
+    def empty(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="cpu")
+    d = {"tokens": empty((b, s), torch.int64)}
+    if not decode:
+        d["labels"] = empty((b, s), torch.int64)
+    if cfg.family == "audio" and not decode:
+        d["frames"] = empty((b, cfg.encoder_seq, cfg.d_model),
+                            torch.bfloat16)
+    if cfg.family == "vlm" and not decode:
+        d["patch_embeds"] = empty((b, cfg.num_patches, cfg.patch_embed_dim),
+                                  torch.bfloat16)
+    return d
 
 
 def synthetic_batch(generator: torch.Generator, cfg: ModelConfig,

@@ -130,7 +130,10 @@ def make_train_step(loss_fn: Callable, opt_cfg: adamw.OptConfig,
     folds into it.  Both reach the layers through the plan module's
     default-config seam.  ``mesh`` (with ``specs``, the path -> spec of
     the params as stored) makes the step data-parallel over its batch
-    axes: each rank's step takes the same global batch.
+    axes: each rank's step takes the same global batch.  The step's
+    parts are its attributes: ``grad_fn(params, batch) -> ((loss,
+    metrics), grads)`` and ``update(params, grads, opt_state) -> (params,
+    opt_state, opt_metrics)``.
     """
     if kernel_config is not None or wgrad_precision is not None:
         inner_loss = loss_fn
@@ -144,13 +147,19 @@ def make_train_step(loss_fn: Callable, opt_cfg: adamw.OptConfig,
 
     grad_fn = make_grad_fn(loss_fn, grad_accum, mesh, specs)
 
-    def train_step(params, opt_state, batch):
+    def update(params, grads, opt_state):
         axes = None if mesh is None else \
             [spec_axes(specs[p]) for p, _ in tree_paths(params)]
+        return adamw.apply_updates(params, grads, opt_state, opt_cfg,
+                                   axes=axes, mesh=mesh)
+
+    def train_step(params, opt_state, batch):
         (loss, metrics), grads = grad_fn(params, batch)
-        params, opt_state, opt_metrics = adamw.apply_updates(
-            params, grads, opt_state, opt_cfg, axes=axes, mesh=mesh)
+        params, opt_state, opt_metrics = update(params, grads, opt_state)
         metrics = {**metrics, **opt_metrics, "loss": loss}
         return params, opt_state, metrics
 
+    # the step's two parts, for a caller that accounts for them apart
+    # (the dry run: the gradient part once a microbatch, the update once)
+    train_step.grad_fn, train_step.update = grad_fn, update
     return train_step

@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no module of ``src/repro_torch``, not
-``chip_smoke.py`` and not ``examples/train_moe_torch.py`` imports jax or
+``chip_smoke.py`` and no ``examples/*_torch.py`` imports jax or
 anything of the JAX package ``repro``,
 and no kernel wrapper catches an exception around a build or a launch
 (a failing kernel raises; nothing falls back to the plain version)."""
@@ -10,8 +10,10 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "examples" / "train_moe_torch.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "examples" / f"{name}_torch.py"
+    for name in ("train_moe", "quickstart", "serve_decode",
+                 "expert_parallel_demo")]
 KERNEL_FILES = sorted((PORT / "kernels").glob("*.py"))
 
 
