@@ -42,7 +42,14 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              time of a one-element kernel (the launch floor);
              the quantizing GEMM bitwise against the quantizer applied to
              the GEMM; flash attention also built without its lo product,
-             for timing only;
+             for timing only; B2, B7 and B5 (both weight layouts) at every
+             grouped-GEMM geometry of the tuning pool (block_m 8 to 512,
+             block_n 128 and 256) on the residue case (a group of each
+             residue 1, 2, 3, 2^i - 1, 2^i, 2^i + 1 rows up to 511, an
+             empty group, NaN tail rows, K = N = 256) into NaN-prefilled
+             outputs, and B2, B7 and B5 timed at every block_m at the
+             prefill, decode and 16384-row shapes (B2 also at the f32
+             dgrad, block_n 128 and 256); tiles outside the pool raise;
              the padded baseline against the padding-free GEMM at
              deepseek-moe-16b's routed shapes (prefill at batch 4 x
              prompt 512 and 64, decode) and the paper's (M 8192 and
@@ -56,16 +63,20 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              every built kernel variant's shared memory in the static
              resource model against the kernel library's own
              ``kernel_resources`` query, its threads, and its registers
-             fitting one SM at its CTAs an SM; B2, B5 and B7 at block_m
-             16 against 128 (the qwen2-moe routed prefill and decode,
-             minitron-8b's dense decode) within their gates, and whether
-             bitwise equal; a measured autotune under ``build/`` of the
-             grouped GEMMs at the qwen2-moe and deepseek-moe-16b routed
-             shapes and of the wgrads at the training shapes, every
-             candidate's measured ms beside the cost model's, nothing
-             skipped, then a cache hit that measures nothing; the aten
-             ops and eager ms of one padded GEMM with the plan cache
-             against a fresh plan;
+             fitting one SM at its CTAs an SM; B2, B5 (both weight
+             layouts) and B7 at every pool geometry against block_m 128
+             (the qwen2-moe routed prefill's gate and down and its
+             decode, minitron-8b's dense decode) within their gates, and
+             whether bitwise equal; a measured autotune under ``build/``
+             of the grouped GEMMs at the qwen2-moe and deepseek-moe-16b
+             routed prefill and decode shapes and qwen2-moe's 16384
+             training rows, and of the wgrads at the training shapes,
+             every candidate the pool keeps measured beside the cost
+             model's, nothing skipped, then a cache hit that measures
+             nothing; the served MoE engines' decode tiles (block_m 8 or
+             16) measured at their decode shapes into the run's cache;
+             the aten ops and eager ms of one padded GEMM with the plan
+             cache against a fresh plan;
   5. analysis  the kernel contract checker (``repro_torch.analysis``):
              its command line's every layer in process on the card, a
              line a layer with its findings; each contract alone on the
@@ -103,10 +114,11 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              of a decode step; the qwen2-moe fp8 p64 generate (and its
              engine's construction) under the engine contract scaled to
              8 layers (one decode selection, 2 x 8 x 16 plan builds,
-             the decode ones on 16 rows); the launch counts of each run are
-             asserted; every engine selects its decode tiles (an MoE
-             model once, 16 rows, its tokens bitwise those of an engine
-             pinned to the fixed 16-row rule; a dense model none, on the
+             the decode ones on the selected tile); the launch counts of
+             each run are asserted; every engine selects its decode tiles
+             (an MoE model once, 8 or 16 rows as the autotune phase
+             measured, its tokens bitwise those of an engine pinned to
+             the fixed 16-row rule; a dense model none, on the
              model's 128-row tiles, its decode step also profiled on 16);
              the padded deepseek serve builds each static plan shape once
              (``PLAN_CACHE.builds``) and none after its warm-up; then the
@@ -123,7 +135,7 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              qwen3-1.7b at its full 28 layers: 8 steps through
              ``launch/train.py``'s ``train`` (loss must fall, launch
              counts asserted; a profile of one step and its forward /
-             backward / AdamW split), the first 4 of them through the
+             backward / AdamW split), the first 2 of them through the
              plain versions for comparison (not for ``ds_fp8_padded``,
              which is
              held against ``ds_fp8``: step 0's loss bitwise, every loss
@@ -146,11 +158,11 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              card over gloo (NCCL takes one rank a device): B2 at the EP 4
              shapes beside the whole layer's (one process); the whole
              28-layer deepseek-moe-16b served under EP 4 on a (1, 4)
-             mesh, batch 4, prompt 64, 8 tokens, its prefill logits and
+             mesh, batch 4, prompt 64, 4 tokens, its prefill logits and
              each token (teacher-forced) held against one process's at
              15% of the largest logit, tokens equal on every rank, the
              packed rows past sum(group_sizes) zero; its 2-layer cut
-             trained 4 steps under EP 2 x DP 2 on (2, 2) through
+             trained 2 steps under EP 2 x DP 2 on (2, 2) through
              ``train`` (step 0's loss and grad norm within 1e-3 of one
              process's, the later grad norms within 1e-2, loss falling),
              its params saved as full arrays, the next batch's loss from
@@ -163,15 +175,15 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              the embedding and the head are tensor-parallel there too;
   12. tensor_parallel  dense tensor parallelism on 4 ranks sharing the
              card over gloo, mesh (1, 4): yi-9b whole (48 layers, bf16,
-             flash) served at batch 4, prompt 128, 16 tokens: the logits
+             flash) served at batch 4, prompt 128, 4 tokens: the logits
              of each of its steps (the generate's own, teacher-forced on
              its tokens) held against one process's at 4e-2 of the
              largest logit and against one process's in f32 within 1.5x
              one process's own bf16 error, tokens equal on
              every rank, weight bytes a rank within 2% of the whole
              leaves plus a quarter of the rest, 8 q heads and 1 kv head
-             a rank, the cache's 144 slots split 36 a rank; qwen3-1.7b
-             whole (28 layers, flash, remat) trained 3 steps of batch 4 x
+             a rank, the cache's 132 slots split 33 a rank; qwen3-1.7b
+             whole (28 layers, flash, remat) trained 2 steps of batch 4 x
              seq 256 through ``train``, every step's loss and grad norm
              within 1e-3 of one process's at the params it started
              from; launch counts exact (B8 alone), peak memory, CUDA-
@@ -566,7 +578,7 @@ def routed_sizes(gen, tokens, top_k, g):
     return torch.bincount(picks.flatten(), minlength=g).to(torch.int32)
 
 
-def gemm_case(gen, m, k, n, sizes, block_m, out_dtype):
+def gemm_case(gen, m, k, n, sizes, block_m, out_dtype, block_n=128):
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.plan import make_tile_plan
@@ -578,7 +590,8 @@ def gemm_case(gen, m, k, n, sizes, block_m, out_dtype):
     gs = sizes.cuda()
     plan = make_tile_plan(gs, m, block_m=block_m, num_groups=g)
     args = (a8, sa, b8, sb, gs)
-    kw = dict(num_groups=g, block_m=block_m, out_dtype=out_dtype, plan=plan)
+    kw = dict(num_groups=g, block_m=block_m, block_n=block_n,
+              out_dtype=out_dtype, plan=plan)
     return args, kw, plan
 
 
@@ -612,7 +625,8 @@ def compare_gemm(name, args, kw, plan, *, nan_out=False):
     mism = int((err > 0).sum())
     return {"case": name, "shape": [m, args[0].shape[1], n],
             "groups": args[2].shape[0], "total_rows": total,
-            "block_m": kw["block_m"], "max_abs_err": float(err.max()) if
+            "block_m": kw["block_m"], "block_n": kw.get("block_n", 128),
+            "max_abs_err": float(err.max()) if
             err.numel() else 0.0, "rel_to_max": float(err.max()) / scale
             if scale else 0.0, "mismatches": mism}
 
@@ -837,7 +851,8 @@ def compare_gemm_quant(name, args, kw, plan, *, nan_out=False):
                              f"err {float(err.max())})")
     return {"case": name, "shape": [m, args[0].shape[1], n],
             "groups": args[2].shape[0], "total_rows": total,
-            "block_m": kw["block_m"], "bitwise_vs_quantize_of_gmm": True,
+            "block_m": kw["block_m"], "block_n": kw.get("block_n", 128),
+            "bitwise_vs_quantize_of_gmm": True,
             "max_abs_err": float(err.max()) if err.numel() else 0.0,
             "rel_to_max": float(err.max()) / scale if scale else 0.0}
 
@@ -890,7 +905,8 @@ def spans_cases(dtypes):
     return cases
 
 
-def bf16_case(gen, m, k, n, sizes, block_m, out_dtype, k_major=False):
+def bf16_case(gen, m, k, n, sizes, block_m, out_dtype, k_major=False,
+              block_n=128):
     """Operands of one B5 call; ``k_major``: w is ``transpose(1, 2)`` of a
     contiguous [G, N, K], as the bf16 dgrad hands it over."""
     import torch
@@ -904,7 +920,8 @@ def bf16_case(gen, m, k, n, sizes, block_m, out_dtype, k_major=False):
         w = w.transpose(1, 2)
     gs = sizes.cuda()
     plan = make_tile_plan(gs, m, block_m=block_m, num_groups=g)
-    kw = dict(num_groups=g, block_m=block_m, out_dtype=out_dtype, plan=plan)
+    kw = dict(num_groups=g, block_m=block_m, block_n=block_n,
+              out_dtype=out_dtype, plan=plan)
     return (x, w, gs), kw, plan
 
 
@@ -941,12 +958,94 @@ def compare_gemm_bf16(name, args, kw, plan, *, nan_out=False):
                              f"tolerance (max err {float(err.max())})")
     return {"case": name, "shape": [m, x.shape[1], n], "groups": w.shape[0],
             "total_rows": total, "block_m": kw["block_m"],
+            "block_n": kw.get("block_n", 128),
             "out_dtype": str(kw["out_dtype"]),
             "w_layout": "K-contiguous" if gk.weight_layout(w) else
             "N-contiguous",
             "max_abs_err": float(err.max()) if err.numel() else 0.0,
             "rel_to_max": float(err.max()) / scale if scale else 0.0,
             "mismatches": int((err > 0).sum())}
+
+
+def pool_geometries() -> list:
+    """``(block_m, block_n)`` of every grouped-GEMM entry of the tuning
+    pool (the JAX package's ``CONFIG_POOL`` without its wgrad spans), in
+    pool order: the decode entries, then each block_m 64 to 512 at
+    block_n 128 and 256."""
+    from repro_torch.kernels.plan import CONFIG_POOL
+    out = []
+    for c in CONFIG_POOL:
+        geometry = (c.block_m, c.block_n)
+        if (c.n_span, c.k_span) == (1, 1) and geometry not in out:
+            out.append(geometry)
+    return out
+
+
+# the residue case: K = N = 256, M past sum(sizes) by RESIDUE_TAIL rows
+# that hold NaN in the operands
+RESIDUE_KN = 256
+RESIDUE_TAIL = 37
+
+
+def residue_sizes():
+    """One group of each residue 1, 2, 3 and 2^i - 1, 2^i, 2^i + 1 up to
+    511 rows, and an empty group among them: each row count a store pool
+    has to cover, at every offset the groups before it leave."""
+    import torch
+    rs = sorted({1, 2, 3} | {r for i in range(2, 10)
+                             for r in (2 ** i - 1, 2 ** i, 2 ** i + 1)
+                             if r <= 511})
+    rs.insert(len(rs) // 2, 0)
+    return torch.tensor(rs, dtype=torch.int32)
+
+
+def check_residues(gen) -> dict:
+    """B2 (bf16 and f32 out), B7 and B5 (w N- and K-contiguous, bf16 and
+    f32 out) at every pool geometry on the residue case, into
+    NaN-prefilled outputs, each against its plain version under its gate
+    (``compare_gemm``, ``compare_gemm_quant``, ``compare_gemm_bf16``):
+    kernel -> rows."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import make_tile_plan
+    sizes = residue_sizes()
+    g, total = sizes.numel(), int(sizes.sum())
+    m, k = total + RESIDUE_TAIL, RESIDUE_KN
+    n = k
+    gs = sizes.cuda()
+    a = torch.randn((m, k), generator=gen, device="cuda")
+    w = torch.randn((g, k, n), generator=gen, device="cuda") * k ** -0.5
+    a8, sa = ref.quantize_tilewise_ref(a)
+    b8, sb = ref.quantize_blockwise_ref(w)
+    a8.view(torch.uint8)[total:] = 0x7F                 # e4m3 NaN
+    sa[total:] = float("nan")
+    x = a.bfloat16()
+    x[total:] = float("nan")
+    wn = w.bfloat16()
+    wk = wn.transpose(1, 2).contiguous().transpose(1, 2)
+    del a, w
+    rows = {"gmm": [], "gmm_quant": [], "gmm_bf16": []}
+    for bm, bn in pool_geometries():
+        plan = make_tile_plan(gs, m, block_m=bm, num_groups=g)
+        name = f"residues_bm{bm}_bn{bn}"
+        for dt in (torch.bfloat16, torch.float32):
+            kw = dict(num_groups=g, block_m=bm, block_n=bn, out_dtype=dt,
+                      plan=plan)
+            rows["gmm"].append(compare_gemm(f"{name}_{str(dt)[6:]}",
+                                            (a8, sa, b8, sb, gs), kw, plan,
+                                            nan_out=True))
+            if dt == torch.bfloat16:
+                rows["gmm_quant"].append(compare_gemm_quant(
+                    name, (a8, sa, b8, sb, gs), kw, plan, nan_out=True))
+            for wl, tag in ((wn, ""), (wk, "_wT")):
+                rows["gmm_bf16"].append(compare_gemm_bf16(
+                    f"{name}_{str(dt)[6:]}{tag}", (x, wl, gs), kw, plan,
+                    nan_out=True))
+    return rows
+
+
+# tile geometries no kernel is built for: each must raise
+UNBUILT_TILES = ({"block_m": 24}, {"block_m": 32}, {"block_k": 256})
 
 
 # B5's timed cases (bf16_cases below) and their timing keys
@@ -1219,6 +1318,70 @@ def time_gmm_fp8(gen, sizes) -> dict:
     return out
 
 
+# the kernel table's shapes every pool geometry is timed at: name ->
+# (group sizes, M, K, N), bf16 out; and B2's training dgrad (f32 out),
+# whose N 2048 takes the 256-wide tile
+BLOCK_M_TIMED = {"prefill": ("prefill", 1024, 2048, 1408),
+                 "decode": ("decode", 16, 2048, 1408),
+                 "train": ("train", 16384, 2048, 1408),
+                 "dgrad": ("train", 16384, 1408, 2048)}
+
+
+def time_block_ms(gen, sizes) -> dict:
+    """B2, B7 and B5 at every block_m of the pool (block_n 128) at the
+    kernel table's prefill, decode and 16384-row shapes, and B2 at every
+    pool geometry (block_n 128 and 256) at the f32 training dgrad:
+    CUDA-graph replays, each call on its own copy of the operands,
+    enough copies that each reads them from HBM, as the table's rows.
+    Returns kernel -> shape -> "block_m/block_n" -> ms."""
+    import torch
+    from repro_torch.kernels import grouped_gemm_kernel as gk
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import make_tile_plan
+    out = {"gmm": {}, "gmm_quant": {}, "gmm_bf16": {}}
+    for name, (which, m, k, n) in BLOCK_M_TIMED.items():
+        gs = sizes[which].cuda()
+        g, visited = gs.numel(), int((sizes[which] > 0).sum())
+        dgrad = name == "dgrad"
+
+        def fp8():
+            a8, sa = ref.quantize_tilewise_ref(
+                torch.randn((m, k), generator=gen, device="cuda"))
+            b8, sb = ref.quantize_blockwise_ref(torch.randn(
+                (g, k, n), generator=gen, device="cuda") * k ** -0.5)
+            return a8, sa, b8, sb
+
+        def bf16():
+            return (torch.randn((m, k), generator=gen,
+                                device="cuda").bfloat16(),
+                    (torch.randn((g, k, n), generator=gen, device="cuda")
+                     * k ** -0.5).bfloat16())
+        f8 = rotation(fp8, m * k + visited * k * n)
+        b16 = [] if dgrad else rotation(bf16, 2 * (m * k + visited * k * n))
+        runs = (("gmm", gk.gmm_cuda, f8),) if dgrad else (
+            ("gmm", gk.gmm_cuda, f8), ("gmm_quant", gk.gmm_quant_cuda, f8),
+            ("gmm_bf16", gk.gmm_bf16_cuda, b16))
+        dt = torch.float32 if dgrad else torch.bfloat16
+        for bm, bn in pool_geometries():
+            if bn != 128 and not dgrad:
+                continue
+            plan = make_tile_plan(gs, m, block_m=bm, num_groups=g)
+            kw = dict(num_groups=g, block_m=bm, block_n=bn, plan=plan)
+            for kernel, fn, ins in runs:
+                if kernel != "gmm_quant":
+                    kw["out_dtype"] = dt
+
+                def call(i, fn=fn, ins=ins, kw=dict(kw)):
+                    return fn(*ins[i % len(ins)], gs, **kw)
+                out[kernel].setdefault(name, {})[f"{bm}/{bn}"] = graph_ms(
+                    call, iters=len(ins) * -(-10 // len(ins)))
+        del f8, b16
+    for kernel, shapes in out.items():
+        emit({"phase": "kernel_time_block_m", "kernel": kernel,
+              "ms": shapes})
+    return out
+
+
 def time_act_quantize(gen, m, k, fp8, copies=None) -> dict:
     """B3 (silu_mul) at [m, k], bf16 g/u or e4m3 g/u with their scales:
     CUDA-graph replays cycling through copies of the inputs (enough to be
@@ -1466,13 +1629,15 @@ def phase_kernels(full: bool):
     args, kw, plan = setups["prefill_gate"]
     gemm.append(compare_gemm("prefill_gate_nan_out", args, kw, plan,
                              nan_out=True))
-    # the kernel is built for block_m 16 and 128 only; other tiles raise
-    for bm in (24, 64):
+    # the kernel takes the pool's geometries only; other tiles raise with
+    # the resource model's reason
+    for tile in UNBUILT_TILES:
         try:
-            gk.gmm_cuda(*args, **{**kw, "block_m": bm, "plan": None})
-            raise AssertionError(f"gmm accepted block_m={bm}")
-        except ValueError:
-            pass
+            gk.gmm_cuda(*args, **{**kw, **tile, "plan": None})
+            raise AssertionError(f"gmm accepted {tile}")
+        except ValueError as exc:
+            if "no CUDA variant" not in str(exc):
+                raise
     # deepseek-moe-16b (64 experts, top-6) where its serving path runs the
     # GEMM: the routed gate and down at batch 4 x prompt 64 (1536 rows)
     # and 512 (12288 rows) and at decode (24 rows, 16-row tiles), the
@@ -1569,12 +1734,13 @@ def phase_kernels(full: bool):
     bargs, bkw, bplan = bf16_setups["prefill_gate"]
     bf16_rows.append(compare_gemm_bf16("prefill_gate_nan_out", bargs, bkw,
                                        bplan, nan_out=True))
-    for bm in (24, 64):
+    for tile in UNBUILT_TILES:
         try:
-            gk.gmm_bf16_cuda(*bargs, **{**bkw, "block_m": bm, "plan": None})
-            raise AssertionError(f"gmm_bf16 accepted block_m={bm}")
-        except ValueError:
-            pass
+            gk.gmm_bf16_cuda(*bargs, **{**bkw, **tile, "plan": None})
+            raise AssertionError(f"gmm_bf16 accepted {tile}")
+        except ValueError as exc:
+            if "no CUDA variant" not in str(exc):
+                raise
     # deterministic: two launches bitwise equal, in either layout of w
     for name in ("prefill_gate", "train_dgrad_gate_up_f32_wT"):
         rargs, rkw, _ = bf16_setups[name]
@@ -1598,6 +1764,9 @@ def phase_kernels(full: bool):
         pass
     del xbuf
     results["gmm_bf16"] = bf16_rows
+    # B2, B7 and B5 at every pool geometry on the residue case
+    for kernel, rows in check_residues(gen).items():
+        results[kernel] += rows
     results["flash_attention"] = check_flash(gen)
     for name, rows in results.items():
         emit({"phase": "kernel", "kernel": name, "checks": rows})
@@ -1650,6 +1819,8 @@ def phase_kernels(full: bool):
                        worst["gmm_quant" if key.startswith("gmm_quant")
                              else "gmm"]}
     del setups
+    # B2, B7 and B5 at every block_m of the pool, at the same shapes
+    block_ms = time_block_ms(gen, drawn)
     # B5 at the routed prefill (its visited bf16 weights, 300 MB, overflow
     # the L2 alone), at the training path's 16384 routed rows, at decode
     # (~14 visited experts, ~80 MB) and on the K-contiguous w^T of the
@@ -1679,6 +1850,8 @@ def phase_kernels(full: bool):
             flops=2 * rows * k * n, peak_flop_per_s=BF16_FLOP_PER_S,
             max_abs_err=worst["gmm_bf16"])
         del x16, w16, ws
+    for kernel, shapes in block_ms.items():
+        timing[kernel]["block_m_ms"] = shapes
     # the wgrads at the routed gate/up shape: 16384 rows, 60 groups, K 2048,
     # N 1408; each call writes a 346 MB (bf16) or 692 MB (f32) dw, so
     # inputs and output overflow the L2 on every call.  "wgrad": B4 with
@@ -1738,11 +1911,14 @@ def phase_kernels(full: bool):
 # training paths' (batch 8 x seq 512)
 AUTOTUNE_SHAPES = {
     "gemm": (("qwen2-moe prefill", 1024, 2048, 1408, 60),
-             ("deepseek p64 prefill", 1536, 2048, 1408, 64)),
+             ("deepseek p64 prefill", 1536, 2048, 1408, 64),
+             ("qwen2-moe train", 16384, 2048, 1408, 60)),
     "gemm_bf16": (("qwen2-moe prefill", 1024, 2048, 1408, 60),
-                  ("deepseek p64 prefill", 1536, 2048, 1408, 64)),
+                  ("deepseek p64 prefill", 1536, 2048, 1408, 64),
+                  ("qwen2-moe train", 16384, 2048, 1408, 60)),
     "gemm_quant": (("qwen2-moe prefill", 1024, 2048, 1408, 60),
-                   ("deepseek p64 prefill", 1536, 2048, 1408, 64)),
+                   ("deepseek p64 prefill", 1536, 2048, 1408, 64),
+                   ("qwen2-moe train", 16384, 2048, 1408, 60)),
     "decode": (("qwen2-moe decode", 16, 2048, 1408, 60),
                ("deepseek decode", 24, 2048, 1408, 64)),
     "wgrad": (("qwen2-moe train", 16384, 2048, 1408, 60),
@@ -1750,10 +1926,12 @@ AUTOTUNE_SHAPES = {
     "wgrad_fp8": (("qwen2-moe train", 16384, 2048, 1408, 60),
                   ("deepseek train", 24576, 2048, 1408, 64)),
 }
-# B2, B5 and B7 at block_m 16 against 128: name -> (M, K, N, G); the
-# qwen2-moe routed prefill and decode, minitron-8b's dense (G = 1) gate
-# at a batch-4 decode step
+# B2, B5 and B7 at every pool geometry against block_m 128 (block_n 128):
+# name -> (M, K, N, G); the qwen2-moe routed prefill's gate (N 1408: no
+# 256-wide tile) and down (N 2048: every geometry) and its decode, and
+# minitron-8b's dense (G = 1) gate at a batch-4 decode step
 ACROSS_BLOCK_M = {"qwen2-moe prefill": (1024, 2048, 1408, 60),
+                  "qwen2-moe prefill down": (1024, 1408, 2048, 60),
                   "qwen2-moe decode": (16, 2048, 1408, 60),
                   "minitron-8b decode": (4, 4096, 16384, 1)}
 
@@ -1785,10 +1963,11 @@ def check_resources() -> list:
 
 
 def check_across_block_m() -> list:
-    """(b) B2, B5 and B7 at block_m 16 against 128 on the same operands:
-    B2 and B5 within one bf16 step (the B2 gate), B7's dequantized values
-    within one e4m3 step and one bf16 step (its gate); prints whether
-    they are bitwise equal."""
+    """(b) B2, B5 (w N- and K-contiguous) and B7 at every pool geometry
+    whose block_n divides N, against block_m 128 at block_n 128 on the
+    same operands: B2 and B5 within one bf16 step (the B2 gate), B7's
+    dequantized values within one e4m3 step and one bf16 step (its gate);
+    prints whether each is bitwise equal."""
     import torch
     from repro_torch.kernels import grouped_gemm_kernel as gk
     from repro_torch.kernels import ref
@@ -1804,46 +1983,63 @@ def check_across_block_m() -> list:
         a8, sa = ref.quantize_tilewise_ref(a)
         b8, sb = ref.quantize_blockwise_ref(w)
         xb, wb = a.bfloat16(), w.bfloat16()
+        wt = wb.transpose(1, 2).contiguous().transpose(1, 2)
         del a, w
-        outs = {}
-        for bm in (16, 128):
+
+        def run(bm, bn):
             plan = make_tile_plan(sizes, m, block_m=bm, num_groups=g)
-            kw = dict(num_groups=g, block_m=bm, plan=plan)
-            outs[bm] = {
+            kw = dict(num_groups=g, block_m=bm, block_n=bn, plan=plan)
+            return {
                 "gmm": gk.gmm_cuda(a8, sa, b8, sb, sizes, **kw).float(),
                 "gmm_bf16": gk.gmm_bf16_cuda(xb, wb, sizes, **kw).float(),
+                "gmm_bf16_wT": gk.gmm_bf16_cuda(xb, wt, sizes, **kw).float(),
                 "gmm_quant": gk.gmm_quant_cuda(a8, sa, b8, sb, sizes, **kw)}
-        torch.cuda.synchronize()
-        for kernel in ("gmm", "gmm_bf16", "gmm_quant"):
-            y16, y128 = outs[16][kernel], outs[128][kernel]
-            if kernel == "gmm_quant":
-                bitwise = bool(torch.equal(y16[0].view(torch.uint8),
-                                           y128[0].view(torch.uint8))
-                               and torch.equal(y16[1], y128[1]))
-                step = torch.maximum(
-                    e4m3_step(y16[0]) * torch.repeat_interleave(y16[1], 128, 1),
-                    e4m3_step(y128[0])
-                    * torch.repeat_interleave(y128[1], 128, 1))
-                y16, y128 = dequant(*y16), dequant(*y128)
-            else:
-                bitwise = bool(torch.equal(y16, y128))
-                step = torch.zeros_like(y128)
-            scale = float(y128.abs().max())
-            err = (y16 - y128).abs()
-            tol = step + y128.abs() * 2.0 ** -7 + 1e-4 * scale + 1e-30
-            bad = int((err > tol).sum())
-            row = {"phase": "autotune_across_block_m", "case": name,
-                   "kernel": kernel, "shape": [m, k, n], "groups": g,
-                   "bitwise_equal": bitwise, "max_abs_err": float(err.max()),
-                   "rel_to_max": float(err.max()) / scale if scale else 0.0,
-                   "beyond_tolerance": bad}
-            emit(row)
-            rows.append(row)
-            if bad or not torch.isfinite(y16).all():
-                raise AssertionError(f"{kernel} {name}: block_m 16 and 128 "
-                                     f"differ beyond tolerance at {bad} "
-                                     "elements, or not finite")
-        del outs, a8, sa, b8, sb, xb, wb
+        want = run(128, 128)
+        for bm, bn in pool_geometries():
+            if n % bn or (bm, bn) == (128, 128):
+                continue
+            got = run(bm, bn)
+            torch.cuda.synchronize()
+            for kernel, y in got.items():
+                y128 = want[kernel]
+                if kernel == "gmm_quant":
+                    bitwise = bool(torch.equal(y[0].view(torch.uint8),
+                                               y128[0].view(torch.uint8))
+                                   and torch.equal(y[1], y128[1]))
+                    step = torch.maximum(
+                        e4m3_step(y[0])
+                        * torch.repeat_interleave(y[1], 128, 1),
+                        e4m3_step(y128[0])
+                        * torch.repeat_interleave(y128[1], 128, 1))
+                    y, y128 = dequant(*y), dequant(*y128)
+                else:
+                    bitwise = bool(torch.equal(y, y128))
+                    step = torch.zeros_like(y128)
+                scale = float(y128.abs().max())
+                err = (y - y128).abs()
+                tol = step + y128.abs() * 2.0 ** -7 + 1e-4 * scale + 1e-30
+                bad = int((err > tol).sum())
+                row = {"phase": "autotune_across_block_m", "case": name,
+                       "kernel": kernel, "shape": [m, k, n], "groups": g,
+                       "block_m": bm, "block_n": bn, "against": [128, 128],
+                       "bitwise_equal": bitwise,
+                       "max_abs_err": float(err.max()),
+                       "rel_to_max": float(err.max()) / scale if scale
+                       else 0.0, "beyond_tolerance": bad}
+                emit(row)
+                rows.append(row)
+                if bad or not torch.isfinite(y).all():
+                    raise AssertionError(
+                        f"{kernel} {name}: block_m {bm} / block_n {bn} and "
+                        f"128 / 128 differ beyond tolerance at {bad} "
+                        "elements, or not finite")
+            del got
+        del want, a8, sa, b8, sb, xb, wb, wt
+    emit({"phase": "autotune_across_block_m_summary",
+          "compared": len(rows),
+          "bitwise_equal": sum(r["bitwise_equal"] for r in rows),
+          "not_bitwise": [[r["case"], r["kernel"], r["block_m"], r["block_n"]]
+                          for r in rows if not r["bitwise_equal"]]})
     return rows
 
 
@@ -1865,28 +2061,28 @@ def counting_measurements():
 
 def check_autotune() -> list:
     """(c) A measured selection under ``build/`` for every op and shape of
-    AUTOTUNE_SHAPES, from an empty cache: each candidate's measured ms
-    beside the cost model's prediction; a tiled op's winner measured with
-    nothing skipped, a tile-free op's (the wgrads) ranked by the cost
-    model with nothing measured; then the same call again, a cache hit
-    that measures nothing."""
+    AUTOTUNE_SHAPES, from an empty cache: every candidate the pool keeps
+    measured, its ms beside the cost model's prediction; a tiled op's
+    winner measured with nothing skipped, a tile-free op's (the wgrads)
+    ranked by the cost model with nothing measured; then the same call
+    again, a cache hit that measures nothing."""
     from repro_torch.kernels import plan as plan_mod
     path = os.path.join(HERE, "build", "chip_smoke_autotune.json")
     if os.path.exists(path):
         os.remove(path)
     plan_mod.clear_cache_memo()
-    rows = []
+    rows, every = [], len(plan_mod.CONFIG_POOL)
     for op, shapes in AUTOTUNE_SHAPES.items():
         for label, m, k, n, g in shapes:
             with counting_measurements() as calls:
                 t0 = time.perf_counter()
                 cfg = plan_mod.autotune(m, k, n, g, op=op, cache_path=path,
-                                        device="cuda", max_candidates=4)
+                                        device="cuda", max_candidates=every)
                 tune_s = time.perf_counter() - t0
                 rep = plan_mod.last_autotune_report()
                 n_first = len(calls)
                 again = plan_mod.autotune(m, k, n, g, op=op, cache_path=path,
-                                          device="cuda", max_candidates=4)
+                                          device="cuda", max_candidates=every)
                 hit = plan_mod.last_autotune_report()
             tile_free = op in plan_mod.TILE_FREE_OPS
             row = {"phase": "autotune", "op": op, "shape": label,
@@ -1910,11 +2106,43 @@ def check_autotune() -> list:
             emit(row)
             rows.append(row)
             want = "cost_model" if tile_free else "measured"
+            kept = len(rep["candidates"])
             if (rep["skipped"] or rep["source"] != want
-                    or (n_first == 0) != tile_free or again != cfg
+                    or n_first != (0 if tile_free else kept) or again != cfg
                     or not hit["cache_hit"] or len(calls) != n_first):
                 raise AssertionError(f"autotune {op} {label}: {row}")
     return rows
+
+
+# the served MoE engines' decode selections, measured into the run's own
+# cache (the one the serve phase's engines read): label -> (M, K, N, G)
+# of the routed GEMM at the engine's decode_batch_size (8) x top_k
+ENGINE_DECODE = {"qwen2-moe-a2.7b": (8 * 4, 2048, 1408, 60),
+                 "deepseek-moe-16b": (8 * 6, 2048, 1408, 64)}
+
+
+def select_engine_decode_tiles() -> None:
+    """(e) The decode pool (block_m 8 and 16) measured on the card at each
+    served MoE engine's decode shape into the run's tile-plan cache, so
+    that the serve phase's engines take the measured tile: every
+    candidate's ms beside the cost model's and the pick."""
+    from repro_torch.kernels import plan as plan_mod
+    for arch, (m, k, n, g) in ENGINE_DECODE.items():
+        cfg = plan_mod.decode_config(m, k, n, g, device="cuda", measure=True,
+                                     refresh=True)
+        rep = plan_mod.last_autotune_report()
+        row = {"phase": "autotune_engine_decode", "arch": arch,
+               "mkng": [m, k, n, g], "key": rep["key"],
+               "selected_block_m": cfg.block_m, "source": rep["source"],
+               "candidates": [{"block_m": c["block_m"],
+                               "predicted_ms": p * 1e3,
+                               "measured_ms": None if t is None else t * 1e3}
+                              for c, p, t in rep["candidates"]],
+               "pruned": rep["pruned"], "skipped": rep["skipped"]}
+        emit(row)
+        if rep["source"] != "measured" or rep["skipped"] or any(
+                c["measured_ms"] is None for c in row["candidates"]):
+            raise AssertionError(f"engine decode selection {arch}: {row}")
 
 
 def check_padded_host_ops() -> dict:
@@ -1976,16 +2204,19 @@ def check_padded_host_ops() -> dict:
 
 def phase_autotune() -> None:
     """The tuning layer on the card: (a) the resource model against each
-    kernel's own query, (b) B2, B5 and B7 across block_m, (c) a measured
-    autotune and its cache hit, (d) the padded GEMM's host ops with the
-    plan cache.  The serve phase checks the rest: the plan builds of the
-    padded deepseek serve, and the MoE tokens of the selected decode
-    tiles against the fixed 16-row rule's."""
+    kernel's own query, (b) B2, B5 and B7 at every pool geometry against
+    block_m 128, (c) a measured autotune and its cache hit, (e) the
+    served engines' decode tiles measured, (d) the padded GEMM's host ops
+    with the plan cache.  The serve phase checks the rest: the plan
+    builds of the padded deepseek serve, and the MoE tokens of the
+    selected decode tiles against the fixed 16-row rule's."""
     check_resources()
     free_memory()
     check_across_block_m()
     free_memory()
     check_autotune()
+    free_memory()
+    select_engine_decode_tiles()
     free_memory()
     check_padded_host_ops()
 
@@ -2363,12 +2594,15 @@ def path_name(base: str, variant: str) -> str:
 
 def selecting_engine(model, params, batch, new: int):
     """An Engine with no tile configs (the decode selection, checked:
-    exactly one ``decode_select`` for an MoE model, none for a dense one)
-    and an Engine pinned to the fixed rule decode ran before it (the
-    model's config with 16-row tiles).  One generate of the pinned one
-    is the warm-up; returns ``(engine, pinned, its tokens)``."""
+    exactly one ``decode_select`` for an MoE model, a decode-pool tile
+    around the model's config; none for a dense one) and an Engine pinned
+    to the fixed rule decode ran before it (the model's config with
+    16-row tiles).  One generate of the pinned one, and of the selecting
+    one where it took another tile, is the warm-up; returns ``(engine,
+    pinned, its tokens)``."""
     import torch
     from repro_torch.analysis import events
+    from repro_torch.kernels import plan as plan_mod
     from repro_torch.kernels.plan import KernelConfig
     from repro_torch.serve.engine import Engine
     cfg = model.cfg
@@ -2377,8 +2611,11 @@ def selecting_engine(model, params, batch, new: int):
     with events.capture() as evs:
         engine = Engine(model, params, max_new_tokens=new)
     selects = events.count(evs, "decode_select")
-    if cfg.moe is not None and (selects != 1
-                                or engine.decode_config != fixed_cfg):
+    dc = engine.decode_config
+    if cfg.moe is not None and (
+            selects != 1 or dc is None
+            or dc.block_m not in plan_mod.DECODE_BLOCK_MS
+            or dc != fixed_cfg.with_(block_m=dc.block_m)):
         raise AssertionError(f"{cfg.name}: {selects} decode selections, "
                              f"decode config {engine.decode_config}")
     if cfg.moe is None and (selects or engine.decode_config is not None):
@@ -2387,6 +2624,10 @@ def selecting_engine(model, params, batch, new: int):
     fixed = Engine(model, params, max_new_tokens=new,
                    decode_kernel_config=fixed_cfg)
     tokens = fixed.generate(batch).tokens                  # warm-up
+    if dc is not None and dc.block_m != fixed_cfg.block_m:
+        # the selected tile's own warm-up (the padded baseline's plan
+        # shapes differ by tile)
+        engine.generate(batch)
     torch.cuda.synchronize()
     return engine, fixed, tokens
 
@@ -2450,10 +2691,12 @@ def serve_run(variant: str, params, batch, new: int, path: str, *,
         # static padded shape builds once, in the warm-up
         PLAN_CACHE.clear()
     # no tile configs given: prefill runs the model's config; an MoE
-    # model's decode the decode pool's selection (16-row tiles, the
-    # model's fuse_producer and backend), a dense model's the model's;
+    # model's decode the decode pool's selection (8 or 16 rows, measured
+    # by the autotune phase; the model's fuse_producer and backend), a
+    # dense model's the model's;
     # the warm-up runs the fixed 16-row rule's engine, whose tokens the
-    # selection must give bit for bit on an MoE model
+    # selection must give bit for bit on an MoE model (and the selecting
+    # engine where its tile differs)
     engine, fixed, fixed_tokens = selecting_engine(model, params, batch, new)
     builds = PLAN_CACHE.builds
     torch.cuda.synchronize()
@@ -3001,8 +3244,9 @@ def leaf_paths(tree, prefix="") -> list:
 # steps of the plain-version trajectory the kernels' is held against:
 # with 3 warmup steps the learning rate of steps 0-3 is the same whatever
 # the run's length (the cosine starts after the warmup), so these are the
-# kernel run's first 4 steps, of which 3 update the weights
-PLAIN_STEPS = 4
+# kernel run's first 2 steps, of which 1 updates the weights (2 for the
+# script's time: a plain step of the fp8 MoE models takes seconds)
+PLAIN_STEPS = 2
 
 
 def phase_train(variant: str):
@@ -3347,12 +3591,12 @@ def phase_checkpoint() -> None:
 # ---------------------------------------------------------------------------
 
 # serving: the whole 28-layer deepseek-moe-16b under EP 4 on a (1, 4)
-# mesh, 8 tokens (16 until the script outgrew its time: a decode step of
-# the 4 ranks sharing the card takes ~1.9 s); training: its 2-layer cut
-# (the dense layer and one MoE layer) under EP 2 x DP 2 on (2, 2), then
+# mesh, 4 tokens (for the script's time: a decode step of the 4 ranks
+# sharing the card takes ~2 s); training: its 2-layer cut (the dense
+# layer and one MoE layer) under EP 2 x DP 2 on (2, 2), 2 steps, then
 # its params restored on (1, 2)
-DIST_SERVE = {"batch": 4, "prompt": 64, "new": 8}
-DIST_TRAIN = {"layers": 2, "batch": 8, "seq": 512, "steps": 4}
+DIST_SERVE = {"batch": 4, "prompt": 64, "new": 4}
+DIST_TRAIN = {"layers": 2, "batch": 8, "seq": 512, "steps": 2}
 DIST_WHY = ("one card: NCCL takes one rank a device, so the ranks share "
             "cuda:0 over gloo; this drives the sharding, the EP packing, "
             "the kernels at the EP shapes and the collectives with their "
@@ -3915,9 +4159,11 @@ def phase_distributed() -> dict:
 
 # tensor parallelism (A15b-1): yi-9b whole served under TP 4 (bf16,
 # flash: 8 q heads and 1 kv head a rank at prompt 128), qwen3-1.7b whole
-# trained under (1, 4) with remat and flash (4 q heads, 2 kv heads a rank)
-TP_SERVE = {"arch": "yi-9b", "batch": 4, "prompt": 128, "new": 16}
-TP_TRAIN = {"arch": "qwen3-1.7b", "batch": 4, "seq": 256, "steps": 3}
+# trained under (1, 4) with remat and flash (4 q heads, 2 kv heads a
+# rank); 4 tokens and 2 steps, for the script's time (a decode step of
+# the 4 ranks takes ~2 s)
+TP_SERVE = {"arch": "yi-9b", "batch": 4, "prompt": 128, "new": 4}
+TP_TRAIN = {"arch": "qwen3-1.7b", "batch": 4, "seq": 256, "steps": 2}
 # yi-9b TP 4 against one process, both bf16, of the step's largest logit,
 # at each of the 16 teacher-forced steps (prefill and 15 decode steps):
 # each is ~2e-2 from one process in f32 (2.06e-2 at most on the H100),
@@ -4280,12 +4526,12 @@ F32 = {"dtype": "float32"}      # the model in f32 (plain products)
 TPR_SERVE = {
     # name: (arch, config fields, mesh, batch, prompt, new tokens)
     "rg_fp8_tp4": ("recurrentgemma-2b", {"precision": "fp8"}, (1, 4), 4,
-                   128, 8),
-    "rg_f32_tp4": ("recurrentgemma-2b", F32, (1, 4), 4, 128, 8),
-    "xlstm_bf16_tp4": ("xlstm-350m", {}, (1, 4), 4, 256, 8),
-    "xlstm_f32_tp4": ("xlstm-350m", F32, (1, 4), 4, 256, 8),
+                   128, 4),
+    "rg_f32_tp4": ("recurrentgemma-2b", F32, (1, 4), 4, 128, 4),
+    "xlstm_bf16_tp4": ("xlstm-350m", {}, (1, 4), 4, 256, 4),
+    "xlstm_f32_tp4": ("xlstm-350m", F32, (1, 4), 4, 256, 4),
     "whisper_fp8_flash_tp2": ("whisper-tiny", {"precision": "fp8", **FLASH},
-                              (2, 2), 4, 128, 8),
+                              (2, 2), 4, 128, 4),
 }
 # each step's TP logits against one process in the same recipe, of the
 # step's largest logit.  f32: no e4m3 rounding follows the ranks'
@@ -4299,8 +4545,11 @@ TPR_SERVE = {
 # to spare, whisper at the tensor_parallel phase's bound
 TPR_TOL = {"rg_fp8_tp4": 0.25, "rg_f32_tp4": 1e-3, "xlstm_bf16_tp4": 0.1,
            "xlstm_f32_tp4": 1e-3, "whisper_fp8_flash_tp2": TP_LOGIT_TOL}
+# 2 steps, and 4 tokens a TPR_SERVE model, for the script's time (an FSDP
+# + SP step and its TP-alone witnesses take ~40 s of ranks sharing the
+# card)
 FSDP_TRAIN = {"arch": "recurrentgemma-2b", "layers": 3, "batch": 4,
-              "seq": 256, "steps": 3, "mesh": (2, 2)}
+              "seq": 256, "steps": 2, "mesh": (2, 2)}
 # each rounded recipe's TP logits against one process in f32 no further
 # than this multiple of one process's own error (fp8 or bf16) against
 # f32, the largest over the teacher-forced steps each (the
@@ -4378,6 +4627,7 @@ def a15b2_rank(rank: int, world: int, seeds=(0,), serve=True) -> dict:
     out = {"serve": {}, "train": {}}
     for name, (_, _, sizes, b, prompt, new) in (TPR_SERVE.items() if serve
                                                 else ()):
+        t_model = time.perf_counter()
         mesh = meshes[sizes]
         cfg = tpr_config(name)
         model = make_model(cfg, "cuda", mesh)
@@ -4412,12 +4662,15 @@ def a15b2_rank(rank: int, world: int, seeds=(0,), serve=True) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "tokens": res.tokens.cpu().numpy(),
             "step_logits": (torch.stack(steps).cpu().numpy() if rank == 0
-                            else None)}
+                            else None),
+            "seconds": time.perf_counter() - t_model}
         del engine, params, model, res, batch, steps
         free_memory()
         dist.barrier()
     for seed in seeds:
+        t_train = time.perf_counter()
         out["train"][seed] = fsdp_rank_run(meshes[FSDP_TRAIN["mesh"]], seed)
+        out["train"][seed]["seconds"] = time.perf_counter() - t_train
     return out
 
 
@@ -5062,6 +5315,8 @@ def main(argv=None) -> int:
                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                    "library_note": t["library_note"]}
+            if "block_m_ms" in t:
+                row["block_m_ms"] = t["block_m_ms"]
             # the grouped GEMMs' and B3's other timed shapes
             for extra in ("decode", "decode_shared", "train", "dgrad"):
                 te = timing.get(f"{name}_{extra}")

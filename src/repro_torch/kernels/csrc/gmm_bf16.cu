@@ -30,27 +30,32 @@
 //     rows runs one warpgroup on one 64-row A box, not 128 rows;
 //   - the accumulator is staged in shared memory and only the owned rows
 //     are stored, by TMA, as pieces of 2^i rows (37 = 32 + 4 + 1) through
-//     log2(block_m) + 1 descriptors of box heights 1, 2, ..., block_m;
-//     rows >= total are zero-filled the same way by their tile's first
-//     visit.  Owned row sets of different visits are disjoint, so CTAs
-//     never race, and the output is never read back.
+//     a pool of descriptors of box heights 1, 2, ..., min(block_m, 128)
+//     (a store is no taller than the staged piece); rows >= total are
+//     zero-filled the same way by their tile's first visit.  Owned row
+//     sets of different visits are disjoint, so CTAs never race, and the
+//     output is never read back.
 //
-// Schedule.  One CTA per (128-column N tile, visit t of the TilePlan): the
-// CTA reads its visit's group and M tile from the plan itself.  A visit
-// that repeats the previous (group, tile), or owns no row, loads and
-// multiplies nothing; producer and consumers take that decision from the
-// same values.  Warpgroups 0..NC-1 are the consumers, one per 64-row
-// slab (a slab with no owned row sits out); one warp after them is the
-// producer, whose first thread issues the TMA loads.  block_m 128 runs two
-// consumer warpgroups, block_m 16 (decode) one, on a 64-row box whose
-// rows past the tile are computed and never stored; decode is bound by
-// the weight bytes, so that costs nothing that shows.  Registers: the
-// consumers' two 64-float accumulators take 149 a thread, with no spill,
-// in every instance.  A producer warp rather than a warpgroup is what
-// allows it at block_m 16: 160-thread CTAs fit two an SM at up to 200 a
-// thread, where a producer warpgroup would cap them at 128 and spill in
-// the K loop.  block_m 128 runs 288 threads, one CTA an SM (set by its
-// shared memory anyway).
+// Schedule.  One CTA per (block_n-wide N tile, visit t of the TilePlan):
+// the CTA reads its visit's group and M tile from the plan itself, and
+// walks the tile as the pieces of tile_geom.cuh (sub-tiles of at most
+// 128 rows at block_m 256 and 512, 128-column halves at block_n 256),
+// the ring running on across them.  A piece whose visit repeats the
+// previous (group, tile), or owns no row, loads and multiplies nothing;
+// producer and consumers take that decision from the same values.
+// Warpgroups 0..NC-1 are the consumers, one per 64-row slab (a slab with
+// no owned row sits out, its warps' ring arrivals made for them by the
+// active ones); one warp after them is the producer, whose first thread
+// issues the TMA loads.  The tall instance (block_m 64 to 512) runs two
+// consumer warpgroups, the decode instance (block_m 8 and 16) one, on a
+// 64-row box whose rows past the tile are computed and never stored;
+// decode is bound by the weight bytes, so that costs nothing that shows.
+// Registers: the consumers' two 64-float accumulators take 165-166 a
+// thread, with no spill, in every instance.  A producer warp rather than
+// a warpgroup is what allows it in the decode instance: 160-thread CTAs
+// fit two an SM at up to 200 a thread, where a producer warpgroup would
+// cap them at 128 and spill in the K loop.  The tall instance runs 288
+// threads, one CTA an SM (set by its shared memory anyway).
 //
 // Numerics.  Per 128-K block (two 64-K stages) one f32 partial on the
 // tensor cores, added into the f32 accumulator with __fadd_rn: the
@@ -58,7 +63,7 @@
 //
 // Shared memory (dynamic, 1024-byte aligned for the 128-byte swizzle):
 // kStages x [NC A slabs of 64 rows x 64 K | B 64 K x 128 N], then the
-// staged output tile [block_m][128] of the output type (rows of 256 or
+// staged output piece [16 or 128][128] of the output type (rows of 256 or
 // 512 bytes, so every store piece starts 128-byte aligned), then the full
 // and empty barriers of the ring.
 #include <cuda_bf16.h>
@@ -68,6 +73,7 @@
 
 #include "hopper.cuh"
 #include "resources.cuh"
+#include "tile_geom.cuh"
 
 namespace {
 
@@ -79,7 +85,7 @@ constexpr int kStages = 4;
 constexpr int kSlab = 64;                      // rows of one wgmma and one A box
 constexpr int kSlabBytes = kSlab * kBK * 2;    // 8 KB
 constexpr int kBBytes = kBK * kBN * 2;         // 16 KB
-constexpr int kPool = 8;                       // store descriptors for block_m 128
+constexpr int kPool = 8;                       // store descriptors, heights 1..128
 
 struct Maps {
   CUtensorMap a;              // x [M, K]: box 64 K x 64 rows, 128B swizzle
@@ -101,8 +107,9 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// TMA-store `count` (<= BM) staged rows from staged row `srow` to output
-// row `grow`, as one piece per set bit of `count`, largest first
+// TMA-store `count` (<= BM, the instance's piece height) staged rows from
+// staged row `srow` to output row `grow`, as one piece per set bit of
+// `count`, largest first
 template <int BM, typename OutT>
 __device__ __forceinline__ void store_rows(const Maps& maps, const OutT* staged,
                                            int srow, int grow, int count,
@@ -118,15 +125,20 @@ __device__ __forceinline__ void store_rows(const Maps& maps, const OutT* staged,
   }
 }
 
-// BM: the plan's M tile (16 or 128); NC: consumer warpgroups (one per
-// 64-row slab); K_MAJOR_B: B is K-contiguous in global memory.
+using repro::Geom;
+using repro::Piece;
+
+// BM: the instance, the most rows of a piece (16: block_m 8 and 16; 128:
+// block_m 64 to 512); NC: consumer warpgroups (one per 64-row slab);
+// K_MAJOR_B: B is K-contiguous in global memory; q: the launch's tile
+// geometry (tile_geom.cuh).
 template <int BM, int NC, typename OutT, bool K_MAJOR_B>
 __global__ void __launch_bounds__(128 * NC + 32, NC == 1 ? 2 : 1)
-gmm_bf16_tma_kernel(const __grid_constant__ Maps maps,
+gmm_bf16_tma_kernel(const __grid_constant__ Maps maps, const Geom q,
                     const int* __restrict__ group_offsets,
                     const int* __restrict__ group_ids,
                     const int* __restrict__ m_tile_ids, int M, int K, int G) {
-  static_assert(BM <= NC * kSlab, "a tile's owned rows must fit the slabs");
+  static_assert(BM <= NC * kSlab, "a piece's owned rows must fit the slabs");
   constexpr int kStageBytes = NC * kSlabBytes + kBBytes;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -138,64 +150,70 @@ gmm_bf16_tma_kernel(const __grid_constant__ Maps maps,
   uint64_t* empty = full + kStages;
 
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
-  const int n0 = blockIdx.x * kBN;
-  const int t = blockIdx.y;
-  const int g = group_ids[t];
-  const int tile = m_tile_ids[t];
-  const int start = group_offsets[g], end = group_offsets[g + 1];
-  const int total = group_offsets[G];
-  const int row0 = tile * BM;
-  const bool dup = t > 0 && group_ids[t - 1] == g && m_tile_ids[t - 1] == tile;
-  const bool first = t == 0 || m_tile_ids[t - 1] != tile;
-  const int own_lo = max(start, row0);
-  const int n_own = dup ? 0 : max(min(min(end, row0 + BM), M) - own_lo, 0);
-  const int z_lo = max(total, row0);
-  const int n_zero = first ? max(min(row0 + BM, M) - z_lo, 0) : 0;
-  if (n_own == 0 && n_zero == 0) return;
-  const int n_act = (n_own + kSlab - 1) / kSlab;   // slabs with owned rows
-  const int chunks = n_own ? K / kBK : 0;           // ring stages to run
+  const int nt = blockIdx.x, t = blockIdx.y;
+  auto piece = [&](int p) {
+    return repro::make_piece(q, t, p, nt, group_offsets, group_ids,
+                             m_tile_ids, M, G);
+  };
+  // a one-piece tile with nothing to own or zero-fill ends here
+  const Piece first = piece(0);
+  if (q.pieces == 1 && first.n_own == 0 && first.n_zero == 0) return;
 
-  if (tid == 0 && chunks) {
+  if (tid == 0 && (first.n_own || q.pieces > 1)) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * n_act);              // every consumer warp
+      mbar_init(&empty[s], 4 * NC);                 // every consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == NC) {
-    // producer: one thread keeps kStages stages of A slabs and B in flight
+    // producer: one thread keeps kStages stages of A slabs and B in
+    // flight, across the CTA's pieces
     if (tid == 128 * NC) {
-      for (int i = 0; i < chunks; ++i) {
-        const int s = i % kStages;
-        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
-        uint8_t* st = ring + s * kStageBytes;
-        uint8_t* bs = st + NC * kSlabBytes;
-        mbar_expect_tx(&full[s], n_act * kSlabBytes + kBBytes);
-        for (int j = 0; j < n_act; ++j)
-          tma_load_2d(st + j * kSlabBytes, &maps.a, &full[s], i * kBK,
-                      own_lo + j * kSlab);
-        if (K_MAJOR_B) {
-          tma_load_3d(bs, &maps.b, &full[s], i * kBK, n0, g);
-        } else {
-          tma_load_3d(bs, &maps.b, &full[s], n0, i * kBK, g);
-          tma_load_3d(bs + kBBytes / 2, &maps.b, &full[s], n0 + 64, i * kBK, g);
+      int it = 0;
+      for (int p = 0; p < q.pieces; ++p) {
+        const Piece I = p ? piece(p) : first;
+        const int chunks = I.n_own ? K / kBK : 0;
+        for (int c = 0; c < chunks; ++c, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          uint8_t* st = ring + s * kStageBytes;
+          uint8_t* bs = st + NC * kSlabBytes;
+          mbar_expect_tx(&full[s], I.n_act * kSlabBytes + kBBytes);
+          for (int j = 0; j < I.n_act; ++j)
+            tma_load_2d(st + j * kSlabBytes, &maps.a, &full[s], c * kBK,
+                        I.own_lo + j * kSlab);
+          if (K_MAJOR_B) {
+            tma_load_3d(bs, &maps.b, &full[s], c * kBK, I.n0, I.g);
+          } else {
+            tma_load_3d(bs, &maps.b, &full[s], I.n0, c * kBK, I.g);
+            tma_load_3d(bs + kBBytes / 2, &maps.b, &full[s], I.n0 + 64,
+                        c * kBK, I.g);
+          }
         }
       }
     }
-  } else {
-    const int c = wg;                     // this warpgroup's 64-row slab
+    return;
+  }
+  const int c = wg;                       // this warpgroup's 64-row slab
+  int it = 0;
+  auto run = [&](const Piece& I, bool last) {
+    if (I.n_own == 0 && I.n_zero == 0) return;
+    const int chunks = I.n_own ? K / kBK : 0;       // ring stages to run
     float acc[64];
 #pragma unroll
     for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
-    if (c < n_act) {
+    if (c < I.n_act) {
+      // a warp's arrival stands for its twin's in a warpgroup sitting out
+      const uint32_t arrivals = NC / I.n_act;
       float part[64];
       for (int kb = 0; kb < chunks / 2; ++kb) {
         // one 128-K block: two stages into `part`, then acc += part
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int i = 2 * kb + h, s = i % kStages;
+          const int i = it + 2 * kb + h, s = i % kStages;
           mbar_wait(&full[s], (i / kStages) & 1);
           const uint32_t a_addr = smem_u32(ring + s * kStageBytes + c * kSlabBytes);
           const uint32_t b_addr = smem_u32(ring + s * kStageBytes + NC * kSlabBytes);
@@ -215,8 +233,8 @@ gmm_bf16_tma_kernel(const __grid_constant__ Maps maps,
         }
         wgmma_wait<0>();
         if (lane == 0) {
-          mbar_arrive(&empty[(2 * kb) % kStages]);
-          mbar_arrive(&empty[(2 * kb + 1) % kStages]);
+          mbar_arrive(&empty[(it + 2 * kb) % kStages], arrivals);
+          mbar_arrive(&empty[(it + 2 * kb + 1) % kStages], arrivals);
         }
 #pragma unroll
         for (int j = 0; j < 64; ++j) acc[j] = __fadd_rn(acc[j], part[j]);
@@ -224,11 +242,11 @@ gmm_bf16_tma_kernel(const __grid_constant__ Maps maps,
       // stage this slab's owned rows: a warp holds 16 rows, a thread rows
       // lane/4 and lane/4 + 8 of them, columns 8j + 2(lane%4) + {0, 1}
       const int wrow = c * kSlab + ((tid / 32) & 3) * 16;
-      if (wrow < n_own) {
+      if (wrow < I.n_own) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = wrow + (lane >> 2) + 8 * h;
-          if (r < n_own) {
+          if (r < I.n_own) {
 #pragma unroll
             for (int j = 0; j < 16; ++j)
               store2(staged + r * kBN + 8 * j + 2 * (lane & 3),
@@ -237,25 +255,31 @@ gmm_bf16_tma_kernel(const __grid_constant__ Maps maps,
         }
       }
     }
-    // rows >= total of this tile, staged after the owned rows, as zeros
-    uint4* zeros = reinterpret_cast<uint4*>(staged + n_own * kBN);
-    const int zwords = n_zero * kBN * (int)sizeof(OutT) / 16;
+    it += chunks;
+    // rows >= total of this piece, staged after the owned rows, as zeros
+    uint4* zeros = reinterpret_cast<uint4*>(staged + I.n_own * kBN);
+    const int zwords = I.n_zero * kBN * (int)sizeof(OutT) / 16;
     for (int e = tid; e < zwords; e += NC * 128) zeros[e] = make_uint4(0, 0, 0, 0);
-    // make the staged tile visible to TMA, then one thread stores
+    // make the staged piece visible to TMA, then one thread stores
     fence_proxy_async();
     bar_sync(1, NC * 128);
     if (tid == 0) {
-      store_rows<BM>(maps, staged, 0, own_lo, n_own, n0);
-      store_rows<BM>(maps, staged, n_own, z_lo, n_zero, n0);
+      store_rows<BM>(maps, staged, 0, I.own_lo, I.n_own, I.n0);
+      store_rows<BM>(maps, staged, I.n_own, I.z_lo, I.n_zero, I.n0);
       tma_store_commit();
       tma_store_wait_read<0>();
     }
-  }
+    // the stage has been read: the next piece may stage over it
+    if (!last) bar_sync(1, NC * 128);
+  };
+  run(first, q.pieces == 1);
+  for (int p = 1; p < q.pieces; ++p) run(piece(p), p + 1 == q.pieces);
 }
 
 template <int BM, int NC, typename OutT, bool K_MAJOR_B>
-int launch(const Maps& maps, dim3 grid, cudaStream_t stream, const void* go,
-           const void* gi, const void* mi, int M, int K, int G) {
+int launch(const Maps& maps, const Geom& q, dim3 grid, cudaStream_t stream,
+           const void* go, const void* gi, const void* mi, int M, int K,
+           int G) {
   auto kernel = gmm_bf16_tma_kernel<BM, NC, OutT, K_MAJOR_B>;
   constexpr int smem = smem_bytes<BM, NC, OutT>();
   static bool sized = false;
@@ -266,17 +290,19 @@ int launch(const Maps& maps, dim3 grid, cudaStream_t stream, const void* go,
     sized = true;
   }
   kernel<<<grid, 128 * NC + 32, smem, stream>>>(
-      maps, (const int*)go, (const int*)gi, (const int*)mi, M, K, G);
+      maps, q, (const int*)go, (const int*)gi, (const int*)mi, M, K, G);
   return (int)cudaGetLastError();
 }
 
 template <int BM, int NC, typename OutT>
-int launch_layout(int k_major_b, const Maps& maps, dim3 grid,
+int launch_layout(int k_major_b, const Maps& maps, const Geom& q, dim3 grid,
                   cudaStream_t stream, const void* go, const void* gi,
                   const void* mi, int M, int K, int G) {
   if (k_major_b)
-    return launch<BM, NC, OutT, true>(maps, grid, stream, go, gi, mi, M, K, G);
-  return launch<BM, NC, OutT, false>(maps, grid, stream, go, gi, mi, M, K, G);
+    return launch<BM, NC, OutT, true>(maps, q, grid, stream, go, gi, mi, M, K,
+                                      G);
+  return launch<BM, NC, OutT, false>(maps, q, grid, stream, go, gi, mi, M, K,
+                                     G);
 }
 
 }  // namespace
@@ -284,14 +310,16 @@ int launch_layout(int k_major_b, const Maps& maps, dim3 grid,
 // B5.  a [M, K] bf16 row-major; b [Gw, K, N] bf16, N-contiguous
 // (k_major_b 0) or K-contiguous (k_major_b 1: storage [Gw, N, K]); the
 // plan's G = num_groups <= Gw groups; out [M, N], f32 when out_f32 else
-// bf16.  One launch covers the whole plan: grid (N / 128, T visits).
-// Returns a cudaError_t, or 1000 + the CUresult of a failed tensor-map
-// encoding.
+// bf16.  block_m is 8, 16, 64, 128, 256 or 512, block_n 128 or 256 and
+// divides N.  One launch covers the whole plan: grid (N / block_n, T
+// visits).  Returns a cudaError_t, or 1000 + the CUresult of a failed
+// tensor-map encoding.
 extern "C" int gmm_bf16(const void* a, const void* b, const void* group_offsets,
                         const void* group_ids, const void* m_tile_ids, void* out,
                         int M, int K, int N, int G, int Gw, int T, int block_m,
-                        int out_f32, int k_major_b, void* stream) {
-  if (block_m != 16 && block_m != 128) return (int)cudaErrorInvalidValue;
+                        int block_n, int out_f32, int k_major_b, void* stream) {
+  Geom q;
+  if (!repro::make_geom(block_m, block_n, N, &q)) return (int)cudaErrorInvalidValue;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
   CUresult r;
@@ -317,9 +345,9 @@ extern "C" int gmm_bf16(const void* a, const void* b, const void* group_offsets,
                box, CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (r != CUDA_SUCCESS) return 1000 + (int)r;
-  // the store pool: box heights 1, 2, 4, ..., block_m
+  // the store pool: box heights 1, 2, 4, ..., the piece's rows
   const int esize = out_f32 ? 4 : 2;
-  for (int i = 0; (1 << i) <= block_m; ++i) {
+  for (int i = 0; (1 << i) <= q.rows; ++i) {
     const uint64_t dims[2] = {(uint64_t)N, (uint64_t)M};
     const uint64_t strides[1] = {(uint64_t)N * esize};
     const uint32_t box[2] = {kBN, (uint32_t)(1 << i)};
@@ -329,29 +357,30 @@ extern "C" int gmm_bf16(const void* a, const void* b, const void* group_offsets,
                2, out, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_NONE);
     if (r != CUDA_SUCCESS) return 1000 + (int)r;
   }
-  const dim3 grid(N / kBN, T);
+  const dim3 grid(N / block_n, T);
   auto st = (cudaStream_t)stream;
-  if (block_m == 16) {
+  if (repro::small_instance(block_m)) {
     if (out_f32)
-      return launch_layout<16, 1, float>(k_major_b, maps, grid, st,
+      return launch_layout<16, 1, float>(k_major_b, maps, q, grid, st,
                                          group_offsets, group_ids, m_tile_ids,
                                          M, K, G);
-    return launch_layout<16, 1, __nv_bfloat16>(k_major_b, maps, grid, st,
+    return launch_layout<16, 1, __nv_bfloat16>(k_major_b, maps, q, grid, st,
                                                group_offsets, group_ids,
                                                m_tile_ids, M, K, G);
   }
   if (out_f32)
-    return launch_layout<128, 2, float>(k_major_b, maps, grid, st,
+    return launch_layout<128, 2, float>(k_major_b, maps, q, grid, st,
                                         group_offsets, group_ids, m_tile_ids,
                                         M, K, G);
-  return launch_layout<128, 2, __nv_bfloat16>(k_major_b, maps, grid, st,
+  return launch_layout<128, 2, __nv_bfloat16>(k_major_b, maps, q, grid, st,
                                               group_offsets, group_ids,
                                               m_tile_ids, M, K, G);
 }
 
 
-// The resources of one variant (resources.cuh): a = block_m (16 or 128),
-// b = 1 for an f32 output, c = 1 for a K-contiguous w.
+// The resources of one variant (resources.cuh): a = block_m (8, 16, 64,
+// 128, 256 or 512: its instance's), b = 1 for an f32 output, c = 1 for a
+// K-contiguous w.
 namespace {
 
 template <int BM, int NC, typename OutT>
@@ -368,11 +397,11 @@ int query_bf16(int k_major_b, int* out) {
 
 extern "C" int kernel_resources(int block_m, int out_f32, int k_major_b,
                                 int* out) {
-  if (block_m == 16)
+  Geom q;
+  if (!repro::make_geom(block_m, 128, 128, &q)) return (int)cudaErrorInvalidValue;
+  if (repro::small_instance(block_m))
     return out_f32 ? query_bf16<16, 1, float>(k_major_b, out)
                    : query_bf16<16, 1, __nv_bfloat16>(k_major_b, out);
-  if (block_m == 128)
-    return out_f32 ? query_bf16<128, 2, float>(k_major_b, out)
-                   : query_bf16<128, 2, __nv_bfloat16>(k_major_b, out);
-  return (int)cudaErrorInvalidValue;
+  return out_f32 ? query_bf16<128, 2, float>(k_major_b, out)
+                 : query_bf16<128, 2, __nv_bfloat16>(k_major_b, out);
 }

@@ -34,7 +34,7 @@
 //   - the CTAs are persistent (one an SM, walking the (visit, N tile)
 //     items N tile fastest), so the ring streams across items with no
 //     launch, barrier set-up or first-load latency per item; its 5
-//     (block_m 128) or 8 (block_m 16) stages of 128-K blocks keep
+//     (tall instance) or 8 (decode instance) stages of 128-K blocks keep
 //     ~120-150 KB of loads in flight per SM;
 //   - the widening of block kb + 1 runs while the wgmma of block kb is in
 //     flight, with one named barrier over the consumers a block; the
@@ -42,22 +42,27 @@
 //   - an item loads and multiplies only the 64-row slabs holding its
 //     owned rows, from its first owned row on;
 //   - the accumulator is staged in shared memory (over the f16 tiles,
-//     free between items) and only the owned rows are stored, by TMA, as
-//     pieces of 2^i rows (37 = 32 + 4 + 1) through log2(block_m) + 1
-//     descriptors of box heights 1, 2, ..., block_m; rows >= total are
-//     zero-filled the same way by their tile's first visit.  Owned row
-//     sets of different visits are disjoint, so CTAs never race, and the
-//     output is never read back.
+//     free between pieces) and only the owned rows are stored, by TMA, as
+//     pieces of 2^i rows (37 = 32 + 4 + 1) through a pool of descriptors
+//     of box heights 1, 2, ..., min(block_m, 128): 4 at block_m 8, 5 at
+//     16, 7 at 64 and 8 from 128 on (a store is no taller than the
+//     128-row stage); rows >= total are zero-filled the same way by their
+//     tile's first visit.  Owned row sets of different visits are
+//     disjoint, so CTAs never race, and the output is never read back.
 //
-// Schedule.  An item is (visit t of the TilePlan, 128-column N tile).  An
-// item whose visit repeats the previous (group, tile), or owns no row,
-// loads and multiplies nothing; producer and consumers take that decision
-// from the same values and count the ring's blocks alike.  Two consumer
-// warpgroups split the item's output: an item whose owned rows span two
-// 64-row slabs gives each one slab (m64n128); an item with one slab
-// (every decode item, most prefill items) gives each 64 of its columns
-// (m64n64), so both are busy and each runs half the chain.  At block_m 16
-// the slab is a 16-row A box; the wgmma rows past it are zeros, computed
+// Schedule.  An item is (visit t of the TilePlan, block_n-wide N tile),
+// walked as the pieces of tile_geom.cuh: sub-tiles of at most 128 rows
+// (block_m 256 and 512) by 128-column halves (block_n 256), each a
+// 128-column product and store as below.  A piece whose visit
+// repeats the previous (group, tile), or owns no row, loads and
+// multiplies nothing; producer and consumers take that decision from the
+// same values and count the ring's blocks alike.  Two consumer
+// warpgroups split the piece's output: a piece whose owned rows span two
+// 64-row slabs gives each one slab (m64n128); a piece with one slab
+// (every decode piece, most prefill pieces, every piece at block_m 64)
+// gives each 64 of its columns (m64n64), so both are busy and each runs
+// half the chain.  At block_m 8 and 16 (the decode instance) the slab is
+// an A box of block_m rows; the wgmma rows past it are zeros, computed
 // and never stored.  A third warpgroup is the producer; its first thread
 // issues the loads, and it hands its registers to the consumers
 // (setmaxnreg: 40 against 232 a thread), who hold the accumulator, the
@@ -95,8 +100,9 @@
 //
 // Shared memory (dynamic, 1024-byte aligned for the 128-byte swizzle):
 // the ring, kStages x [NS A boxes of 128 K x (64 or 16) rows | B 128 K x
-// 128 N], all e4m3; two f16 B tiles of 128 K x 128 N, also the output
-// stage; the full and empty barriers.
+// 128 N], all e4m3 (at block_m 8 the A box fills half its 16-row slot);
+// two f16 B tiles of 128 K x 128 N, also the output stage; the full and
+// empty barriers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,6 +112,7 @@
 #include "hopper.cuh"
 #include "tile_quant.cuh"
 #include "resources.cuh"
+#include "tile_geom.cuh"
 
 namespace {
 
@@ -116,7 +123,7 @@ constexpr int kBK = 128;                       // K per stage: one scale block
 constexpr int kSlab = 64;                      // rows of one wgmma
 constexpr int kBBytes = kBK * kBN;             // e4m3 B tile, 16 KB
 constexpr int kWideBytes = kBK * kBN * 2;      // f16 B tile, 32 KB
-constexpr int kPool = 8;                       // store descriptors for block_m 128
+constexpr int kPool = 8;                       // store descriptors, heights 1..128
 constexpr int kConsumers = 256;                // two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;     // and the producer warpgroup
 
@@ -128,6 +135,7 @@ struct Maps {
   CUtensorMap store[kPool];   // out [M, N] (B2) or q [M, N] (B7): box 128 x 2^i rows
 };
 
+// BM: the instance, the most rows of a piece (16 or 128)
 template <int BM>
 struct Shape {
   static constexpr int NS = BM == 128 ? 2 : 1;        // 64-row slabs of a tile
@@ -143,33 +151,33 @@ struct Shape {
   static_assert(kSmem <= 232448, "one CTA's shared memory");
 };
 
-// An item: visit t of the plan on N tile nb, with B5's bookkeeping.
-struct Item {
-  int g, n0, own_lo, n_own, z_lo, n_zero, n_act;
-  template <int BM>
-  __device__ __forceinline__ static Item make(int w, int NB, const int* offsets,
-                                              const int* group_ids,
-                                              const int* m_tile_ids, int M,
-                                              int G) {
-    Item it;
-    const int t = w / NB;
-    it.n0 = (w % NB) * kBN;
-    it.g = group_ids[t];
-    const int tile = m_tile_ids[t];
-    const int start = offsets[it.g], end = offsets[it.g + 1];
-    const int total = offsets[G];
-    const int row0 = tile * BM;
-    const bool dup =
-        t > 0 && group_ids[t - 1] == it.g && m_tile_ids[t - 1] == tile;
-    const bool first = t == 0 || m_tile_ids[t - 1] != tile;
-    it.own_lo = max(start, row0);
-    it.n_own = dup ? 0 : max(min(min(end, row0 + BM), M) - it.own_lo, 0);
-    it.z_lo = max(total, row0);
-    it.n_zero = first ? max(min(row0 + BM, M) - it.z_lo, 0) : 0;
-    it.n_act = (it.n_own + kSlab - 1) / kSlab;   // slabs with owned rows
-    return it;
+using repro::Geom;
+using repro::Piece;
+
+// Calls f(piece) on each piece of the CTA's items (items stride by the
+// grid), an item's pieces in turn.  The tall instance walks them with one
+// counter, u = item x 2^shift + piece: its consumers' registers are
+// spoken for by the main loop, and two counters cost them a spill.  The
+// decode instance walks a loop an item, which measured faster there (its
+// CTAs step over mostly empty items).
+template <int BM, typename F>
+__device__ __forceinline__ void walk_pieces(const Geom& q, int items, int NT,
+                                            const int* go, const int* gi,
+                                            const int* mi, int M, int G,
+                                            F&& f) {
+  if constexpr (BM == repro::kPieceRowsMax) {
+    const int sh = q.shift;
+    for (int u = blockIdx.x << sh; u < items << sh;) {
+      const int w = u >> sh;
+      f(repro::make_piece(q, w / NT, u - (w << sh), w % NT, go, gi, mi, M, G));
+      u = ((u + 1) & ((1 << sh) - 1)) ? u + 1 : (w + gridDim.x) << sh;
+    }
+  } else {
+    for (int w = blockIdx.x; w < items; w += gridDim.x)
+      for (int p = 0; p < q.pieces; ++p)
+        f(repro::make_piece(q, w / NT, p, w % NT, go, gi, mi, M, G));
   }
-};
+}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -226,20 +234,22 @@ __device__ __forceinline__ void widen_b_chunk(const uint8_t* src, uint8_t* dst,
 // A fragments of one 128-K block for the thread's rows r0 and r0 + 8 of
 // the slab's e4m3 box: af[ks] = {row r0: K 16ks + 4t + {0, 1}, row r0 + 8:
 // the same, row r0: K 16ks + 4t + {2, 3}, row r0 + 8: the same}, t = lane
-// % 4.  Rows past a box of fewer than 64 rows are zeros.
+// % 4.  Rows past a box of fewer than 64 rows (a_rows: 8 or 16) are zeros.
 template <int BM>
 __device__ __forceinline__ void load_a(const uint8_t* abox, uint32_t (&af)[8][4],
-                                       int r0, int t) {
+                                       int r0, int t, int a_rows) {
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) {
-    if (BM < kSlab && r0 >= BM) {
+    if (BM < kSlab && r0 >= a_rows) {
       af[ks][0] = af[ks][1] = af[ks][2] = af[ks][3] = 0u;
       continue;
     }
     const int off = (((ks ^ r0) & 7) << 4) + 4 * t;
     const uint32_t w0 = *reinterpret_cast<const uint32_t*>(abox + r0 * 128 + off);
     const uint32_t w1 =
-        *reinterpret_cast<const uint32_t*>(abox + (r0 + 8) * 128 + off);
+        BM < kSlab && r0 + 8 >= a_rows
+            ? 0u
+            : *reinterpret_cast<const uint32_t*>(abox + (r0 + 8) * 128 + off);
     af[ks][0] = e4m3x2_to_f16x2(w0);
     af[ks][1] = e4m3x2_to_f16x2(w1);
     af[ks][2] = e4m3x2_to_f16x2(w0 >> 16);
@@ -247,9 +257,9 @@ __device__ __forceinline__ void load_a(const uint8_t* abox, uint32_t (&af)[8][4]
   }
 }
 
-// TMA-store `count` (<= BM) staged rows of `row_bytes` from staged row
-// `srow` to output row `grow`, as one piece per set bit of `count`,
-// largest first
+// TMA-store `count` (<= BM, the instance's piece height) staged rows of
+// `row_bytes` from staged row `srow` to output row `grow`, as one piece
+// per set bit of `count`, largest first
 template <int BM>
 __device__ __forceinline__ void store_rows(const Maps& maps, const uint8_t* staged,
                                            int row_bytes, int srow, int grow,
@@ -265,19 +275,19 @@ __device__ __forceinline__ void store_rows(const Maps& maps, const uint8_t* stag
   }
 }
 
-// One item's products and store.  The two consumer warpgroups split its
-// output as WN says: WN 128 (an item with two slabs of owned rows), one
+// One piece's products and store.  The two consumer warpgroups split its
+// output as WN says: WN 128 (a piece with two slabs of owned rows), one
 // 64-row slab each on m64n128; WN 64 (one slab, or none), 64 columns each
 // of the first slab on m64n64, so both are busy and each runs half the
-// chain.  `it` counts the ring's blocks.
+// chain.  `it` counts the ring's blocks; a_rows: rows of an A box.
 template <int BM, int EPI, typename OutT, int WN>
-__device__ __forceinline__ void consume(const Maps& maps, const Item& I, int& it,
+__device__ __forceinline__ void consume(const Maps& maps, const Piece& I, int& it,
                                         uint8_t* ring, uint8_t* wide,
                                         uint64_t* full, uint64_t* empty,
                                         const float* __restrict__ sa,
                                         const float* __restrict__ sb,
                                         float* __restrict__ s, int M, int KB,
-                                        int NB) {
+                                        int NB, int a_rows) {
   using S = Shape<BM>;
   constexpr int NS = S::NS;
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
@@ -323,7 +333,8 @@ __device__ __forceinline__ void consume(const Maps& maps, const Item& I, int& it
     auto release = [&](int i) {
       const int st = i % S::kStages;
       if (active)
-        load_a<BM>(ring + st * S::kStageBytes + slab * S::kABytes, af, r0, t4);
+        load_a<BM>(ring + st * S::kStageBytes + slab * S::kABytes, af, r0, t4,
+                   a_rows);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[st]);
     };
@@ -384,7 +395,7 @@ __device__ __forceinline__ void consume(const Maps& maps, const Item& I, int& it
     it += KB;
   }
 
-  // the f16 tiles are free until the next item's first widening
+  // the f16 tiles are free until the next piece's first widening
   if constexpr (EPI == kStore) {
     OutT* staged = reinterpret_cast<OutT*>(wide);
     if (active) {
@@ -474,17 +485,18 @@ __device__ __forceinline__ void consume(const Maps& maps, const Item& I, int& it
       tma_store_wait_read<0>();
     }
   }
-  // the stage has been read: the next item may widen over it
+  // the stage has been read: the next piece may widen over it
   bar_sync(1, kConsumers);
 }
 
-// BM: the plan's M tile (16 or 128).
+// BM: the instance (16: block_m 8 and 16; 128: block_m 64 to 512); q:
+// the launch's tile geometry (tile_geom.cuh).
 //   EPI == kStore: the pool stores the product as OutT (s unused);
 //   EPI == kQuant: the pool stores the e4m3 payload of the product rounded
 //   through OutT, and s [M, N/128] receives its 1x128 scales.
 template <int BM, int EPI, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
-gmm_fp8_tma_kernel(const __grid_constant__ Maps maps,
+gmm_fp8_tma_kernel(const __grid_constant__ Maps maps, const Geom q,
                    const float* __restrict__ sa, const float* __restrict__ sb,
                    const int* __restrict__ group_offsets,
                    const int* __restrict__ group_ids,
@@ -492,7 +504,9 @@ gmm_fp8_tma_kernel(const __grid_constant__ Maps maps,
                    int M, int K, int N, int G, int T) {
   using S = Shape<BM>;
   constexpr int NS = S::NS;
-  static_assert(BM <= NS * kSlab, "a tile's owned rows must fit the slabs");
+  static_assert(BM <= NS * kSlab, "a piece's owned rows must fit the slabs");
+  static_assert(BM == repro::kSmallRows || BM == repro::kPieceRowsMax,
+                "the two instances");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -501,9 +515,11 @@ gmm_fp8_tma_kernel(const __grid_constant__ Maps maps,
   uint64_t* full = reinterpret_cast<uint64_t*>(wide + 2 * kWideBytes);
   uint64_t* empty = full + S::kStages;
 
-  const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
-  const int KB = K / kBK, NB = N / kBN;
-  const int items = T * NB;
+  const int tid = threadIdx.x;
+  const int KB = K / kBK, NB = N / kBN, NT = N / q.block_n;
+  const int items = T * NT;
+  const int a_rows = q.block_m < kSlab ? q.block_m : kSlab;   // one A box
+  const int a_bytes = a_rows * kBK;
 
   if (tid == 0) {
     for (int i = 0; i < S::kStages; ++i) {
@@ -521,42 +537,40 @@ gmm_fp8_tma_kernel(const __grid_constant__ Maps maps,
     setmaxnreg_dec<40>();
     if (tid == kConsumers) {
       int it = 0;
-      for (int w = blockIdx.x; w < items; w += gridDim.x) {
-        const Item I = Item::make<BM>(w, NB, group_offsets, group_ids,
-                                      m_tile_ids, M, G);
-        if (I.n_own == 0) continue;
+      walk_pieces<BM>(q, items, NT, group_offsets, group_ids, m_tile_ids, M,
+                      G, [&](const Piece& I) {
+        if (I.n_own == 0) return;
         for (int i = 0; i < KB; ++i, ++it) {
           const int st = it % S::kStages;
           mbar_wait(&empty[st], ((it / S::kStages) & 1) ^ 1);
           uint8_t* stage = ring + st * S::kStageBytes;
-          mbar_expect_tx(&full[st], I.n_act * S::kABytes + kBBytes);
+          mbar_expect_tx(&full[st], I.n_act * a_bytes + kBBytes);
           for (int j = 0; j < I.n_act; ++j)
             tma_load_2d(stage + j * S::kABytes, &maps.a, &full[st], i * kBK,
                         I.own_lo + j * kSlab);
           tma_load_3d(stage + NS * S::kABytes, &maps.b, &full[st], I.n0,
                       i * kBK, I.g);
         }
-      }
+      });
     }
     return;
   }
   setmaxnreg_inc<232>();
 
   int it = 0;
-  for (int w = blockIdx.x; w < items; w += gridDim.x) {
-    const Item I = Item::make<BM>(w, NB, group_offsets, group_ids, m_tile_ids,
-                                  M, G);
-    if (I.n_own == 0 && I.n_zero == 0) continue;
+  walk_pieces<BM>(q, items, NT, group_offsets, group_ids, m_tile_ids, M, G,
+                  [&](const Piece& I) {
+    if (I.n_own == 0 && I.n_zero == 0) return;
     if constexpr (BM == 128) {
       if (I.n_act == 2) {
         consume<BM, EPI, OutT, 128>(maps, I, it, ring, wide, full, empty, sa,
-                                    sb, s, M, KB, NB);
-        continue;
+                                    sb, s, M, KB, NB, a_rows);
+        return;
       }
     }
-    consume<BM, EPI, OutT, 64>(maps, I, it, ring, wide, full, empty, sa, sb,
-                               s, M, KB, NB);
-  }
+    consume<BM, EPI, OutT, 64>(maps, I, it, ring, wide, full, empty, sa, sb, s,
+                               M, KB, NB, a_rows);
+  });
 }
 
 int sm_count() {
@@ -572,9 +586,9 @@ int sm_count() {
 }
 
 template <int BM, int EPI, typename OutT>
-int launch(const Maps& maps, int T, int N, cudaStream_t stream, const void* sa,
-           const void* sb, const void* go, const void* gi, const void* mi,
-           void* s, int M, int K, int G) {
+int launch(const Maps& maps, const Geom& q, int T, int N, cudaStream_t stream,
+           const void* sa, const void* sb, const void* go, const void* gi,
+           const void* mi, void* s, int M, int K, int G) {
   auto kernel = gmm_fp8_tma_kernel<BM, EPI, OutT>;
   constexpr int smem = Shape<BM>::kSmem;
   static bool sized = false;
@@ -586,36 +600,38 @@ int launch(const Maps& maps, int T, int N, cudaStream_t stream, const void* sa,
   }
   const int sms = sm_count();
   if (sms == 0) return (int)cudaErrorNoDevice;
-  const int items = T * (N / kBN);
+  const int items = T * (N / q.block_n);
   kernel<<<items < sms ? items : sms, kThreads, smem, stream>>>(
-      maps, (const float*)sa, (const float*)sb, (const int*)go, (const int*)gi,
+      maps, q, (const float*)sa, (const float*)sb, (const int*)go, (const int*)gi,
       (const int*)mi, (float*)s, M, K, N, G, T);
   return (int)cudaGetLastError();
 }
 
 template <int EPI, typename OutT>
-int launch_bm(int block_m, const Maps& maps, int T, int N, cudaStream_t stream,
-              const void* sa, const void* sb, const void* go, const void* gi,
-              const void* mi, void* s, int M, int K, int G) {
-  if (block_m == 16)
-    return launch<16, EPI, OutT>(maps, T, N, stream, sa, sb, go, gi, mi, s, M,
-                                 K, G);
-  return launch<128, EPI, OutT>(maps, T, N, stream, sa, sb, go, gi, mi, s, M,
-                                K, G);
+int launch_bm(const Geom& q, const Maps& maps, int T, int N,
+              cudaStream_t stream, const void* sa, const void* sb,
+              const void* go, const void* gi, const void* mi, void* s, int M,
+              int K, int G) {
+  if (repro::small_instance(q.block_m))
+    return launch<16, EPI, OutT>(maps, q, T, N, stream, sa, sb, go, gi, mi, s,
+                                 M, K, G);
+  return launch<128, EPI, OutT>(maps, q, T, N, stream, sa, sb, go, gi, mi, s,
+                                M, K, G);
 }
 
-// The operand maps and the store pool (box heights 1, 2, 4, ..., block_m)
-// over `out` [M, N] of `dt` (`esize` bytes an element); returns 0 or
-// 1000 + the CUresult of a failed encoding.
+// The operand maps and the store pool (box heights 1, 2, 4, ..., the
+// piece's rows) over `out` [M, N] of `dt` (`esize` bytes an element);
+// returns 0 or 1000 + the CUresult of a failed encoding.
 int encode_maps(Maps* maps, const void* a, const void* b, void* out,
                 CUtensorMapDataType dt, int esize, int M, int K, int N, int G,
-                int block_m) {
+                const Geom& q) {
   memset(maps, 0, sizeof(*maps));
   CUresult r;
   {
     const uint64_t dims[2] = {(uint64_t)K, (uint64_t)M};
     const uint64_t strides[1] = {(uint64_t)K};
-    const uint32_t box[2] = {kBK, (uint32_t)(block_m < kSlab ? block_m : kSlab)};
+    const uint32_t box[2] = {kBK,
+                             (uint32_t)(q.block_m < kSlab ? q.block_m : kSlab)};
     r = encode(&maps->a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, a, dims, strides,
                box, CU_TENSOR_MAP_SWIZZLE_128B);
     if (r != CUDA_SUCCESS) return 1000 + (int)r;
@@ -628,7 +644,7 @@ int encode_maps(Maps* maps, const void* a, const void* b, void* out,
                box, CU_TENSOR_MAP_SWIZZLE_128B);
     if (r != CUDA_SUCCESS) return 1000 + (int)r;
   }
-  for (int i = 0; (1 << i) <= block_m; ++i) {
+  for (int i = 0; (1 << i) <= q.rows; ++i) {
     const uint64_t dims[2] = {(uint64_t)N, (uint64_t)M};
     const uint64_t strides[1] = {(uint64_t)N * esize};
     const uint32_t box[2] = {kBN, (uint32_t)(1 << i)};
@@ -642,29 +658,30 @@ int encode_maps(Maps* maps, const void* a, const void* b, void* out,
 }  // namespace
 
 // One launch covers the whole plan: persistent CTAs, at most one an SM,
-// over its T visits x N / 128 tiles.  Every pointer is 16-byte aligned
-// and contiguous; block_m is 16 or 128.  Each returns a cudaError_t, or
-// 1000 + the CUresult of a failed tensor-map encoding.
+// over its T visits x N / block_n tiles.  Every pointer is 16-byte
+// aligned and contiguous; block_m is 8, 16, 64, 128, 256 or 512, block_n
+// 128 or 256 and divides N.  Each returns a cudaError_t, or 1000 + the
+// CUresult of a failed tensor-map encoding.
 
 // B2.  out [M, N], f32 when out_f32 else bf16.
 extern "C" int gmm_fp8(const void* a, const void* sa, const void* b,
                        const void* sb, const void* group_offsets,
                        const void* group_ids, const void* m_tile_ids, void* out,
                        int M, int K, int N, int G, int T, int block_m,
-                       int out_f32, void* stream) {
-  if (block_m != 16 && block_m != 128) return (int)cudaErrorInvalidValue;
+                       int block_n, int out_f32, void* stream) {
+  Geom q;
+  if (!repro::make_geom(block_m, block_n, N, &q)) return (int)cudaErrorInvalidValue;
   Maps maps;
   const int e = encode_maps(&maps, a, b, out,
                             out_f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                            out_f32 ? 4 : 2, M, K, N, G, block_m);
+                            out_f32 ? 4 : 2, M, K, N, G, q);
   if (e) return e;
   auto st = (cudaStream_t)stream;
   if (out_f32)
-    return launch_bm<kStore, float>(block_m, maps, T, N, st, sa, sb,
-                                    group_offsets, group_ids, m_tile_ids,
-                                    nullptr, M, K, G);
-  return launch_bm<kStore, __nv_bfloat16>(block_m, maps, T, N, st, sa, sb,
+    return launch_bm<kStore, float>(q, maps, T, N, st, sa, sb, group_offsets,
+                                    group_ids, m_tile_ids, nullptr, M, K, G);
+  return launch_bm<kStore, __nv_bfloat16>(q, maps, T, N, st, sa, sb,
                                           group_offsets, group_ids, m_tile_ids,
                                           nullptr, M, K, G);
 }
@@ -675,31 +692,35 @@ extern "C" int gmm_fp8_quant(const void* a, const void* sa, const void* b,
                              const void* sb, const void* group_offsets,
                              const void* group_ids, const void* m_tile_ids,
                              void* q, void* s, int M, int K, int N, int G,
-                             int T, int block_m, int round_f32, void* stream) {
-  if (block_m != 16 && block_m != 128) return (int)cudaErrorInvalidValue;
+                             int T, int block_m, int block_n, int round_f32,
+                             void* stream) {
+  Geom g;
+  if (!repro::make_geom(block_m, block_n, N, &g)) return (int)cudaErrorInvalidValue;
   Maps maps;
   const int e = encode_maps(&maps, a, b, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
-                            M, K, N, G, block_m);
+                            M, K, N, G, g);
   if (e) return e;
   auto st = (cudaStream_t)stream;
   if (round_f32)
-    return launch_bm<kQuant, float>(block_m, maps, T, N, st, sa, sb,
-                                    group_offsets, group_ids, m_tile_ids, s,
-                                    M, K, G);
-  return launch_bm<kQuant, __nv_bfloat16>(block_m, maps, T, N, st, sa, sb,
+    return launch_bm<kQuant, float>(g, maps, T, N, st, sa, sb, group_offsets,
+                                    group_ids, m_tile_ids, s, M, K, G);
+  return launch_bm<kQuant, __nv_bfloat16>(g, maps, T, N, st, sa, sb,
                                           group_offsets, group_ids, m_tile_ids,
                                           s, M, K, G);
 }
 
-// The resources of one variant (resources.cuh): a = block_m (16 or 128),
-// b = 1 for an f32 output (B2) or rounding (B7), c = 1 for B7.
+// The resources of one variant (resources.cuh): a = block_m (8, 16, 64,
+// 128, 256 or 512: its instance's), b = 1 for an f32 output (B2) or
+// rounding (B7), c = 1 for B7.
 extern "C" int kernel_resources(int block_m, int out_f32, int quant, int* out) {
-  if (block_m != 16 && block_m != 128) return (int)cudaErrorInvalidValue;
-  const int smem = block_m == 16 ? Shape<16>::kSmem : Shape<128>::kSmem;
+  Geom g;
+  if (!repro::make_geom(block_m, 128, 128, &g)) return (int)cudaErrorInvalidValue;
+  const bool small = repro::small_instance(block_m);
+  const int smem = small ? Shape<16>::kSmem : Shape<128>::kSmem;
   auto q = [&](auto kernel) {
     return repro::query_resources(kernel, kThreads, smem, out);
   };
-  if (block_m == 16) {
+  if (small) {
     if (quant) return out_f32 ? q(gmm_fp8_tma_kernel<16, kQuant, float>)
                               : q(gmm_fp8_tma_kernel<16, kQuant, __nv_bfloat16>);
     return out_f32 ? q(gmm_fp8_tma_kernel<16, kStore, float>)

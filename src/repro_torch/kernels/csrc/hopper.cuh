@@ -38,6 +38,12 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// one arrival that counts as `count` (the arrivals of warps that sit out)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
 // Wait for the phase of parity `parity` to complete.  A barrier that never
 // completes (a schedule producer and consumers disagree on) traps after
 // ~2^34 cycles (~10 s) and fails the launch instead of hanging the card.

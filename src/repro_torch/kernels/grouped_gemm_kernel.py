@@ -23,10 +23,13 @@ B2 and B7 share one kernel template (``grouped_gemm.cu``), B5 is its own
 (``gmm_bf16.cu``); all three run on Hopper's TMA and wgmma (B2 and B7
 widen their e4m3 tiles to f16 on the way into wgmma) and store owned rows
 through a pool of power-of-two TMA store descriptors.  Every kernel walks
-the :class:`~repro_torch.kernels.plan.TilePlan`: one CTA per (visit,
-128-column N tile), each writing only the rows its group owns (see the
-sources for why the Pallas kernels' read-modify-write store does not
-carry over).
+the :class:`~repro_torch.kernels.plan.TilePlan` at the plan's tile,
+``block_m`` rows by ``block_n`` columns: every grouped-GEMM geometry of
+the JAX package's ``CONFIG_POOL`` (block_m 8 to 512, block_n 128 or 256,
+walked in pieces as ``csrc/tile_geom.cuh`` says).  Each visit writes only
+the rows its group owns (see the sources for why the Pallas kernels'
+read-modify-write store does not carry over).  Any other geometry raises
+with the resource model's reason (``resources.missing_variant``).
 
 Each function chooses by its tensor: a ``FakeTensor`` -> its
 ``*_abstract`` version (shape-only, :mod:`~repro_torch.kernels.abstract`),
@@ -41,13 +44,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import abstract, build
+from repro_torch.kernels import resources as _resources
 from repro_torch.kernels.plan import QUANT_BLOCK, KernelConfig, TilePlan, \
     device_spec, gemm_work, make_tile_plan
 from repro_torch.kernels.ref import FP8, gmm_bf16_exact_ref, \
     gmm_quant_ref, grouped_gemm_blockscaled_ref
 
-#: M tile heights the kernel is instantiated for: decode's and prefill's
-CUDA_BLOCK_MS = (16, 128)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -80,17 +82,17 @@ def _prepare(a, s_a, b, s_b, group_sizes, num_groups, block_m, block_n,
     return m, k, n, num_groups, plan
 
 
-def _check_cuda(block_m, block_n, block_k, plan: TilePlan, out_dtype,
-                operands) -> None:
-    """What the CUDA kernels take: 16- or 128-row tiles, 128-wide N and K
-    tiles, a bf16 or f32 output (or rounding) dtype, and contiguous,
-    16-byte aligned operands of the given dtypes on one CUDA device."""
-    if block_m not in CUDA_BLOCK_MS:
-        raise ValueError(f"the CUDA grouped GEMM supports block_m in "
-                         f"{CUDA_BLOCK_MS}, got {block_m}")
-    if block_n != 128 or block_k != 128:
-        raise ValueError(f"the CUDA grouped GEMM tiles N and K at 128, got "
-                         f"block_n={block_n}, block_k={block_k}")
+def _check_cuda(family, block_m, block_n, block_k, plan: TilePlan,
+                out_dtype, operands) -> None:
+    """What the CUDA kernels take: a tile geometry the resource model
+    says is built for ``family`` (``resources.missing_variant``), a bf16
+    or f32 output (or rounding) dtype, and contiguous, 16-byte aligned
+    operands of the given dtypes on one CUDA device."""
+    reason = _resources.missing_variant(
+        family, {"block_m": block_m, "block_n": block_n, "block_k": block_k})
+    if reason is not None:
+        raise ValueError(f"the CUDA grouped GEMM cannot run this tile: "
+                         f"{reason}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bf16 or f32, got {out_dtype}")
     if plan.max_visits > 65535:      # visits are the grid's y dimension
@@ -174,18 +176,18 @@ def gmm_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
     m, k, n, num_groups, plan = _prepare(
         a_fp8, s_a, b_fp8, s_b, group_sizes, num_groups, block_m, block_n,
         block_k, plan)
-    _check_cuda(block_m, block_n, block_k, plan, out_dtype,
+    _check_cuda("gemm", block_m, block_n, block_k, plan, out_dtype,
                 (("a_fp8", a_fp8, FP8), ("s_a", s_a, torch.float32),
                  ("b_fp8", b_fp8, FP8), ("s_b", s_b, torch.float32)))
     dev = a_fp8.device
     out = _output(out, (m, n), out_dtype, a_fp8, "out")
     if m == 0:
         return out
-    fn = build.function("grouped_gemm", "gmm_fp8", [_P] * 8 + [_I] * 7 + [_P])
+    fn = build.function("grouped_gemm", "gmm_fp8", [_P] * 8 + [_I] * 8 + [_P])
     status = fn(a_fp8.data_ptr(), s_a.data_ptr(), b_fp8.data_ptr(),
                 s_b.data_ptr(), *_plan_args(plan),
                 out.data_ptr(), m, k, n, num_groups, plan.max_visits,
-                block_m, 1 if out_dtype == torch.float32 else 0,
+                block_m, block_n, 1 if out_dtype == torch.float32 else 0,
                 build.stream_ptr(dev))
     build.check(status, "gmm")
     gmm_cuda.launches += 1
@@ -269,7 +271,7 @@ def gmm_quant_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
     m, k, n, num_groups, plan = _prepare(
         a_fp8, s_a, b_fp8, s_b, group_sizes, num_groups, block_m, block_n,
         block_k, plan)
-    _check_cuda(block_m, block_n, block_k, plan, out_dtype,
+    _check_cuda("gemm_quant", block_m, block_n, block_k, plan, out_dtype,
                 (("a_fp8", a_fp8, FP8), ("s_a", s_a, torch.float32),
                  ("b_fp8", b_fp8, FP8), ("s_b", s_b, torch.float32)))
     dev = a_fp8.device
@@ -279,10 +281,10 @@ def gmm_quant_cuda(a_fp8, s_a, b_fp8, s_b, group_sizes, *,
     if m == 0:
         return q, s
     fn = build.function("grouped_gemm", "gmm_fp8_quant",
-                        [_P] * 9 + [_I] * 7 + [_P])
+                        [_P] * 9 + [_I] * 8 + [_P])
     status = fn(a_fp8.data_ptr(), s_a.data_ptr(), b_fp8.data_ptr(),
                 s_b.data_ptr(), *_plan_args(plan), q.data_ptr(), s.data_ptr(),
-                m, k, n, num_groups, plan.max_visits, block_m,
+                m, k, n, num_groups, plan.max_visits, block_m, block_n,
                 1 if out_dtype == torch.float32 else 0, build.stream_ptr(dev))
     build.check(status, "gmm_quant")
     gmm_quant_cuda.launches += 1
@@ -387,7 +389,7 @@ def gmm_bf16_cuda(x, w, group_sizes, *, num_groups: Optional[int] = None,
     m, k, n, num_groups, plan = _prepare(
         x, None, w, None, group_sizes, num_groups, block_m, block_n, block_k,
         plan)
-    _check_cuda(block_m, block_n, block_k, plan, out_dtype,
+    _check_cuda("gemm", block_m, block_n, block_k, plan, out_dtype,
                 (("x", x, torch.bfloat16),))
     dev = x.device
     if not w.is_cuda or w.device != dev:
@@ -398,10 +400,10 @@ def gmm_bf16_cuda(x, w, group_sizes, *, num_groups: Optional[int] = None,
     out = _output(out, (m, n), out_dtype, x, "out")
     if m == 0:
         return out
-    fn = build.function("gmm_bf16", "gmm_bf16", [_P] * 6 + [_I] * 9 + [_P])
+    fn = build.function("gmm_bf16", "gmm_bf16", [_P] * 6 + [_I] * 10 + [_P])
     status = fn(x.data_ptr(), w.data_ptr(), *_plan_args(plan), out.data_ptr(),
                 m, k, n, num_groups, w.shape[0], plan.max_visits, block_m,
-                1 if out_dtype == torch.float32 else 0, k_major,
+                block_n, 1 if out_dtype == torch.float32 else 0, k_major,
                 build.stream_ptr(dev))
     build.check(status, "gmm_bf16")
     gmm_bf16_cuda.launches += 1

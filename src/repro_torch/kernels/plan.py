@@ -267,8 +267,8 @@ def _footprint(family: str, block_m: int, wgrad_precision: str) -> dict:
 
 
 # per-device default block shapes, first prefix match wins: the H100's
-# grouped GEMMs are built for 16- and 128-row tiles, and 128 serves every
-# shape that is not a decode step
+# grouped GEMMs take every tile of the pool, and 128 serves every shape
+# that is not a decode step (the autotuner measures the rest)
 _DEVICE_DEFAULTS = (
     ("nvidia h100", dict(block_m=128)),
     ("cpu", dict(block_m=128)),
@@ -555,9 +555,9 @@ def shared_plan(group_sizes: torch.Tensor, m: int, *,
 # ONE pool serves every autotune op (the keys of ``_AUTOTUNE_OPS``): each
 # op ranks the same candidates by its own roofline terms and caches the
 # winner under its own key.  The pool is the JAX package's, entry for
-# entry; the resource model prunes what the card's kernels lack (block_m
-# 8, 64, 256, 512, block_n 256 and the wgrad spans: no CUDA variant),
-# each with its reason.
+# entry; the card's grouped GEMMs take every one of its GEMM geometries,
+# and the resource model prunes what they lack (the wgrad spans, and the
+# wgrads' 256-wide N tile: no CUDA variant), each with its reason.
 #
 # The decode entries (block_m 8 / 16) extend the descriptor axis down to
 # serving's tiny-M regime: a decode step's grouped GEMM has M =

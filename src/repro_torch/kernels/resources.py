@@ -9,10 +9,10 @@ holds, mirroring the constants of its source.
 
 * shared memory a CTA (dynamic, what the launch asks for):
   - B2 / B7 (``csrc/grouped_gemm.cu``, ``Shape<BM>::kSmem``): a ring of
-    e4m3 stages (the A boxes of 64 or ``block_m`` rows and a 128x128 B
-    tile), two f16 B tiles that also stage the output, the barriers;
+    e4m3 stages (the A boxes of 64 or 16 rows and a 128x128 B tile), two
+    f16 B tiles that also stage the output, the barriers;
   - B5 (``csrc/gmm_bf16.cu``, ``smem_bytes<BM, NC, OutT>``): a 4-stage
-    ring of bf16 A slabs and B tiles, the staged output tile;
+    ring of bf16 A slabs and B tiles, the staged output piece;
   - B4 (``csrc/wgrad_bf16.cu``) and B6 (``csrc/wgrad.cu``): their rings,
     B6's widened buffers, the staged 128x128 dw tile;
   - B8 (``csrc/flash_attention.cu``, ``Cfg<D>::kSmem``): q and o tiles,
@@ -22,10 +22,18 @@ holds, mirroring the constants of its source.
   SM is meant to hold (the bounds' second argument);
 * the budgets (:data:`BUDGETS`): 232448 B of shared memory a CTA, 228 KB
   an SM (1 KB of it reserved a CTA), 65536 registers an SM;
-* which tile shapes were built: B2, B5 and B7 for ``block_m`` 16 and 128
-  with 128-wide N and K tiles; the wgrads tile K and N at 128, walk the
-  contracted rows 64 at a time whatever ``block_m`` is, and have no
-  multi-tile spans.  Any other geometry gets a "no CUDA variant" reason.
+* which tile shapes were built: B2, B5 and B7 take ``block_m`` 8, 16,
+  64, 128, 256 and 512 and ``block_n`` 128 or 256 (``block_k`` 128) as
+  runtime arguments of two instances each (``csrc/tile_geom.cuh``): the
+  decode instance (block_m 8 and 16, pieces of ``block_m`` rows) and the
+  tall instance (block_m 64 to 512, pieces of at most 128 rows); a
+  visit's tile is walked as ``block_m / rows`` sub-tiles by ``block_n /
+  128`` halves, and its store pool holds ``log2(rows) + 1`` descriptors
+  (heights 1 .. rows: 4 at block_m 8, 5 at 16, 7 at 64, 8 from 128 on,
+  since a store is no taller than the staged piece).  The wgrads tile K
+  and N at 128, walk the contracted rows 64 at a time whatever
+  ``block_m`` is, and have no multi-tile spans.  Any other geometry gets
+  a "no CUDA variant" reason.
 
 A geometry that was not built is still costed by its kernel's template
 arithmetic, so :meth:`~repro_torch.kernels.plan.KernelConfig.validate`
@@ -42,10 +50,10 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
-#: bump when the formulas or budgets change: the autotune JSON cache
-#: namespaces its keys by this (``|rm<N>``), so selections made under an
-#: older model are ignored rather than trusted
-RESOURCE_MODEL_VERSION = 1
+#: bump when the formulas, budgets or built geometries change: the
+#: autotune JSON cache namespaces its keys by this (``|rm<N>``), so
+#: selections made under an older model are ignored rather than trusted
+RESOURCE_MODEL_VERSION = 2
 
 QUANT_BLOCK = 128   # 1x128 / 128x128 scale granularity
 SWIZZLE_BYTES = 128  # a shared box row in the 128-byte swizzle
@@ -67,10 +75,17 @@ BUDGETS: "Dict[str, Dict[str, int]]" = {
 #: map onto these)
 FAMILIES = ("gemm", "gemm_quant", "wgrad", "quantize", "act_quant")
 
-#: tile heights the CUDA grouped GEMMs (B2, B5, B7) are instantiated for
-CUDA_BLOCK_MS = (16, 128)
-#: the N and K tile every CUDA GEMM and wgrad is built for
+#: tile heights the CUDA grouped GEMMs (B2, B5, B7) take: the JAX
+#: package's pool
+CUDA_BLOCK_MS = (8, 16, 64, 128, 256, 512)
+#: their output tile widths
+CUDA_BLOCK_NS = (128, 256)
+#: the K tile of every CUDA GEMM, and the K and N tile of the wgrads
 CUDA_TILE_NK = 128
+#: the most rows of one piece: the decode instance's (block_m <= 16) and
+#: the tall instance's (``csrc/tile_geom.cuh``)
+SMALL_PIECE_ROWS = 16
+PIECE_ROWS = 128
 
 
 def budgets(device_kind: str) -> "Dict[str, int]":
@@ -119,32 +134,51 @@ def _barriers(n: int) -> int:
     return 8 * n
 
 
+def instance_rows(block_m: int) -> int:
+    """The instance a grouped GEMM at ``block_m`` runs on, by the most
+    rows of one piece: 16 (block_m 8 and 16) or 128."""
+    return SMALL_PIECE_ROWS if block_m <= SMALL_PIECE_ROWS else PIECE_ROWS
+
+
+def piece_rows(block_m: int) -> int:
+    """Rows of one piece of a ``block_m`` tile: the tile's, at most 128."""
+    return min(block_m, PIECE_ROWS)
+
+
+def store_descriptors(block_m: int) -> int:
+    """The store pool of a ``block_m`` launch: box heights 1, 2, ..., the
+    piece's rows, ``log2(rows) + 1`` descriptors."""
+    return piece_rows(block_m).bit_length()
+
+
 def grouped_gemm_smem(block_m: int) -> "Dict[str, int]":
-    """B2 / B7, ``Shape<BM>`` of ``csrc/grouped_gemm.cu``: 128-K stages of
-    ``NS`` A boxes (64 rows, or ``block_m`` below 64) and a 128x128 e4m3 B
-    tile; two f16 128x128 B tiles (also the output stage); full and empty
-    barriers; 1024 B to align the ring for the 128-byte swizzle."""
-    ns = 2 if block_m == 128 else 1
-    a_rows = min(block_m, 64)
-    stages = 5 if block_m == 128 else 8
+    """B2 / B7, ``Shape<BM>`` of ``csrc/grouped_gemm.cu`` for the instance
+    ``block_m`` runs on: 128-K stages of ``NS`` A box slots (two of 64
+    rows, or one of 16) and a 128x128 e4m3 B tile; two f16 128x128 B
+    tiles (also the output stage); full and empty barriers; 1024 B to
+    align the ring for the 128-byte swizzle."""
+    tall = instance_rows(block_m) == PIECE_ROWS
+    ns, a_rows, stages = (2, 64, 5) if tall else (1, SMALL_PIECE_ROWS, 8)
     stage = ns * a_rows * 128 + 128 * 128
     return {"align": 1024, "ring": stages * stage, "wide_b": 2 * 128 * 128 * 2,
             "barriers": _barriers(2 * stages)}
 
 
 def gmm_bf16_smem(block_m: int, out_itemsize: int) -> "Dict[str, int]":
-    """B5, ``smem_bytes<BM, NC, OutT>`` of ``csrc/gmm_bf16.cu``: 4 stages of
-    ``NC`` bf16 A slabs (64 rows x 64 K) and a 64 K x 128 N B tile, the
-    staged ``block_m`` x 128 output tile, the barriers."""
+    """B5, ``smem_bytes<BM, NC, OutT>`` of ``csrc/gmm_bf16.cu`` for the
+    instance ``block_m`` runs on: 4 stages of ``NC`` bf16 A slabs (64 rows
+    x 64 K) and a 64 K x 128 N B tile, the staged output piece (16 or 128
+    rows x 128), the barriers."""
     nc = _gmm_bf16_consumers(block_m)
     return {"align": 1024, "ring": 4 * (nc * 64 * 64 * 2 + 64 * 128 * 2),
-            "out_stage": block_m * 128 * out_itemsize,
+            "out_stage": instance_rows(block_m) * 128 * out_itemsize,
             "barriers": _barriers(2 * 4)}
 
 
 def _gmm_bf16_consumers(block_m: int) -> int:
-    """B5's consumer warpgroups: one a 64-row slab."""
-    return max(1, _ceil_div(block_m, 64))
+    """B5's consumer warpgroups: one a 64-row slab of the instance's
+    piece."""
+    return _ceil_div(instance_rows(block_m), 64)
 
 
 def wgrad_bf16_smem(out_itemsize: int) -> "Dict[str, int]":
@@ -191,7 +225,13 @@ def kernel_resources(kernel: str, *, block_m: int = 128,
                      head_dim: int = 128) -> "Dict[str, Any]":
     """Shared memory a CTA (``buffers`` and their ``smem`` total), threads
     a CTA and the CTAs an SM is meant to hold, for one variant of
-    ``kernel`` (a key of :data:`KERNELS`)."""
+    ``kernel`` (a key of :data:`KERNELS`); for a grouped GEMM also the
+    rows of a piece and its store pool's descriptors at ``block_m``."""
+    if kernel in ("gmm", "gmm_quant", "gmm_bf16"):
+        extra = {"piece_rows": piece_rows(block_m),
+                 "store_descriptors": store_descriptors(block_m)}
+    else:
+        extra = {}
     if kernel in ("gmm", "gmm_quant"):
         buffers, threads, ctas = grouped_gemm_smem(block_m), 256 + 128, 1
     elif kernel == "gmm_bf16":
@@ -213,21 +253,25 @@ def kernel_resources(kernel: str, *, block_m: int = 128,
                          f"{tuple(KERNELS)}")
     return {"kernel": kernel, "buffers": buffers,
             "smem": sum(buffers.values()), "threads": threads,
-            "ctas_per_sm": ctas}
+            "ctas_per_sm": ctas, **extra}
 
 
 def variants() -> "List[Dict[str, Any]]":
     """Every variant the CUDA libraries build, with its model resources and
     the arguments of its library's ``kernel_resources(a, b, c, out)``
     query: B2 / B7 ``(block_m, out_f32, quantizing)``, B5 ``(block_m,
-    out_f32, k_major)``, B4 / B6 ``(0, out_f32, 0)``, B8 ``(head_dim, 0,
-    0)``, B1 ``(0, 0, 0)``, B3 ``(in_kind, act, 0)``."""
+    out_f32, k_major)`` (one a block_m of :data:`CUDA_BLOCK_MS`, each
+    taking every block_n of :data:`CUDA_BLOCK_NS`), B4 / B6 ``(0,
+    out_f32, 0)``, B8 ``(head_dim, 0, 0)``, B1 ``(0, 0, 0)``, B3
+    ``(in_kind, act, 0)``."""
     out = []
 
     def add(kernel, args, label, **kw):
+        extra = ({"block_ns": CUDA_BLOCK_NS}
+                 if kernel in ("gmm", "gmm_quant", "gmm_bf16") else {})
         out.append({**kernel_resources(kernel, **kw),
                     "library": KERNELS[kernel],
-                    "args": args, "variant": label})
+                    "args": args, "variant": label, **extra})
     for bm in CUDA_BLOCK_MS:
         for f32, it in ((0, 2), (1, 4)):
             dt = "f32" if f32 else "bf16"
@@ -343,18 +387,19 @@ def alignment_issues(config: Any, *, k: Optional[int] = None,
 
 def missing_variant(family: str, config: Any) -> "Optional[str]":
     """Why ``family`` has no CUDA kernel built for ``config``'s geometry,
-    or None.  The grouped GEMMs are built for ``block_m`` in
-    :data:`CUDA_BLOCK_MS` with 128-wide N and K tiles; the wgrads tile K
-    and N at 128 and have no spans (their walk reads no ``block_m``); the
-    quantizers take no tile."""
+    or None.  The grouped GEMMs take ``block_m`` in :data:`CUDA_BLOCK_MS`,
+    ``block_n`` in :data:`CUDA_BLOCK_NS` and a 128-deep K tile; the
+    wgrads tile K and N at 128 and have no spans (their walk reads no
+    ``block_m``); the quantizers take no tile."""
     bm, bn, bk = config_blocks(config)
     if family in ("gemm", "gemm_quant"):
         if bm not in CUDA_BLOCK_MS:
             return (f"no CUDA variant: the grouped GEMMs are built for "
                     f"block_m in {CUDA_BLOCK_MS}, not {bm}")
-        if (bn, bk) != (CUDA_TILE_NK, CUDA_TILE_NK):
-            return (f"no CUDA variant: the grouped GEMMs tile N and K at "
-                    f"{CUDA_TILE_NK}, not block_n={bn}, block_k={bk}")
+        if bn not in CUDA_BLOCK_NS or bk != CUDA_TILE_NK:
+            return (f"no CUDA variant: the grouped GEMMs tile N at "
+                    f"{CUDA_BLOCK_NS} and K at {CUDA_TILE_NK}, not "
+                    f"block_n={bn}, block_k={bk}")
     elif family == "wgrad":
         ns, ks = config_spans(config)
         if (bn, bk) != (CUDA_TILE_NK, CUDA_TILE_NK):

@@ -6,15 +6,15 @@ Plan-aware decode, as in the JAX package: a decode step's MoE grouped
 GEMM sees tiny, constant M (batch x top_k routed rows in all), where the
 prefill's 128-row tiles waste most of each fetched A tile.  An MoE
 engine therefore selects a decode config ONCE at construction from the
-decode pool (``plan.decode_config``, cost-model ranked, cached beside the
-measured autotune entries; on Hopper block_m 8 has no CUDA variant, so
-the selection is 16 rows) and rebuilds the decode model over it;
+decode pool, block_m 8 or 16 (``plan.decode_config``: a measured entry of
+the autotune cache where one exists, else the cost model's rank) and
+rebuilds the decode model over it;
 ``decode_batch_size`` is the M-bucket hint of that selection (the engine
 stays right for any batch).  The selection keeps the model's config
 (``gemm_backend`` folded in) and takes only its tile geometry, so the
 backend and the recipe switches (``fuse_producer``, ``wgrad_precision``)
-carry over; under ``"padded_baseline"`` decode pads each group to 16
-rows.  A model with no MoE decodes on the model's config, as prefill
+carry over; under ``"padded_baseline"`` decode pads each group to the
+selected tile.  A model with no MoE decodes on the model's config, as prefill
 does.  ``kernel_config`` pins the prefill phase's tile shapes and
 ``decode_kernel_config`` the decode phase's, skipping the selection;
 the phases share one param tree.

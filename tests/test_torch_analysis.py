@@ -160,12 +160,15 @@ def test_kernel_internal_calls_allowed_inside_kernels():
 def test_resource_lint_clean_pool_and_pruned_entries_counted():
     pruned = []
     assert resource_lint.run(pruned=pruned) == []
-    assert len(pruned) == 118
-    # "no CUDA variant" entries are pruned with their reason, never findings
-    assert all(r.startswith("no CUDA variant") for _, r in pruned)
-    assert any("block_m=8," in t for t, _ in pruned)
-    assert not any("block_m=16,block_n=128,block_k=128" in t
-                   and t.startswith("gemm/fp8") for t, _ in pruned)
+    assert len(pruned) == 40
+    # "no CUDA variant" entries are pruned with their reason, never
+    # findings; every grouped-GEMM entry of the pool is built, so only the
+    # wgrads' are pruned: their spans and their 256-wide N tile
+    assert all(r.startswith("no CUDA variant: the wgrads")
+               for _, r in pruned)
+    assert all(t.startswith("wgrad/") for t, _ in pruned)
+    assert sum("spans" in r for _, r in pruned) == 24
+    assert not any(t.startswith(("gemm/", "gemm_quant")) for t, _ in pruned)
 
 
 def test_launch_bound_registers_match_ptxas():
@@ -220,10 +223,16 @@ def test_tma_row_alignment_is_v03():
 
 def test_missing_variant_is_pruned_not_a_finding():
     pruned = []
-    fs = resource_lint.check_entry("gemm", {"block_m": 64}, GEMM,
-                                   pruned=pruned)
+    fs = resource_lint.check_entry(
+        "wgrad", {"block_m": 128, "n_span": 2, "k_span": 2}, GEMM,
+        pruned=pruned)
     assert fs == [] and len(pruned) == 1
     assert pruned[0][1].startswith("no CUDA variant")
+    # a grouped-GEMM tile outside the pool is pruned the same way
+    fs = resource_lint.check_entry("gemm", {"block_m": 24}, GEMM,
+                                   pruned=pruned)
+    assert fs == [] and len(pruned) == 2
+    assert pruned[1][1].startswith("no CUDA variant")
 
 
 # ---------------------------------------------------------------------------

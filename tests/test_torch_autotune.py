@@ -311,15 +311,16 @@ def test_autotune_persists_and_reloads_identically(cache, tiled,
 
     def fake(config, *a, **kw):
         measured.append(config.block_m)
-        return {16: 2e-3, 128: 1e-3}[config.block_m]
+        return {64: 2e-3, 128: 1e-3}[config.block_m]
     monkeypatch.setattr(plan_mod, "_measure_candidate", fake)
     first = plan_mod.autotune(256, 128, 128, 4, device="cpu",
                               max_candidates=2)
-    assert first.block_m == 128 and sorted(measured) == [16, 128]
+    # the cost model's two best of the pool: 128 and 64 rows
+    assert first.block_m == 128 and sorted(measured) == [64, 128]
     rep = plan_mod.last_autotune_report()
     assert rep["source"] == "measured" and not rep["cache_hit"]
-    assert {c["block_m"]: s for c, _, s in rep["candidates"]} == \
-        {16: 2e-3, 128: 1e-3}
+    assert {c["block_m"]: s for c, _, s in rep["candidates"]
+            if s is not None} == {64: 2e-3, 128: 1e-3}
     plan_mod.clear_cache_memo()            # force a re-read from disk
     second = plan_mod.autotune(256, 128, 128, 4, device="cpu",
                                max_candidates=2)
@@ -395,14 +396,18 @@ def test_the_padded_baseline_tunes_under_its_own_name(cache):
 # ---------------------------------------------------------------------------
 
 def test_decode_config_selects_the_built_16_row_tile(cache):
+    """Both decode tiles are built: at the qwen2-moe decode shape (32
+    rows) the cost model ranks the two, nothing pruned, and picks 8 (the
+    A rows and the store it saves outweigh its two extra visits)."""
     with events.capture() as evs:
         cfg = plan_mod.decode_config(32, 2048, 1408, 60, device="cpu")
     assert events.count(evs, "decode_select") == 1
-    assert cfg == KernelConfig(block_m=16)
+    assert cfg == KernelConfig(block_m=8)
     rep = plan_mod.last_autotune_report()
     assert rep["key"].endswith(f"|decode|rm{res.RESOURCE_MODEL_VERSION}")
-    ((pruned, reason),) = rep["pruned"]
-    assert pruned["block_m"] == 8 and reason.startswith("no CUDA variant")
+    assert rep["pruned"] == []
+    ranked = [(c["block_m"], p) for c, p, _ in rep["candidates"]]
+    assert [bm for bm, _ in ranked] == [8, 16] and ranked[0][1] < ranked[1][1]
 
 
 @pytest.mark.parametrize("arch,fields", [
@@ -427,11 +432,14 @@ def test_engine_selects_decode_tiles_once_for_moe_only(cache, arch, fields):
         old_rule = KernelConfig(block_m=16)
     else:
         assert events.count(evs, "decode_select") == 1
-        # the selection is what the fixed rule gave: the model's config
-        # with 16-row tiles
-        old_rule = (cfg.resolved_kernel_config or KernelConfig()).with_(
-            block_m=16)
-        assert engine.decode_config == old_rule
+        # the selection is a decode-pool tile around the model's config;
+        # its tokens are the fixed rule's (the model's config with 16-row
+        # tiles)
+        base = cfg.resolved_kernel_config or KernelConfig()
+        old_rule = base.with_(block_m=16)
+        assert engine.decode_config.block_m in plan_mod.DECODE_BLOCK_MS
+        assert engine.decode_config == base.with_(
+            block_m=engine.decode_config.block_m)
     pinned = Engine(model, params, max_new_tokens=3, device="cpu",
                     decode_kernel_config=old_rule)
     batch = {"tokens": tokens}

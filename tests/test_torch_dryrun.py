@@ -128,12 +128,13 @@ def _gemm_args():
     return (a8, sa, b8, sb, GS)
 
 
-def _b2(block_m, out_dtype):
+def _b2(block_m, out_dtype, block_n=128):
     # visits: the tiles plus one a group boundary (G - 1)
     tiles = -(-96 // block_m)
     visits, rows = tiles + 2, max(block_m, 64)         # wgmma's 64 rows
     flops = 2 * visits * rows * 256 * 256
-    a = visits * 2 * block_m * (256 + 4 * 2)            # 2 N tiles
+    n_tiles = 256 // block_n
+    a = visits * n_tiles * block_m * (256 + 4 * 2)
     return flops, a + visits * 256 * 256 + tiles * block_m * 256 * \
         out_dtype.itemsize
 
@@ -185,6 +186,18 @@ KERNELS = {
                 _b2(128, BF16)),
     "B2_f32_m16": (grouped_gemm_kernel, "gmm", "gmm", _gemm_args,
                    {"out_dtype": F32, "block_m": 16}, _b2(16, F32)),
+    # every other geometry of the pool counts its own visits and tiles:
+    # block_m 8 (12 tiles), 64 (2), 256 and 512 (1), block_n 256 (1 N tile)
+    "B2_bf16_m8": (grouped_gemm_kernel, "gmm", "gmm", _gemm_args,
+                   {"block_m": 8}, _b2(8, BF16)),
+    "B2_bf16_m64_n256": (grouped_gemm_kernel, "gmm", "gmm", _gemm_args,
+                         {"block_m": 64, "block_n": 256},
+                         _b2(64, BF16, 256)),
+    "B2_f32_m256": (grouped_gemm_kernel, "gmm", "gmm", _gemm_args,
+                    {"out_dtype": F32, "block_m": 256}, _b2(256, F32)),
+    "B2_bf16_m512_n256": (grouped_gemm_kernel, "gmm", "gmm", _gemm_args,
+                          {"block_m": 512, "block_n": 256},
+                          _b2(512, BF16, 256)),
     "B7": (grouped_gemm_kernel, "gmm_quant", "gmm_quant", _gemm_args, {},
            (_b2(128, BF16)[0], _b2(128, BF16)[1] - 128 * 256 * 2
             + 128 * (256 + 4 * 2))),

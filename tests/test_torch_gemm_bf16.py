@@ -20,13 +20,40 @@ from repro_torch.kernels import grouped_gemm_kernel as tgk
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.plan import make_tile_plan
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: its tensors are small,
+    and beside the other test workers a thread pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = {
-    # name: (M, K, N, group sizes, block_m)
+    # name: (M, K, N, group sizes, block_m[, block_n])
     "ragged_tail": (100, 256, 256, [30, 0, 50, 7], 128),
     "ragged_bm16": (70, 256, 256, [0, 16, 1, 33, 0, 20], 16),
     "all_empty": (48, 128, 256, [0, 0, 0], 16),
     "single_group": (40, 256, 128, [40], 128),
+    # every pool geometry the cases above do not take (block_m 8, 64, 256
+    # and 512, block_n 256 at block_m 128): residue groups of 2^i - 1,
+    # 2^i and 2^i + 1 rows around the tile, an empty group, tail rows
+    "residues_bm8": (70, 256, 256, [1, 2, 3, 0, 7, 8, 9, 15, 17], 8, 128),
+    "residues_bm64": (300, 256, 256, [1, 63, 0, 64, 65, 31, 33, 2], 64, 128),
+    "residues_bm128_bn256": (400, 256, 256, [127, 129, 0, 1, 63, 65], 128,
+                             256),
+    "residues_bm256": (700, 128, 256, [255, 0, 257, 1, 129, 3], 256, 128),
+    "residues_bm512": (1100, 128, 256, [511, 2, 0, 513, 17], 512, 128),
 }
+
+
+def geometry(case):
+    """``(M, K, N, group sizes, block_m, block_n)`` of a case (block_n 128
+    where the case names none)."""
+    m, k, n, sizes, bm, *bn = CASES[case]
+    return m, k, n, sizes, bm, (bn or [128])[0]
 
 
 def operands(m, k, n, g, seed):
@@ -46,14 +73,15 @@ def max_rel(got, want):
 @pytest.mark.parametrize("out", ["bfloat16", "float32"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_gmm_bf16_matches_pallas(case, out):
-    m, k, n, sizes, bm = CASES[case]
+    m, k, n, sizes, bm, bn = geometry(case)
     (jx, jw), (tx, tw) = operands(m, k, n, len(sizes), 0)
     jgs = jnp.array(sizes, jnp.int32)
-    want = gmm_pallas_bf16(jx, jw, jgs, block_m=bm, interpret=True,
-                           out_dtype=getattr(jnp, out))
+    want = gmm_pallas_bf16(jx, jw, jgs, block_m=bm, block_n=bn,
+                           interpret=True, out_dtype=getattr(jnp, out))
     want = np.asarray(want.astype(jnp.float32))
     gs = torch.tensor(sizes, dtype=torch.int32)
-    got = tgk.gmm_bf16(tx, tw, gs, block_m=bm, out_dtype=getattr(torch, out))
+    got = tgk.gmm_bf16(tx, tw, gs, block_m=bm, block_n=bn,
+                       out_dtype=getattr(torch, out))
     assert got.dtype == getattr(torch, out) and got.shape == (m, n)
     total = sum(sizes)
     assert (got[total:] == 0).all() and np.all(want[total:] == 0)

@@ -28,8 +28,19 @@ from repro_torch.kernels import grouped_gemm_kernel as tgk
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.plan import make_tile_plan
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: its tensors are small,
+    and beside the other test workers a thread pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = {
-    # name: (M, K, N, group sizes, block_m)
+    # name: (M, K, N, group sizes, block_m[, block_n])
     "ragged_tail": (100, 256, 256, [30, 0, 50, 7], 128),
     "ragged_bm16": (70, 256, 256, [0, 16, 1, 33, 0, 20], 16),
     "all_empty": (48, 128, 256, [0, 0, 0], 16),
@@ -45,7 +56,23 @@ CASES = {
     # fewer rows than the tile: decode's shared experts
     "m_below_tile": (4, 256, 256, [4], 16),
     "empty_groups_full": (64, 128, 128, [0, 64, 0, 0], 16),
+    # every pool geometry the cases above do not take (block_m 8, 64, 256
+    # and 512, block_n 256 at block_m 128): residue groups of 2^i - 1,
+    # 2^i and 2^i + 1 rows around the tile, an empty group, tail rows
+    "residues_bm8": (70, 256, 256, [1, 2, 3, 0, 7, 8, 9, 15, 17], 8, 128),
+    "residues_bm64": (300, 256, 256, [1, 63, 0, 64, 65, 31, 33, 2], 64, 128),
+    "residues_bm128_bn256": (400, 256, 256, [127, 129, 0, 1, 63, 65], 128,
+                             256),
+    "residues_bm256": (700, 128, 256, [255, 0, 257, 1, 129, 3], 256, 128),
+    "residues_bm512": (1100, 128, 256, [511, 2, 0, 513, 17], 512, 128),
 }
+
+
+def geometry(case):
+    """``(M, K, N, group sizes, block_m, block_n)`` of a case (block_n 128
+    where the case names none)."""
+    m, k, n, sizes, bm, *bn = CASES[case]
+    return m, k, n, sizes, bm, (bn or [128])[0]
 
 
 def _np(a):
@@ -73,12 +100,12 @@ def operands(m, k, n, g, seed):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_gmm_quant_matches_pallas(case):
-    m, k, n, sizes, bm = CASES[case]
+    m, k, n, sizes, bm, bn = geometry(case)
     (ja, jsa, jb, jsb), (ta, tsa, tb, tsb) = operands(m, k, n, len(sizes), 0)
     jq, js = gmm_pallas_quant(ja, jsa, jb, jsb, jnp.array(sizes, jnp.int32),
-                              block_m=bm, interpret=True)
+                              block_m=bm, block_n=bn, interpret=True)
     gs = torch.tensor(sizes, dtype=torch.int32)
-    tq, ts = tgk.gmm_quant(ta, tsa, tb, tsb, gs, block_m=bm)
+    tq, ts = tgk.gmm_quant(ta, tsa, tb, tsb, gs, block_m=bm, block_n=bn)
     assert tq.dtype == torch.float8_e4m3fn and tq.shape == (m, n)
     assert ts.dtype == torch.float32 and ts.shape == (m, n // 128)
     total = sum(sizes)
@@ -94,7 +121,7 @@ def test_plain_gmm_quant_matches_pallas(case):
     assert np.all(np.abs(td - jd) <= tol), np.abs(td - jd).max()
     # the plain version is the quantizer applied to the plain GEMM's
     # bf16 output, bitwise
-    y = tgk.gmm(ta, tsa, tb, tsb, gs, block_m=bm)
+    y = tgk.gmm(ta, tsa, tb, tsb, gs, block_m=bm, block_n=bn)
     rq, rs = tref.quantize_tilewise_ref(y.float())
     np.testing.assert_array_equal(rq.view(torch.uint8).numpy(),
                                   tq.view(torch.uint8).numpy())

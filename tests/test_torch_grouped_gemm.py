@@ -27,6 +27,17 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.plan import KernelConfig, make_tile_plan
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this file runs: its tensors are small,
+    and beside the other test workers a thread pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close_bf16(got, want):
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
@@ -45,7 +56,7 @@ def operands(m, k, n, g, seed):
 
 
 CASES = {
-    # name: (M, K, N, group sizes, block_m)
+    # name: (M, K, N, group sizes, block_m[, block_n])
     "ragged_tail": (100, 256, 384, [30, 0, 50, 7], 128),
     "ragged_bm16": (70, 256, 256, [0, 16, 1, 33, 0, 20], 16),
     "decode_bm16": (16, 384, 256, [0, 3, 0, 0, 9, 4, 0, 0], 16),
@@ -62,18 +73,34 @@ CASES = {
     # fewer rows than the tile: decode's shared experts
     "m_below_tile": (4, 256, 256, [4], 16),
     "single_group": (40, 256, 384, [40], 128),
+    # every pool geometry the cases above do not take (block_m 8, 64, 256
+    # and 512, block_n 256 at block_m 128): residue groups of 2^i - 1,
+    # 2^i and 2^i + 1 rows around the tile, an empty group, tail rows
+    "residues_bm8": (70, 256, 256, [1, 2, 3, 0, 7, 8, 9, 15, 17], 8, 128),
+    "residues_bm64": (300, 256, 256, [1, 63, 0, 64, 65, 31, 33, 2], 64, 128),
+    "residues_bm128_bn256": (400, 256, 256, [127, 129, 0, 1, 63, 65], 128,
+                             256),
+    "residues_bm256": (700, 128, 256, [255, 0, 257, 1, 129, 3], 256, 128),
+    "residues_bm512": (1100, 128, 256, [511, 2, 0, 513, 17], 512, 128),
 }
+
+
+def geometry(case):
+    """``(M, K, N, group sizes, block_m, block_n)`` of a case (block_n 128
+    where the case names none)."""
+    m, k, n, sizes, bm, *bn = CASES[case]
+    return m, k, n, sizes, bm, (bn or [128])[0]
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_gmm_matches_pallas(case):
-    m, k, n, sizes, bm = CASES[case]
+    m, k, n, sizes, bm, bn = geometry(case)
     (ja, jsa, jb, jsb), (ta, tsa, tb, tsb) = operands(m, k, n, len(sizes), 0)
     want = gmm_pallas(ja, jsa, jb, jsb, jnp.array(sizes, jnp.int32),
-                      block_m=bm, interpret=True)
+                      block_m=bm, block_n=bn, interpret=True)
     want = np.asarray(want.astype(jnp.float32))
     gs = torch.tensor(sizes, dtype=torch.int32)
-    got = tgk.gmm(ta, tsa, tb, tsb, gs, block_m=bm)
+    got = tgk.gmm(ta, tsa, tb, tsb, gs, block_m=bm, block_n=bn)
     assert got.dtype == torch.bfloat16 and got.shape == (m, n)
     total = sum(sizes)
     assert (got[total:] == 0).all() and np.all(want[total:] == 0)
@@ -86,7 +113,7 @@ def test_plain_gmm_matches_pallas(case):
     # a given plan and an f32 out= buffer give the same result
     plan = make_tile_plan(gs, m, block_m=bm)
     out = torch.full((m, n), float("nan"))
-    got32 = tgk.gmm(ta, tsa, tb, tsb, gs, block_m=bm, plan=plan,
+    got32 = tgk.gmm(ta, tsa, tb, tsb, gs, block_m=bm, block_n=bn, plan=plan,
                     out_dtype=torch.float32, out=out)
     assert got32 is out and not torch.isnan(out).any()
     np.testing.assert_array_equal(got32.bfloat16().float().numpy(),
@@ -105,6 +132,16 @@ def test_gmm_argument_checks():
         tgk.gmm(ta, tsa, tb, tsb, gs, block_m=128, plan=plan)
     with pytest.raises(ValueError, match="CUDA"):
         tgk.gmm_cuda(ta, tsa, tb, tsb, gs)
+    # a tile outside the built pool raises with the resource model's
+    # reason before anything else, in all three entry points
+    for tile in ({"block_m": 24}, {"block_k": 256}):
+        for fn, args in ((tgk.gmm_cuda, (ta, tsa, tb, tsb, gs)),
+                         (tgk.gmm_quant_cuda, (ta, tsa, tb, tsb, gs))):
+            with pytest.raises(ValueError, match="no CUDA variant"):
+                fn(*args, **tile)
+        with pytest.raises(ValueError, match="no CUDA variant"):
+            tgk.gmm_bf16_cuda(ta.float().bfloat16(), tb.float().bfloat16(),
+                              gs, **tile)
     before = tgk.gmm_cuda.launches
     tgk.gmm(ta, tsa, tb, tsb, gs)
     assert tgk.gmm_cuda.launches == before

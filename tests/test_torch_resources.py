@@ -7,6 +7,7 @@ reference's pure functions carry over unchanged (the degeneracy rules),
 they are held against the JAX package's on the same arguments.  Nothing
 here times anything: ``_measure_candidate`` is monkeypatched wherever a
 selection would measure."""
+import dataclasses
 import json
 
 import pytest
@@ -91,9 +92,64 @@ def test_every_built_variant_fits_the_card():
         assert ctas * (v["smem"] + 1024) <= \
             res.budgets(H100)["smem_per_sm"], v
     assert seen == set(res.KERNELS)
-    # B2 / B7 and B5 at both tile heights and both output dtypes
-    assert sum(v["kernel"] == "gmm" for v in res.variants()) == 4
-    assert sum(v["kernel"] == "gmm_bf16" for v in res.variants()) == 8
+    # B2 / B7 and B5 at the pool's six tile heights and both output dtypes
+    assert sum(v["kernel"] == "gmm" for v in res.variants()) == 12
+    assert sum(v["kernel"] == "gmm_bf16" for v in res.variants()) == 24
+
+
+# the chosen design, by hand, per block_m: (B2 / B7 smem, B5 smem at a
+# bf16 / f32 output, B5 threads, B5 CTAs an SM, rows of a piece, store
+# descriptors).  block_m 8 and 16 run the decode instance (one 16-row A
+# slot a stage, 8 stages; B5 one consumer warpgroup on a 16-row stage),
+# 64 to 512 the tall one (two 64-row slots, 5 stages; B5 two warpgroups
+# on a 128-row stage); a piece holds at most 128 rows, and the store pool
+# heights 1 .. the piece's rows
+_B2_SMALL = 1024 + 8 * (2048 + 16384) + 2 * 32768 + 16 * 8
+_B2_TALL = 1024 + 5 * (2 * 8192 + 16384) + 2 * 32768 + 10 * 8
+_B5_RING_SMALL, _B5_RING_TALL = 4 * (8192 + 16384), 4 * (2 * 8192 + 16384)
+DESIGN = {
+    8: (_B2_SMALL, 1024 + _B5_RING_SMALL + 16 * 256 + 64,
+        1024 + _B5_RING_SMALL + 16 * 512 + 64, 160, 2, 8, 4),
+    16: (_B2_SMALL, 1024 + _B5_RING_SMALL + 16 * 256 + 64,
+         1024 + _B5_RING_SMALL + 16 * 512 + 64, 160, 2, 16, 5),
+    64: (_B2_TALL, 1024 + _B5_RING_TALL + 128 * 256 + 64,
+         1024 + _B5_RING_TALL + 128 * 512 + 64, 288, 1, 64, 7),
+    128: (_B2_TALL, 1024 + _B5_RING_TALL + 128 * 256 + 64,
+          1024 + _B5_RING_TALL + 128 * 512 + 64, 288, 1, 128, 8),
+    256: (_B2_TALL, 1024 + _B5_RING_TALL + 128 * 256 + 64,
+          1024 + _B5_RING_TALL + 128 * 512 + 64, 288, 1, 128, 8),
+    512: (_B2_TALL, 1024 + _B5_RING_TALL + 128 * 256 + 64,
+          1024 + _B5_RING_TALL + 128 * 512 + 64, 288, 1, 128, 8),
+}
+
+
+@pytest.mark.parametrize("block_m", sorted(DESIGN))
+def test_variants_equal_the_designs_arithmetic(block_m):
+    """``variants()``, variant for variant at one block_m: shared memory,
+    threads, CTAs an SM, rows of a piece and store descriptors as the
+    design's arithmetic gives them, each variant taking both block_n and
+    its library's query arguments."""
+    b2, b5_bf16, b5_f32, b5_threads, b5_ctas, rows, pool = DESIGN[block_m]
+    vs = [v for v in res.variants()
+          if v["kernel"].startswith("gmm") and v["args"][0] == block_m]
+    assert len(vs) == 8
+    for v in vs:
+        f32 = v["args"][1]
+        assert v["block_ns"] == (128, 256)
+        assert (v["piece_rows"], v["store_descriptors"]) == (rows, pool)
+        if v["kernel"] == "gmm_bf16":
+            assert v["library"] == "gmm_bf16"
+            assert (v["smem"], v["threads"], v["ctas_per_sm"]) == \
+                (b5_f32 if f32 else b5_bf16, b5_threads, b5_ctas)
+        else:
+            assert v["library"] == "grouped_gemm"
+            assert v["args"][2] == (v["kernel"] == "gmm_quant")
+            assert (v["smem"], v["threads"], v["ctas_per_sm"]) == \
+                (b2, 384, 1)
+    # the pool covers every residue of the tile: a count of 1 .. rows
+    # rows is a sum of distinct heights 1, 2, ..., rows
+    heights = [1 << i for i in range(pool)]
+    assert heights[-1] == rows and sum(heights) >= rows
 
 
 def test_register_fit_counts_whole_warps_in_units_of_8():
@@ -139,13 +195,25 @@ def test_alignment_issues_in_the_papers_terms():
 
 
 def test_no_cuda_variant_reasons():
-    for bm in (8, 64, 256, 512):
-        assert "no CUDA variant" in res.missing_variant("gemm", {"block_m": bm})
-    for bm in res.CUDA_BLOCK_MS:
-        assert res.missing_variant("gemm", {"block_m": bm}) is None
-        assert res.missing_variant("gemm_quant", {"block_m": bm}) is None
-    assert "tile N and K" in res.missing_variant(
-        "gemm", {"block_m": 128, "block_n": 256})
+    """Every grouped-GEMM entry of the pool is built (the 2 decode
+    entries and 4 block_m x 2 (block_n, block_k): 10); only the wgrad
+    spans keep a reason, and a geometry outside the pool gets one."""
+    gemm_entries = [c for c in plan_mod.CONFIG_POOL
+                    if (c.n_span, c.k_span) == (1, 1)]
+    spans = [c for c in plan_mod.CONFIG_POOL
+             if (c.n_span, c.k_span) != (1, 1)]
+    assert len(gemm_entries) == 10 and len(spans) == 6
+    for c in gemm_entries:
+        for family in ("gemm", "gemm_quant"):
+            assert res.missing_variant(family, c) is None
+    for c in spans:
+        assert res.missing_variant("wgrad", c).startswith(
+            "no CUDA variant: the wgrads have no multi-tile spans")
+    assert res.CUDA_BLOCK_MS == (8, 16, 64, 128, 256, 512)
+    for bad in ({"block_m": 24}, {"block_m": 1024},
+                {"block_m": 128, "block_n": 384},
+                {"block_m": 128, "block_k": 256}):
+        assert res.missing_variant("gemm", bad).startswith("no CUDA variant")
     # the wgrads read no block_m, but have no spans
     assert res.missing_variant("wgrad", {"block_m": 512}) is None
     assert "spans" in res.missing_variant(
@@ -177,7 +245,9 @@ def test_infeasible_reason_order():
                                      **{**shape, **kw})
     assert reason({"block_m": 128}) is None
     assert reason({"block_m": 128, "block_n": 96}).startswith("misaligned")
-    assert reason({"block_m": 64}).startswith("no CUDA variant")
+    assert res.infeasible_reason(
+        "wgrad", {"block_m": 128, "n_span": 2, "k_span": 2},
+        smem_bytes=budget, **shape).startswith("no CUDA variant")
     assert reason({"block_m": 128}, m=16).startswith("degenerate grid")
     over = res.infeasible_reason("gemm", {"block_m": 128}, smem_bytes=200000,
                                  **shape)
@@ -188,16 +258,26 @@ def test_infeasible_reason_order():
 # KernelConfig.validate's budget check; the wgrad spans
 # ---------------------------------------------------------------------------
 
-def test_validate_raises_with_the_computed_bytes():
-    # the B2 template at block_m 256: 8 stages of 24 KB, over 232448 B
-    with pytest.raises(ValueError, match="263296 B of shared memory"):
+def test_validate_raises_with_the_computed_bytes(monkeypatch):
+    # block_m 256 runs on B2's tall instance: 5 stages of two 8 KB A
+    # boxes and a 16 KB B tile, two 32 KB f16 tiles, 10 barriers and the
+    # 1024 B of alignment, 230480 B; on a card of 220000 B a CTA it raises
+    assert 1024 + 5 * (2 * 8192 + 16384) + 2 * 32768 + 10 * 8 == 230480
+    small = dataclasses.replace(plan_mod.device_spec("cpu"),
+                                smem_bytes=220000)
+    monkeypatch.setattr(plan_mod, "device_spec", lambda kind=None: small)
+    with pytest.raises(ValueError, match="230480 B of shared memory.*"
+                                         "over the 220000 B budget"):
         KernelConfig(block_m=256).validate(16384, 4096, 4096)
+    # the decode instance, 214144 B, fits it
+    assert KernelConfig(block_m=8).validate(16, 4096, 4096).block_m == 8
 
 
 def test_validate_passes_the_built_pool_entries():
     built = [c for c in plan_mod.CONFIG_POOL
              if res.missing_variant("gemm", c) is None]
-    assert {c.block_m for c in built} == {16, 128}
+    assert {c.block_m for c in built} == {8, 16, 64, 128, 256, 512}
+    assert {c.block_n for c in built} == {128, 256}
     for cfg in built:
         assert cfg.validate(8192, 4096, 4096) is cfg
         assert cfg.validate(8192, 4096, 4096, family="gemm_quant") is cfg
@@ -241,10 +321,18 @@ def test_autotune_prunes_each_entry_with_its_reason(cache):
     # nothing vanishes: every legal entry is ranked or pruned with a reason
     assert len(kept) + len(rep["pruned"]) == len(legal)
     reasons = {c["block_m"]: r for c, r in rep["pruned"]}
-    assert set(reasons) == {8, 64, 256, 512}
-    assert all(r.startswith("no CUDA variant") for r in reasons.values())
-    assert plan_mod.prune_stats()["gemm"] == 4
+    # every entry is built: only the tile twice M's rows is pruned
+    assert set(reasons) == {512}
+    assert reasons[512].startswith("degenerate grid")
+    assert plan_mod.prune_stats()["gemm"] == 1
     assert rep["source"] == "cost_model" and not rep["skipped"]
+    # an entry no kernel is built for is pruned with that reason
+    plan_mod.autotune(256, 128, 128, 4, device="cpu", refresh=True,
+                      pool=plan_mod.CONFIG_POOL + (KernelConfig(block_m=24),))
+    reasons = {c["block_m"]: r for c, r in
+               plan_mod.last_autotune_report()["pruned"]}
+    assert set(reasons) == {24, 512}
+    assert reasons[24].startswith("no CUDA variant")
 
 
 def test_autotune_pruned_config_never_reaches_measurement(cache, tiled,
@@ -256,9 +344,13 @@ def test_autotune_pruned_config_never_reaches_measurement(cache, tiled,
         return 1e-3 * config.block_m
     monkeypatch.setattr(plan_mod, "_measure_candidate", spy)
     cfg = plan_mod.autotune(256, 128, 128, 4, device="cpu")
-    assert sorted(measured) == [16, 128]
-    assert cfg.block_m == 16
-    assert plan_mod.last_autotune_report()["source"] == "measured"
+    rep = plan_mod.last_autotune_report()
+    ranked = [c["block_m"] for c, _, _ in rep["candidates"]]
+    # the 4 best-ranked of the 5 kept; the pruned 512 is never measured
+    assert measured == ranked[:4] and 512 not in measured
+    assert sorted(ranked) == [8, 16, 64, 128, 256]
+    assert cfg.block_m == min(measured)
+    assert rep["source"] == "measured"
 
 
 def test_autotune_measurement_failure_is_skipped_not_fatal(cache, tiled,
@@ -266,7 +358,7 @@ def test_autotune_measurement_failure_is_skipped_not_fatal(cache, tiled,
     def flaky(config, *a, **kw):
         if config.block_m == 128:
             raise RuntimeError("synthetic launch failure")
-        return 1.0
+        return 1e-3 * config.block_m
     monkeypatch.setattr(plan_mod, "_measure_candidate", flaky)
     cfg = plan_mod.autotune(256, 128, 128, 4, device="cpu")
     assert cfg.block_m == 16
@@ -284,7 +376,7 @@ def test_autotune_all_measurements_failing_falls_back_to_cost_model(
     monkeypatch.setattr(plan_mod, "_measure_candidate", always_fail)
     cfg = plan_mod.autotune(256, 128, 128, 4, device="cpu")
     rep = plan_mod.last_autotune_report()
-    assert rep["source"] == "cost_model" and len(rep["skipped"]) == 2
+    assert rep["source"] == "cost_model" and len(rep["skipped"]) == 4
     assert cfg == KernelConfig.from_dict(rep["candidates"][0][0])
 
 
@@ -299,12 +391,14 @@ def test_measurement_needs_a_card_and_a_tiled_op():
 
 
 def test_decode_on_a_tiny_batch_keeps_a_built_tile(cache):
-    """At M=4 the 16-row tile is degenerate and 8 has no CUDA variant:
-    the degenerate built tile stands rather than an unbuilt one."""
+    """At M=4 the 16-row tile is degenerate (it fetches four times the
+    rows there are) and the 8-row tile is built: decode takes 8, and the
+    16-row tile is pruned with its reason."""
     cfg = plan_mod.autotune(4, 256, 128, 8, op="decode", device="cpu")
-    assert cfg.block_m == 16
+    assert cfg.block_m == 8
     (pruned,) = plan_mod.last_autotune_report()["pruned"]
-    assert pruned[0]["block_m"] == 8
+    assert pruned[0]["block_m"] == 16
+    assert pruned[1].startswith("degenerate grid: block_m=16")
 
 
 # ---------------------------------------------------------------------------
