@@ -50,6 +50,14 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              outputs, and B2, B7 and B5 timed at every block_m at the
              prefill, decode and 16384-row shapes (B2 also at the f32
              dgrad, block_n 128 and 256); tiles outside the pool raise;
+             B4 and B6 at every wgrad geometry of the pool (block_n 256,
+             span 2, span 4: thread-block clusters) at both dw dtypes on
+             qwen2-moe's shared gate/up, a ragged routed shape (N 1536)
+             and its down, recurrentgemma-2b's MLP, a NaN tail, a
+             mid-chunk group and no rows, each bitwise its span-1 launch
+             and within the wgrad gates of the plain version, and timed
+             at the shared gate/up and the routed shape beside span 1
+             and, for B4, ``F.grouped_mm``;
              the padded baseline against the padding-free GEMM at
              deepseek-moe-16b's routed shapes (prefill at batch 4 x
              prompt 512 and 64, decode) and the paper's (M 8192 and
@@ -70,10 +78,12 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              whether bitwise equal; a measured autotune under ``build/``
              of the grouped GEMMs at the qwen2-moe and deepseek-moe-16b
              routed prefill and decode shapes and qwen2-moe's 16384
-             training rows, and of the wgrads at the training shapes,
-             every candidate the pool keeps measured beside the cost
-             model's, nothing skipped, then a cache hit that measures
-             nothing; the served MoE engines' decode tiles (block_m 8 or
+             training rows, and of the wgrads at the training shapes
+             (the routed gate/up, the shared experts' and
+             recurrentgemma-2b's gate/up), every candidate the pool keeps
+             measured beside the cost model's (a wgrad's once a distinct
+             geometry, its other block_m sharing the kernel), nothing
+             skipped, then a cache hit that measures nothing; the served MoE engines' decode tiles (block_m 8 or
              16) measured at their decode shapes into the run's cache;
              the aten ops and eager ms of one padded GEMM with the plan
              cache against a fresh plan;
@@ -108,8 +118,9 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              recipe as ``ZOO_SERVE`` says (yi-9b p512 cut to 8 layers,
              minitron-8b p64,
              qwen1.5-110b p64 cut to 4 layers, pixtral-12b 256 patches +
-             p128, recurrentgemma-2b batch 2 p2304, xlstm-350m p512,
-             whisper-tiny 1500 frames + p128; every other one whole),
+             p128, recurrentgemma-2b batch 2 p2304 cut to 6 layers (2
+             cycles), xlstm-350m p512 cut to 6 (one cycle), whisper-tiny
+             1500 frames + p128; every other one whole),
              each on a tree of its own, with a profile of a prefill and
              of a decode step; the qwen2-moe fp8 p64 generate (and its
              engine's construction) under the engine contract scaled to
@@ -144,6 +155,14 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              a profile of one step); every train step runs with
              ``remat`` (the default: each layer's forward again in the
              backward, launches included);
+  9a. train_rg_geometries  recurrentgemma-2b, one block_pattern cycle
+             at full width, fp8, remat, 2 steps of batch 8 x seq 512
+             through ``train`` under each wgrad geometry (span 1, the
+             witness; block_n 256; span 2 at block_m 256; span 4) at the
+             bf16 and the fp8 wgrad: every step's gradients and params
+             bitwise the witness's, the witness's first step against the
+             plain versions, launch counts exact; then one more step,
+             unrecorded: its ms, the wgrad share and the peak memory;
   9b. remat  ``fp8`` and ``ds_fp8`` cut to 4 layers, batch 8, seq 512:
              one step's forward and backward with remat on and off,
              CUDA-event ms and peak memory each way, gradients bitwise,
@@ -156,8 +175,9 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              params'; the bytes written and the save and restore seconds;
   11. distributed  expert and data parallelism on 4 ranks that share the
              card over gloo (NCCL takes one rank a device): B2 at the EP 4
-             shapes beside the whole layer's (one process); the whole
-             28-layer deepseek-moe-16b served under EP 4 on a (1, 4)
+             shapes beside the whole layer's (one process);
+             deepseek-moe-16b cut to 8 layers (its dense layer and 7 MoE
+             layers) served under EP 4 on a (1, 4)
              mesh, batch 4, prompt 64, 4 tokens, its prefill logits and
              each token (teacher-forced) held against one process's at
              15% of the largest logit, tokens equal on every rank, the
@@ -189,7 +209,10 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              from; launch counts exact (B8 alone), peak memory, CUDA-
              event ms (of ranks sharing one card), collectives, and one
              more step split into forward, backward and AdamW.
-  13. dryrun  in a process of its own, off the card (host time only):
+  13. dryrun  in a process of its own, off the card (host time only),
+             started before phase 10: it traces while the phases from
+             10 on run, then waits for the remat and fsdp_seq_parallel
+             runs' measurements;
              ``launch/dryrun.py``'s ``lower_cell`` on fake tensors and a
              fake process group predicts (a) the ``remat`` phase's fp8
              run on a 1 x 1 mesh, remat on and off: its param and
@@ -202,7 +225,7 @@ in decode, never in a windowed layer.  Phases, each printing JSON lines:
              equals the card's ``total_memory``;
   14. examples  ``examples/quickstart_torch.py`` (loss falls) and
              ``examples/serve_decode_torch.py`` (batch x max-new tokens)
-             at smoke size on the card, while the dry run traces; no
+             at smoke size on the card, while the dry run compares; no
              phase of the card's process took a shape-only kernel.
 Each phase's seconds are printed.  Then the ``{"kernels": [...]}`` line,
 the card's ``nvidia-smi`` name and power limit, and last ``{"ok": true,
@@ -431,8 +454,11 @@ def counters() -> dict:
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import wgrad_kernel
     for fn, attr in counters().values():
         setattr(fn, attr, 0)
+    for fn in (wgrad_kernel.gmm_wgrad_cuda, wgrad_kernel.gmm_wgrad_fp8_cuda):
+        fn.launches_by_geometry.clear()
 
 
 def read_counts() -> dict:
@@ -657,27 +683,48 @@ def wgrad_case(gen, m, k, n, sizes, fp8, *, nan_tail=False):
     return (*args, gs), plan
 
 
-def compare_wgrad(name, fp8, args, plan, out_dtype=None):
+def wgrad_geometries() -> dict:
+    """The wgrads' geometries of the tuning pool
+    (``resources.WGRAD_GEOMETRIES``): name -> (block_n, n_span, k_span);
+    "span1" is the single-tile kernel every other one must equal bit for
+    bit, "bn256" span 1 at block_n 256, "span2" and "span4" the spans."""
+    from repro_torch.kernels.resources import WGRAD_GEOMETRIES
+    return {("span1" if g == (128, 1, 1) else f"bn{g[0]}" if g[1] == 1
+             else f"span{g[1]}"): g for g in WGRAD_GEOMETRIES}
+
+
+def compare_wgrad(name, fp8, args, plan, out_dtype=None, geometry="span1",
+                  want=None, span1=None):
     """Kernel against plain version: within 1e-4 of the largest |dw| plus
     1e-6 (both sum exact products in f32, in another order; the fp8
     kernel's scaled dy enters as a bf16 hi + lo pair, ~2^-16 relative);
     a bf16 dw (the kernel's f32 sum rounded once) against the plain f32 dw
     within that plus half a bf16 step (2^-8 of the value); two launches
-    bitwise equal; empty groups exactly zero; no NaN."""
+    bitwise equal; empty groups exactly zero; no NaN.  At a ``geometry``
+    of wgrad_geometries(); ``want``: the plain dw, computed here when
+    absent; ``span1``: the span-1 launch's dw on the same operands, which
+    this one must equal bit for bit.  Returns the row and the dw."""
     import torch
     from repro_torch.kernels import wgrad_kernel as wk
     cuda = wk.gmm_wgrad_fp8_cuda if fp8 else wk.gmm_wgrad_cuda
     plain = wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain
     out_dtype = out_dtype or torch.float32
-    dw = cuda(*args, plan=plan, out_dtype=out_dtype)
-    dw2 = cuda(*args, plan=plan, out_dtype=out_dtype)
-    want = plain(*args, plan=plan)
+    bn, ns, ks = wgrad_geometries()[geometry]
+    geo = dict(block_n=bn, n_span=ns, k_span=ks)
+    dw = cuda(*args, plan=plan, out_dtype=out_dtype, **geo)
+    dw2 = cuda(*args, plan=plan, out_dtype=out_dtype, **geo)
+    if want is None:
+        want = plain(*args, plan=plan)
     torch.cuda.synchronize()
-    label = f"{'wgrad_fp8' if fp8 else 'wgrad'} {name} {str(out_dtype)[6:]}"
+    label = (f"{'wgrad_fp8' if fp8 else 'wgrad'} {name} {geometry} "
+             f"{str(out_dtype)[6:]}")
     if dw.dtype != out_dtype:
         raise AssertionError(f"{label}: dw is {dw.dtype}")
     if not torch.equal(dw, dw2):
         raise AssertionError(f"{label}: two launches differ")
+    if span1 is not None and not torch.equal(dw, span1):
+        raise AssertionError(f"{label}: not bitwise the span-1 launch "
+                             f"({int((dw != span1).sum())} elements differ)")
     if not torch.isfinite(dw).all():
         raise AssertionError(f"{label}: non-finite values in dw")
     empty = (args[-1] == 0).nonzero().flatten()
@@ -693,12 +740,14 @@ def compare_wgrad(name, fp8, args, plan, out_dtype=None):
         raise AssertionError(f"{label}: {bad} elements beyond tolerance "
                              f"(max err {float(err.max())})")
     x, dy = args[0], args[2] if fp8 else args[1]
-    return {"case": name, "out_dtype": str(out_dtype)[6:],
+    return {"case": name, "geometry": geometry,
+            "out_dtype": str(out_dtype)[6:],
             "shape": [x.shape[0], x.shape[1], dy.shape[1]],
             "groups": int(args[-1].numel()), "empty_groups": int(empty.numel()),
             "total_rows": int(args[-1].sum()),
             "max_abs_err": float(err.max()), "rel_to_max":
-            float(err.max()) / scale if scale else 0.0, "bitwise_repeat": True}
+            float(err.max()) / scale if scale else 0.0, "bitwise_repeat": True,
+            "bitwise_vs_span1": span1 is not None or geometry == "span1"}, dw
 
 
 def check_wgrad(gen, cpu_gen, routed):
@@ -727,7 +776,8 @@ def check_wgrad(gen, cpu_gen, routed):
         for name, (m, k, n, sizes, kw) in cases.items():
             args, plan = wgrad_case(gen, m, k, n, sizes, fp8, **kw)
             for dt in (torch.bfloat16, torch.float32):
-                rows[key].append(compare_wgrad(name, fp8, args, plan, dt))
+                rows[key].append(compare_wgrad(name, fp8, args, plan,
+                                               dt)[0])
             if name == "routed_gate_up":
                 keep[key] = (args, plan)
             del args
@@ -735,14 +785,18 @@ def check_wgrad(gen, cpu_gen, routed):
     return rows, keep
 
 
-def check_wgrad_nan_owned(gen, fp8):
+def check_wgrad_nan_owned(gen, fp8, geometry="span1"):
     """A NaN in an owned row of x reaches dw where the plain version puts
     it (x[m, k] times every dy[m, n]: the whole row k of the group's dw),
-    at both output dtypes; the rest within compare_wgrad's tolerance."""
+    at both output dtypes; the rest within compare_wgrad's tolerance.  At
+    a ``geometry`` of wgrad_geometries() (K = N = 512 but at span 1)."""
     import torch
     from repro_torch.kernels import wgrad_kernel as wk
     sizes = torch.tensor([1, 37, 0, 200, 5, 57], dtype=torch.int32)
-    args, plan = wgrad_case(gen, 300, 256, 384, sizes, fp8)
+    kn = (256, 384) if geometry == "span1" else (512, 512)
+    bn, ns, ks = wgrad_geometries()[geometry]
+    geo = dict(block_n=bn, n_span=ns, k_span=ks)
+    args, plan = wgrad_case(gen, 300, *kn, sizes, fp8)
     x = args[0]
     if fp8:
         x.view(torch.uint8)[50, 130] = 0x7F            # e4m3 NaN, group 3
@@ -751,10 +805,10 @@ def check_wgrad_nan_owned(gen, fp8):
     cuda = wk.gmm_wgrad_fp8_cuda if fp8 else wk.gmm_wgrad_cuda
     plain = wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain
     want = plain(*args, plan=plan)
-    label = f"{'wgrad_fp8' if fp8 else 'wgrad'} nan_owned"
+    label = f"{'wgrad_fp8' if fp8 else 'wgrad'} nan_owned {geometry}"
     worst = 0.0
     for dt in (torch.bfloat16, torch.float32):
-        dw = cuda(*args, plan=plan, out_dtype=dt).float()
+        dw = cuda(*args, plan=plan, out_dtype=dt, **geo).float()
         torch.cuda.synchronize()
         nan = torch.isnan(dw)
         if not torch.equal(nan, torch.isnan(want)) or not nan.any():
@@ -770,9 +824,74 @@ def check_wgrad_nan_owned(gen, fp8):
                                  f"beyond tolerance (max err "
                                  f"{float(err.max())})")
         worst = max(worst, float(err.max()))
-    return {"case": "nan_owned", "shape": [300, 256, 384],
-            "groups": int(sizes.numel()), "nan_elements":
-            int(torch.isnan(want).sum()), "max_abs_err": worst}
+    return {"case": "nan_owned", "geometry": geometry,
+            "shape": [300, *kn], "groups": int(sizes.numel()),
+            "nan_elements": int(torch.isnan(want).sum()),
+            "max_abs_err": worst}
+
+
+def wgrad_span_cases(cpu_gen) -> dict:
+    """The cases every wgrad geometry is held to: name -> (M, K, N, group
+    sizes, wgrad_case kwargs).  qwen2-moe's shared experts' gate/up (G =
+    1); a ragged routed shape whose N, 1536, every geometry divides
+    (16384 rows over 60 groups, 8 of them empty) and its down;
+    recurrentgemma-2b's MLP at 4096 tokens; a NaN tail; a group starting
+    mid-chunk; no rows at all."""
+    import torch
+    one = torch.tensor([4096], dtype=torch.int32)
+    routed = ragged_sizes(cpu_gen, 16384, 60, 16384, empty=8)
+    return {
+        "shared_gate_up": (4096, 2048, 5632, one, {}),
+        "routed_1536": (16384, 2048, 1536, routed, {}),
+        "routed_1536_down": (16384, 1536, 2048, routed, {}),
+        "rg_gate_up": (4096, 2560, 7680, one, {}),
+        "rg_down": (4096, 7680, 2560, one, {}),
+        "nan_tail": (4096, 2048, 1536,
+                     ragged_sizes(cpu_gen, 4096, 60, 3900, empty=8),
+                     {"nan_tail": True}),
+        "mid_chunk": (300, 512, 512,
+                      torch.tensor([1, 37, 0, 200, 5, 57], dtype=torch.int32),
+                      {}),
+        "all_empty": (1024, 512, 512, torch.zeros(8, dtype=torch.int32), {}),
+    }
+
+
+def check_wgrad_spans(gen, cpu_gen) -> dict:
+    """B4 and B6 at every wgrad geometry of the pool (block_n 256, span 2,
+    span 4), each output dtype, on wgrad_span_cases: each launch bitwise
+    the span-1 launch on the same operands and within compare_wgrad's
+    gates of the plain version (two launches bitwise, empty groups zero,
+    no NaN), and the NaN of an owned row where the plain version puts it.
+    Returns the rows by kernel."""
+    import torch
+    from repro_torch.kernels import wgrad_kernel as wk
+    rows = {"wgrad": [], "wgrad_fp8": []}
+    for fp8, key in ((False, "wgrad"), (True, "wgrad_fp8")):
+        plain = wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain
+        for name, (m, k, n, sizes, kw) in wgrad_span_cases(cpu_gen).items():
+            args, plan = wgrad_case(gen, m, k, n, sizes, fp8, **kw)
+            want = plain(*args, plan=plan)
+            for dt in (torch.bfloat16, torch.float32):
+                row, span1 = compare_wgrad(name, fp8, args, plan, dt,
+                                           want=want)
+                rows[key].append(row)
+                for geometry in wgrad_geometries():
+                    if geometry != "span1":
+                        rows[key].append(compare_wgrad(
+                            name, fp8, args, plan, dt, geometry, want,
+                            span1)[0])
+                del span1
+            del args, want
+        for geometry in wgrad_geometries():
+            if geometry != "span1":
+                rows[key].append(check_wgrad_nan_owned(gen, fp8, geometry))
+    emit({"phase": "kernel_wgrad_geometries",
+          "geometries": wgrad_geometries(),
+          "checked": {k: len(v) for k, v in rows.items()},
+          "bitwise_vs_span1": sum(r.get("bitwise_vs_span1", False)
+                                  and r["geometry"] != "span1"
+                                  for v in rows.values() for r in v)})
+    return rows
 
 
 def dequant(q, s):
@@ -1421,6 +1540,81 @@ def time_act_quantize(gen, m, k, fp8, copies=None) -> dict:
         bytes=nbytes, flops=0)
 
 
+# the wgrads' times at every geometry: (kernel, geometry, shape) -> row
+WGRAD_GEOMETRY_TIMES = {}
+# the shapes every geometry is timed at: name -> (M, K, N, groups, empty)
+WGRAD_GEOMETRY_TIMED = {"shared_gate_up": (4096, 2048, 5632, 1, 0),
+                        "routed_1536": (16384, 2048, 1536, 60, 8)}
+
+
+def time_wgrad_geometries(gen, cpu_gen, worst) -> None:
+    """B4 and B6 at every geometry of wgrad_geometries(), bf16 and f32 dw,
+    at WGRAD_GEOMETRY_TIMED's shapes, timed as the table's wgrad rows are
+    (graph replays; each call writes a dw of 23-755 MB), the operands
+    cycling through copies that overflow the L2 with the dw, with
+    the plain version's eager time, the bound and, for B4,
+    ``F.grouped_mm(x.T, dy, offs=...)`` on the same operands; into
+    WGRAD_GEOMETRY_TIMES, a line each."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import wgrad_kernel as wk
+    for shape, (m, k, n, g, empty) in WGRAD_GEOMETRY_TIMED.items():
+        sizes = (torch.tensor([m], dtype=torch.int32) if g == 1 else
+                 ragged_sizes(cpu_gen, m, g, m, empty=empty))
+        total = int(sizes.sum())
+        for fp8, kernel in ((False, "wgrad"), (True, "wgrad_fp8")):
+            in_bytes = total * (k + n) * (1 if fp8 else 2) + \
+                (4 * total * (k + n) // 128 if fp8 else 0)
+            copies = rotation(lambda: wgrad_case(gen, m, k, n, sizes, fp8),
+                              in_bytes + 2 * g * k * n)
+            args, plan = copies[0]
+            cuda = counters()[kernel][0]
+            plain = wk.gmm_wgrad_fp8_plain if fp8 else wk.gmm_wgrad_plain
+            for dt in (torch.bfloat16, torch.float32):
+                plain_ms = cuda_ms(lambda i: plain(*args, plan=plan,
+                                                   out_dtype=dt),
+                                   iters=2, warmup=1)
+                lib = (None, "no PyTorch call takes scales that vary along "
+                       "the contracted axis")
+                if not fp8:
+                    x, dy, gs = args
+                    ends = torch.cumsum(gs, 0).to(torch.int32)
+                    want = plain(*args, plan=plan)
+                    if dt == torch.bfloat16:
+                        lib = library_call(
+                            lambda i: F.grouped_mm(x.T, dy, offs=ends), want,
+                            lambda w: w.abs() * 2.0 ** -8
+                            + 1e-4 * w.abs().max() + 1e-6)
+                    else:
+                        lib = library_call(
+                            lambda i: F.grouped_mm(x.T, dy, offs=ends,
+                                                   out_dtype=torch.float32),
+                            want, lambda w: 1e-4 * w.abs().max() + 1e-6)
+                    del want
+                for geometry, (bn, ns, ks) in wgrad_geometries().items():
+                    def call(i, bn=bn, ns=ns, ks=ks, dt=dt):
+                        a, p = copies[i % len(copies)]
+                        return cuda(*a, plan=p, out_dtype=dt, block_n=bn,
+                                    n_span=ns, k_span=ks)
+                    row = dict(
+                        kernel=kernel, geometry=geometry, case=shape,
+                        shape=[m, k, n], groups=g, total_rows=total,
+                        out_dtype=str(dt)[6:], input_copies=len(copies),
+                        ms=graph_ms(call, iters=2 * len(copies), replays=3),
+                        eager_ms=cuda_ms(call, iters=4), plain_ms=plain_ms,
+                        bytes=in_bytes + dt.itemsize * g * k * n,
+                        flops=2 * total * k * n,
+                        peak_flop_per_s=FP8_FLOP_PER_S if fp8
+                        else BF16_FLOP_PER_S,
+                        max_abs_err=worst[kernel])
+                    add_bound(row)
+                    row["library_ms"], row["library_note"] = lib
+                    WGRAD_GEOMETRY_TIMES[(kernel, geometry, shape,
+                                          row["out_dtype"])] = row
+                    emit({"phase": "kernel_time_wgrad_geometry", **row})
+            del args, copies
+
+
 def launch_floor_ms() -> float:
     """Device time of a one-element ``zero_()``, CUDA-graph replayed as the
     kernels are timed: a kernel with next to no work, the floor under a
@@ -1671,6 +1865,8 @@ def phase_kernels(full: bool):
     results["gmm"] = gemm
     wrows, wsetups = check_wgrad(gen, cpu_gen, routed)
     results.update(wrows)
+    for key, rows in check_wgrad_spans(gen, cpu_gen).items():
+        results[key] += rows
 
     # B3's fp8-input mode: the fused-producer path's routed g/u at prefill
     # and in training, the shared experts' in training
@@ -1891,6 +2087,7 @@ def phase_kernels(full: bool):
                 2 * timing[key]["flops"] / BF16_FLOP_PER_S * 1e3
         del wargs
     wsetups.clear()
+    time_wgrad_geometries(gen, cpu_gen, worst)
     timing["flash_attention"], library["flash_attention"] = time_flash(
         gen, worst["flash_attention"])
     for name, t in timing.items():
@@ -1908,7 +2105,9 @@ def phase_kernels(full: bool):
 # the measured selections: op -> (label, M, K, N, G); the grouped GEMMs at
 # the qwen2-moe-a2.7b (60 experts) and deepseek-moe-16b (64) routed
 # shapes of a p64 prefill (batch 4) and a decode step, the wgrads at the
-# training paths' (batch 8 x seq 512)
+# training paths' (batch 8 x seq 512): the routed gate/up (N 1408: span 1
+# at block_n 128 only), and where every wgrad geometry is legal,
+# qwen2-moe's shared experts' and recurrentgemma-2b's MLP gate/up (G = 1)
 AUTOTUNE_SHAPES = {
     "gemm": (("qwen2-moe prefill", 1024, 2048, 1408, 60),
              ("deepseek p64 prefill", 1536, 2048, 1408, 64),
@@ -1922,9 +2121,13 @@ AUTOTUNE_SHAPES = {
     "decode": (("qwen2-moe decode", 16, 2048, 1408, 60),
                ("deepseek decode", 24, 2048, 1408, 64)),
     "wgrad": (("qwen2-moe train", 16384, 2048, 1408, 60),
-              ("deepseek train", 24576, 2048, 1408, 64)),
+              ("deepseek train", 24576, 2048, 1408, 64),
+              ("qwen2-moe shared train", 4096, 2048, 5632, 1),
+              ("recurrentgemma gate/up train", 4096, 2560, 7680, 1)),
     "wgrad_fp8": (("qwen2-moe train", 16384, 2048, 1408, 60),
-                  ("deepseek train", 24576, 2048, 1408, 64)),
+                  ("deepseek train", 24576, 2048, 1408, 64),
+                  ("qwen2-moe shared train", 4096, 2048, 5632, 1),
+                  ("recurrentgemma gate/up train", 4096, 2560, 7680, 1)),
 }
 # B2, B5 and B7 at every pool geometry against block_m 128 (block_n 128):
 # name -> (M, K, N, G); the qwen2-moe routed prefill's gate (N 1408: no
@@ -1939,8 +2142,10 @@ ACROSS_BLOCK_M = {"qwen2-moe prefill": (1024, 2048, 1408, 60),
 def check_resources() -> list:
     """(a) Every built variant's shared memory in the static model equals
     what its launch asks (each library's ``kernel_resources`` query),
-    the launch may ask it, the threads agree, and the registers ptxas
-    gave fit one SM at the CTAs an SM the kernel is meant to hold."""
+    the launch may ask it, the threads agree, the registers ptxas gave
+    fit one SM at the CTAs an SM the kernel is meant to hold, and its
+    thread-block cluster (the wgrads' geometries) has the model's CTAs
+    and fits the card at least once."""
     from repro_torch.kernels import build
     from repro_torch.kernels import resources as res
     rows = []
@@ -1948,15 +2153,18 @@ def check_resources() -> list:
         q = build.resources(v["library"], *v["args"])
         ctas = v["ctas_per_sm"] or 1
         fit = res.fits_sm(q["registers"], q["threads"], ctas, q["smem"])
+        cluster = v.get("cluster_ctas", 1)
         row = {"phase": "autotune_resources", "kernel": v["kernel"],
                "variant": v["variant"], "model_smem": v["smem"],
                "card": q, "model_threads": v["threads"],
-               "model_ctas_per_sm": v["ctas_per_sm"], "fit": fit}
+               "model_ctas_per_sm": v["ctas_per_sm"],
+               "model_cluster_ctas": cluster, "fit": fit}
         emit(row)
         rows.append(row)
         if (q["smem"] != v["smem"] or q["max_dynamic_smem"] < q["smem"]
                 or q["threads"] != v["threads"] or not fit["fits"]
-                or q["ctas_per_sm"] < ctas):
+                or q["ctas_per_sm"] < ctas or q["cluster_ctas"] != cluster
+                or q["max_active_clusters"] < 1):
             raise AssertionError(f"resources {v['kernel']} {v['variant']}: "
                                  f"model {v} against the card's {q}, {fit}")
     return rows
@@ -2062,10 +2270,11 @@ def counting_measurements():
 def check_autotune() -> list:
     """(c) A measured selection under ``build/`` for every op and shape of
     AUTOTUNE_SHAPES, from an empty cache: every candidate the pool keeps
-    measured, its ms beside the cost model's prediction; a tiled op's
-    winner measured with nothing skipped, a tile-free op's (the wgrads)
-    ranked by the cost model with nothing measured; then the same call
-    again, a cache hit that measures nothing."""
+    measured, its ms beside the cost model's prediction, the winner
+    measured with nothing skipped; a wgrad's candidates measured once a
+    distinct (block_n, n_span, k_span), the others sharing that kernel's
+    measurement; then the same call again, a cache hit that measures
+    nothing."""
     from repro_torch.kernels import plan as plan_mod
     path = os.path.join(HERE, "build", "chip_smoke_autotune.json")
     if os.path.exists(path):
@@ -2084,17 +2293,23 @@ def check_autotune() -> list:
                 again = plan_mod.autotune(m, k, n, g, op=op, cache_path=path,
                                           device="cuda", max_candidates=every)
                 hit = plan_mod.last_autotune_report()
-            tile_free = op in plan_mod.TILE_FREE_OPS
+            kernels = {(c["block_n"], c["n_span"], c["k_span"])
+                       if op.startswith("wgrad") else tuple(c.values())
+                       for c, _, _ in rep["candidates"]}
             row = {"phase": "autotune", "op": op, "shape": label,
                    "mkng": [m, k, n, g], "key": rep["key"],
                    "selected": cfg.to_dict(), "source": rep["source"],
-                   "tile_free": tile_free,
                    "candidates": [{"block_m": c["block_m"],
                                    "block_n": c["block_n"],
+                                   "n_span": c["n_span"],
+                                   "k_span": c["k_span"],
                                    "predicted_ms": p * 1e3,
                                    "measured_ms": None if s is None
                                    else s * 1e3}
                                   for c, p, s in rep["candidates"]],
+                   "shared": [[c["block_m"], first["block_m"],
+                               [c["block_n"], c["n_span"], c["k_span"]]]
+                              for c, first in rep["shared"]],
                    "pruned": [{"block_m": c["block_m"],
                                "block_n": c["block_n"],
                                "n_span": c["n_span"], "reason": r}
@@ -2105,11 +2320,14 @@ def check_autotune() -> list:
                    "seconds": tune_s}
             emit(row)
             rows.append(row)
-            want = "cost_model" if tile_free else "measured"
             kept = len(rep["candidates"])
-            if (rep["skipped"] or rep["source"] != want
-                    or n_first != (0 if tile_free else kept) or again != cfg
-                    or not hit["cache_hit"] or len(calls) != n_first):
+            if (rep["skipped"] or rep["source"] != "measured"
+                    or n_first != len(kernels)
+                    or n_first + len(rep["shared"]) != kept
+                    or any(c["measured_ms"] is None
+                           for c in row["candidates"])
+                    or again != cfg or not hit["cache_hit"]
+                    or len(calls) != n_first):
                 raise AssertionError(f"autotune {op} {label}: {row}")
     return rows
 
@@ -2906,11 +3124,14 @@ ZOO_FORWARD = {"rg_fp8": (3, 2304), "xlstm_bf16": (6, 512),
                "minitron_fp8": (2, 64), "qwen110_fp8": (2, 64)}
 # serve phase: batch, prompt (tokens; pixtral adds 256 patches), depth
 # (None: every layer; qwen1.5-110b's 80 layers are ~222 GB in bf16, cut
-# to 4; yi-9b cut to 8 of 48 to keep the script within its time: the
-# tensor_parallel phase serves it whole, in one process and under TP 4)
+# to 4).  For the script's time (a decode step here is host-bound, so
+# its seconds follow the depth), yi-9b is cut to 8 of 48 layers,
+# recurrentgemma-2b to 2 of its cycles (6 of 26) and xlstm-350m to one
+# (6 of 24): the tensor_parallel and tp_recurrent phases serve each
+# whole, in one process and under TP 4
 ZOO_SERVE = {"yi_fp8_flash": (4, 512, 8), "minitron_fp8": (4, 64, None),
              "qwen110_fp8": (4, 64, 4), "pixtral_fp8_flash": (4, 128, None),
-             "rg_fp8": (2, 2304, None), "xlstm_bf16": (4, 512, None),
+             "rg_fp8": (2, 2304, 6), "xlstm_bf16": (4, 512, 6),
              "whisper_fp8_flash": (4, 128, None)}
 # launches of one fp8 MLP per forward: SwiGLU quantizes x for the gate and
 # the up GEMM, then the fused activation quantizer feeds the down GEMM;
@@ -3419,7 +3640,254 @@ def split_step(cfg, run, batch):
     return split
 
 
+# recurrentgemma-2b trained on the card under every wgrad geometry: one
+# block_pattern cycle at full width (d 2560, d_ff 7680, vocab 256000),
+# fp8, remat, 2 steps of batch 8 x seq 512 under each kernel config (the
+# model's own ``kernel_config``) at each wgrad precision; "span1" (block_m
+# 128, block_n 128) is the witness whose gradients and params every other
+# geometry's must equal bit for bit at each step
+RG_GEOMETRY_TRAIN = {"arch": "recurrentgemma-2b", "batch": 8, "seq": 512,
+                     "steps": 2}
+# the block_m of a geometry's kernel config (the forward and dgrad GEMMs
+# read it, the wgrads do not): span 2 at 256, the others at 128
+RG_BLOCK_M = {"span2": 256}
+
+
+def rg_geometry_configs() -> dict:
+    """name -> the KernelConfig fields of each wgrad geometry's run."""
+    return {name: {"block_m": RG_BLOCK_M.get(name, 128), "block_n": bn,
+                   "n_span": ns, "k_span": ks}
+            for name, (bn, ns, ks) in wgrad_geometries().items()}
+# launches a layer of one step: one SwiGLU MLP (G = 1), its forward twice
+# (remat), then its backward (PERF.md's FSDP + SP row of this model)
+RG_TRAIN_PER_LAYER = {"quantize_tilewise": 7, "act_quantize": 2, "gmm": 9,
+                      "wgrad": 3}
+
+
+@contextlib.contextmanager
+def recorded_steps(on_grads, on_params):
+    """Run every step of ``launch.train.train`` as its own parts, in its
+    order (``grad_fn``, then ``update``), calling ``on_grads(i, grads)``
+    between them and ``on_params(i, params)`` after (AdamW updates the
+    params in place: copy what must outlive the step)."""
+    from repro_torch.launch import train as launch
+    real = launch.make_train_step
+
+    def make(*args, **kw):
+        step, calls = real(*args, **kw), []
+
+        def recorded(params, opt_state, batch):
+            i = len(calls)
+            calls.append(1)
+            (loss, metrics), grads = step.grad_fn(params, batch)
+            on_grads(i, grads)
+            params, opt_state, opt_metrics = step.update(params, grads,
+                                                         opt_state)
+            on_params(i, params)
+            return params, opt_state, {**metrics, **opt_metrics,
+                                       "loss": loss}
+        return recorded
+    launch.make_train_step = make
+    try:
+        yield
+    finally:
+        launch.make_train_step = real
+
+
+@contextlib.contextmanager
+def wgrad_events(times):
+    """Append to ``times`` a pair of CUDA events around every wgrad call
+    (B4 or B6, through the kernel modules' public functions) on the
+    stream: the device time between them is the call's."""
+    import torch
+    from repro_torch.kernels import wgrad_kernel as wk
+    saved = (wk.gmm_wgrad, wk.gmm_wgrad_fp8)
+
+    def timed_call(fn):
+        def call(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            times.append(ev)
+            return out
+        return call
+    wk.gmm_wgrad, wk.gmm_wgrad_fp8 = (timed_call(f) for f in saved)
+    try:
+        yield
+    finally:
+        wk.gmm_wgrad, wk.gmm_wgrad_fp8 = saved
+
+
+def rg_witness_vs_plain(cfg, witness_grads, hist, batch) -> dict:
+    """The witness's first step (its loss, grad norm and gradients, at the
+    seeded init) against the plain versions' at the same params and
+    batch, within the train-parity phase's bounds: loss 1e-2, grad norm
+    2e-2 relative, each MLP weight's gradient 5e-2 of its largest."""
+    import torch
+    from repro_torch.models.model_zoo import make_model
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.trainer import value_and_grad
+    from repro_torch.tree import tree_paths
+    model = make_model(cfg, "cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    with plain_kernels():
+        (loss, _), grads = value_and_grad(model.loss, params, batch)
+    norm = float(global_norm(grads))
+    mlp = {}
+    for (path, g), w in zip(tree_paths(grads), witness_grads):
+        if "/mlp/" in path:
+            g = g.float()
+            mlp[path] = float((w.float() - g).abs().max() / g.abs().max())
+    del params, grads
+    rec = {"loss_kernels": hist[0]["loss"], "loss_plain": float(loss),
+           "loss_abs_err": abs(hist[0]["loss"] - float(loss)),
+           "grad_norm_kernels": hist[0]["grad_norm"], "grad_norm_plain": norm,
+           "grad_norm_rel_err": abs(hist[0]["grad_norm"] - norm) / norm,
+           "mlp_grad_rel_to_max": mlp, "bounds": [1e-2, 2e-2, 5e-2]}
+    if not (rec["loss_abs_err"] <= 1e-2 and rec["grad_norm_rel_err"] <= 2e-2
+            and max(mlp.values()) <= 5e-2):
+        raise AssertionError(f"recurrentgemma witness vs plain: {rec}")
+    return rec
+
+
+def phase_rg_geometries() -> dict:
+    """recurrentgemma-2b (RG_GEOMETRY_TRAIN) trained through
+    ``launch.train.train`` under each geometry's kernel config
+    (:func:`rg_geometry_configs`), at the bf16 and the fp8 wgrad: every
+    step's gradients (before AdamW) and updated params bitwise the span-1
+    witness's, the witness's first step within the train-parity bounds
+    of the plain versions, launch counts exact (RG_TRAIN_PER_LAYER; B6 in B4's place under the
+    fp8 wgrad), and every wgrad launch at the run's own geometry (the
+    wrappers' ``launches_by_geometry``).  Then one more step with nothing
+    recorded: its ms (CUDA events), the wgrad calls' share of it (CUDA
+    events around each call) and its peak memory, beside the bytes of the
+    witness's copies that peak includes (they stay on the card for the
+    comparisons: host copies cost the phase more time than it has), a
+    line each.  Returns the witness runs' launch counts by path name; the
+    others' go to RG_GEOMETRY_RUNS."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import wgrad_kernel as wk
+    from repro_torch.kernels.plan import KernelConfig
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_leaves
+    t = RG_GEOMETRY_TRAIN
+    base = get_config(t["arch"])
+    base = dataclasses.replace(base, precision="fp8",
+                               num_layers=len(base.block_pattern))
+    paths = {}
+    for prec in ("bf16", "fp8"):
+        name = "wgrad_fp8" if prec == "fp8" else "wgrad"
+        wrapper = wk.gmm_wgrad_fp8_cuda if prec == "fp8" else \
+            wk.gmm_wgrad_cuda
+        witness = {}
+        for geometry, fields in rg_geometry_configs().items():
+            cfg = dataclasses.replace(base, kernel_config=KernelConfig(
+                **fields, wgrad_precision=prec))
+            first = geometry == "span1"
+            differ = {"grads": [], "params": []}
+            record, times = [True], []
+
+            def keep(i, kind, tree, first=first, differ=differ,
+                     record=record):
+                if not record[0]:
+                    return
+                leaves = tree_leaves(tree)
+                if first:
+                    witness[(i, kind)] = [x.clone() for x in leaves]
+                else:
+                    differ[kind].append(sum(
+                        not torch.equal(a, b)
+                        for a, b in zip(leaves, witness[(i, kind)])))
+            free_memory()
+            reset_counts()
+            with recorded_steps(lambda i, g: keep(i, "grads", g),
+                                lambda i, p: keep(i, "params", p)), \
+                    wgrad_events(times):
+                run = train(cfg, steps=t["steps"], batch=t["batch"],
+                            seq=t["seq"], lr=1e-3, warmup_steps=3, seed=0,
+                            device="cuda", log=lambda line: None)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                by_geometry = dict(wrapper.launches_by_geometry)
+                record[0] = False
+                times.clear()
+                nxt = run.data.batch_at(t["steps"])
+                free_memory()
+                torch.cuda.reset_peak_memory_stats()
+                # its outputs dropped: they would keep this run's params
+                # and AdamW state alive into the next run
+                step_ms = event_ms(lambda: run.step_fn(
+                    run.params, run.opt_state, nxt))[1]
+                kept = sum(x.numel() * x.element_size()
+                           for leaves in witness.values() for x in leaves)
+                peak = torch.cuda.max_memory_allocated()
+                wgrad_ms = sum(a.elapsed_time(b) for a, b in times)
+            hist = run.history
+            batch0 = run.data.batch_at(0)
+            del run, nxt
+            expect = expected(RG_TRAIN_PER_LAYER,
+                              kernel_layers(cfg) * t["steps"])
+            if prec == "fp8":
+                expect["wgrad_fp8"], expect["wgrad"] = expect["wgrad"], 0
+            geo = (fields["block_n"], fields["n_span"], fields["k_span"])
+            rec = {"phase": "train_rg_geometry", "arch": cfg.name,
+                   "geometry": geometry, "kernel_config": fields,
+                   "wgrad_precision": prec, "layers": cfg.num_layers,
+                   "params": cfg.param_count(), "batch": t["batch"],
+                   "seq": t["seq"], "steps": t["steps"],
+                   "losses": [h["loss"] for h in hist],
+                   "grad_norms": [h["grad_norm"] for h in hist],
+                   "recorded_step_ms": [h["step_ms"] for h in hist],
+                   "step_ms": step_ms, "wgrad_ms": wgrad_ms,
+                   "wgrad_share": wgrad_ms / step_ms,
+                   "max_memory_allocated_gb": peak / 1e9,
+                   "witness_gb": kept / 1e9,
+                   "peak_less_witness_gb": (peak - kept) / 1e9,
+                   "launches": counts, "expected_launches": expect,
+                   "wgrad_launches_by_geometry": {
+                       str(list(g)): c for g, c in by_geometry.items()},
+                   "wgrad_launches_at_geometry": by_geometry.get(geo, 0),
+                   "grad_leaves_not_bitwise_witness": differ["grads"],
+                   "param_leaves_not_bitwise_witness": differ["params"]}
+            if first:
+                rec["vs_plain"] = rg_witness_vs_plain(
+                    cfg, witness[(0, "grads")], hist, batch0)
+            del batch0
+            emit(rec)
+            if counts != expect:
+                raise AssertionError(f"train rg {geometry} ({prec} wgrad): "
+                                     f"launch counts {counts} != {expect}")
+            if by_geometry != {geo: expect[name]}:
+                raise AssertionError(f"train rg {geometry} ({prec} wgrad): "
+                                     f"{name} launches by geometry "
+                                     f"{by_geometry}, not {expect[name]} "
+                                     f"at {geo} alone")
+            if not all(math.isfinite(h["loss"]) for h in hist):
+                raise AssertionError(f"train rg {geometry}: losses "
+                                     f"{rec['losses']}")
+            if any(differ["grads"]) or any(differ["params"]) or (
+                    not first and len(differ["grads"]) != t["steps"]):
+                raise AssertionError(f"train rg {geometry} ({prec} wgrad): "
+                                     f"not bitwise the span-1 witness: "
+                                     f"{differ}")
+            RG_GEOMETRY_RUNS[(geometry, prec)] = rec
+            if first:
+                paths[f"train_rg_{prec}_wgrad"] = counts
+        del witness
+    free_memory()
+    return paths
+
+
+# the phase_rg_geometries runs: (geometry, wgrad precision) -> its line
+RG_GEOMETRY_RUNS = {}
+
+
 REMAT_VARIANTS = ("fp8", "ds_fp8")
+#: the remat phase's cut and batch (the dry run traces the same)
+REMAT_SHAPE = {"layers": 4, "batch": 8, "seq": 512}
 #: what the dry run phase predicts, as the earlier phases measured it:
 #: ``remat`` by variant (``phase_remat``'s records), ``fsdp`` the
 #: fsdp_seq_parallel run's ranks (state bytes and collectives)
@@ -3438,10 +3906,12 @@ def phase_remat(variant: str) -> None:
     from repro_torch.models.model_zoo import make_model
     from repro_torch.train.trainer import value_and_grad
     from repro_torch.tree import tree_leaves
-    cfg = variant_config(variant, num_layers=4)
+    rs = REMAT_SHAPE
+    cfg = variant_config(variant, num_layers=rs["layers"])
     gen = torch.Generator(device="cuda").manual_seed(4)
     params = make_model(cfg, "cuda").init_params(gen)
-    batch = SyntheticLM(DataConfig(seed=1, batch_size=8, seq_len=512), cfg,
+    batch = SyntheticLM(DataConfig(seed=1, batch_size=rs["batch"],
+                                   seq_len=rs["seq"]), cfg,
                         device="cuda").batch_at(0)
     rows, grads = {}, {}
     for remat in (True, False):
@@ -3472,7 +3942,8 @@ def phase_remat(variant: str) -> None:
     unequal = [i for i, (a, b) in enumerate(zip(ga, gb))
                if not torch.equal(a, b)]
     rec = {"phase": "remat", "config": variant, "arch": cfg.name,
-           "layers": cfg.num_layers, "batch": 8, "seq": 512,
+           "layers": cfg.num_layers, "batch": rs["batch"],
+           "seq": rs["seq"],
            "params_bytes": leaf_bytes(params),
            "remat_on": rows[True], "remat_off": rows[False],
            "loss_bitwise": bool(torch.equal(la, lb)),
@@ -3590,12 +4061,13 @@ def phase_checkpoint() -> None:
 # phase 11: expert and data parallelism on ranks that share the card
 # ---------------------------------------------------------------------------
 
-# serving: the whole 28-layer deepseek-moe-16b under EP 4 on a (1, 4)
-# mesh, 4 tokens (for the script's time: a decode step of the 4 ranks
-# sharing the card takes ~2 s); training: its 2-layer cut (the dense
+# serving: deepseek-moe-16b cut to 8 layers (its dense layer and 7 MoE
+# layers, as the serve phase cuts it) under EP 4 on a (1, 4) mesh, 4
+# tokens (for the script's time: a decode step of the 4 ranks sharing
+# the card takes ~2 s at 28 layers); training: its 2-layer cut (the dense
 # layer and one MoE layer) under EP 2 x DP 2 on (2, 2), 2 steps, then
 # its params restored on (1, 2)
-DIST_SERVE = {"batch": 4, "prompt": 64, "new": 4}
+DIST_SERVE = {"layers": 8, "batch": 4, "prompt": 64, "new": 4}
 DIST_TRAIN = {"layers": 2, "batch": 8, "seq": 512, "steps": 2}
 DIST_WHY = ("one card: NCCL takes one rank a device, so the ranks share "
             "cuda:0 over gloo; this drives the sharding, the EP packing, "
@@ -3776,10 +4248,10 @@ def dist_rank(rank: int, world: int, ckpt_dir: str) -> dict:
         HERE, "build", f"tileplan_cache_rank{rank}.json")
     out = {}
 
-    # serve: EP 4, 16 experts a rank, all 28 layers
+    # serve: EP 4, 16 experts a rank, DIST_SERVE's layers
     mesh = make_mesh((1, world), ("data", "model"))
-    cfg = variant_config("ds_fp8")
     s = DIST_SERVE
+    cfg = variant_config("ds_fp8", num_layers=s["layers"])
     model = make_model(cfg, "cuda", mesh)
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
@@ -4037,9 +4509,9 @@ def phase_distributed() -> dict:
     finally:
         shutil.rmtree(d, ignore_errors=True)
 
-    # the whole model in one process, teacher-forced on the EP tokens
+    # the same model in one process, teacher-forced on the EP tokens
     s = DIST_SERVE
-    cfg = variant_config("ds_fp8")
+    cfg = variant_config("ds_fp8", num_layers=s["layers"])
     model = make_model(cfg, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init_params(gen)
@@ -5014,72 +5486,50 @@ DRYRUN_FAMILIES = ("qwen3-1.7b", "deepseek-moe-16b", "recurrentgemma-2b",
 DRYRUN_SHAPE = "decode_32k"
 
 
-def dryrun_check(measured: dict) -> "list[str]":
-    """The dry run's predictions of the ``measured`` runs (``MEASURED``,
-    read back from JSON), traced on fake tensors with no device: (a) the
-    remat phase's fp8 run on a 1 x 1 mesh, (b) each rank of the
-    fsdp_seq_parallel run, (c) one production cell a family.  Emits a
-    line each; returns the failures."""
+def wait_measured(path: str, parent: int) -> dict:
+    """``MEASURED`` as the card's process (pid ``parent``) writes it to
+    ``path`` once its phases are done; exits if that process is gone."""
+    while not os.path.exists(path):
+        if os.getppid() != parent:
+            raise SystemExit("dryrun: the card's process is gone")
+        time.sleep(0.5)
+    with open(path) as f:
+        return json.load(f)
+
+
+def dryrun_check(path: str, parent: int) -> "list[str]":
+    """The dry run's predictions, traced on fake tensors with no device
+    while the card's process runs its phases: (a) the remat phase's fp8
+    run on a 1 x 1 mesh, (b) each rank of the fsdp_seq_parallel run, (c)
+    one production cell a family; then (a) and (b) against what that
+    process measured (``MEASURED``, read back from ``path`` once it is
+    written by the process of pid ``parent``).  Emits a line each;
+    returns the failures."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     failures = []
     one = ((1, 1), ("data", "model"))
-    got = measured["remat"]["fp8"]
-    cfg = variant_config("fp8", num_layers=got["layers"])
-    shape = ShapeConfig("remat", got["seq"], got["batch"], "train")
-    for remat, key in ((True, "remat_on"), (False, "remat_off")):
+    t = REMAT_SHAPE
+    cfg = variant_config("fp8", num_layers=t["layers"])
+    shape = ShapeConfig("remat", t["seq"], t["batch"], "train")
+    remat_recs = {}
+    for remat in (True, False):
         t0 = time.perf_counter()
         rec = dryrun.lower_cell(cfg.name, shape, multi_pod=False,
                                 mesh_sizes=one, config=dataclasses.replace(
                                     cfg, remat=remat))
-        mem = rec["memory"]
-        args = mem["argument_breakdown"]
-        # the phase times forward and backward alone: params, the batch,
-        # then the gradient pass's own peak
-        peak = args["params"] + args["batch"] + mem["grad_phase_peak_bytes"]
-        row = {"phase": "dryrun_remat", "config": "fp8", "remat": remat,
-               "params_bytes": [args["params"], got["params_bytes"]],
-               "grad_bytes": [rec["train"]["grad_bytes"],
-                              got[key]["grad_bytes"]],
-               "peak_gb_predicted": peak / 1e9,
-               "peak_gb_measured": got[key]["peak_gb"],
-               "peak_gap_gb": peak / 1e9 - got[key]["peak_gb"],
-               "kernels": {k: w["calls"] for k, w in
-                           rec["cost"]["kernels"].items()},
-               "seconds": time.perf_counter() - t0}
-        emit(row)
-        for what in ("params_bytes", "grad_bytes"):
-            if row[what][0] != row[what][1]:
-                failures.append(f"dryrun remat={remat}: {what} predicted "
-                                f"{row[what][0]}, measured {row[what][1]}")
+        remat_recs[remat] = (rec, time.perf_counter() - t0)
     t = FSDP_TRAIN
     cfg = fsdp_config()
     shape = ShapeConfig("fsdp", t["seq"], t["batch"], "train")
-    for rank, got in enumerate(measured["fsdp"]):
+    fsdp_recs = []
+    for rank in range(math.prod(t["mesh"])):
         t0 = time.perf_counter()
         rec = dryrun.lower_cell(cfg.name, shape, multi_pod=False, rank=rank,
                                 mesh_sizes=(t["mesh"], ("data", "model")),
                                 config=cfg)
-        args = rec["memory"]["argument_breakdown"]
-        # a step's collectives, times the run's steps
-        pred = {k: {f: v * t["steps"] for f, v in c.items()}
-                for k, c in rec["collectives"]["per_type"].items()}
-        row = {"phase": "dryrun_fsdp_seq_parallel", "rank": rank,
-               "state_bytes": [args["params"] + args["opt_state"],
-                               got["state_bytes"]],
-               "collectives_predicted": pred,
-               "collectives_measured": got["collectives"]["per_type"],
-               "temp_gb_predicted": rec["memory"]["temp_bytes"] / 1e9,
-               "seconds": time.perf_counter() - t0}
-        emit(row)
-        if row["state_bytes"][0] != row["state_bytes"][1]:
-            failures.append(f"dryrun fsdp rank {rank}: state bytes "
-                            f"{row['state_bytes']}")
-        if pred != row["collectives_measured"]:
-            failures.append(f"dryrun fsdp rank {rank}: collectives "
-                            f"predicted {pred}, measured "
-                            f"{row['collectives_measured']}")
+        fsdp_recs.append((rec, time.perf_counter() - t0))
     for arch in DRYRUN_FAMILIES:
         t0 = time.perf_counter()
         rec = dryrun.lower_cell(arch, DRYRUN_SHAPE, multi_pod=False,
@@ -5094,14 +5544,77 @@ def dryrun_check(measured: dict) -> "list[str]":
               "kernels": rec["cost"]["kernels"],
               "roofline": rec["roofline"],
               "seconds": time.perf_counter() - t0})
+    measured = wait_measured(path, parent)
+    got = measured["remat"]["fp8"]
+    traced = {k: REMAT_SHAPE[k] for k in ("layers", "batch", "seq")}
+    if {k: got[k] for k in traced} != traced:
+        failures.append(f"dryrun remat: traced {traced}, measured "
+                        f"{ {k: got[k] for k in traced} }")
+    for remat, key in ((True, "remat_on"), (False, "remat_off")):
+        rec, seconds = remat_recs[remat]
+        mem = rec["memory"]
+        args = mem["argument_breakdown"]
+        # the phase times forward and backward alone: params, the batch,
+        # then the gradient pass's own peak
+        peak = args["params"] + args["batch"] + mem["grad_phase_peak_bytes"]
+        row = {"phase": "dryrun_remat", "config": "fp8", "remat": remat,
+               "params_bytes": [args["params"], got["params_bytes"]],
+               "grad_bytes": [rec["train"]["grad_bytes"],
+                              got[key]["grad_bytes"]],
+               "peak_gb_predicted": peak / 1e9,
+               "peak_gb_measured": got[key]["peak_gb"],
+               "peak_gap_gb": peak / 1e9 - got[key]["peak_gb"],
+               "kernels": {k: w["calls"] for k, w in
+                           rec["cost"]["kernels"].items()},
+               "seconds": seconds}
+        emit(row)
+        for what in ("params_bytes", "grad_bytes"):
+            if row[what][0] != row[what][1]:
+                failures.append(f"dryrun remat={remat}: {what} predicted "
+                                f"{row[what][0]}, measured {row[what][1]}")
+    if len(measured["fsdp"]) != len(fsdp_recs):
+        failures.append(f"dryrun fsdp: {len(fsdp_recs)} ranks traced, "
+                        f"{len(measured['fsdp'])} measured")
+    for rank, ((rec, seconds), got) in enumerate(zip(fsdp_recs,
+                                                     measured["fsdp"])):
+        args = rec["memory"]["argument_breakdown"]
+        # a step's collectives, times the run's steps
+        pred = {k: {f: v * t["steps"] for f, v in c.items()}
+                for k, c in rec["collectives"]["per_type"].items()}
+        row = {"phase": "dryrun_fsdp_seq_parallel", "rank": rank,
+               "state_bytes": [args["params"] + args["opt_state"],
+                               got["state_bytes"]],
+               "collectives_predicted": pred,
+               "collectives_measured": got["collectives"]["per_type"],
+               "temp_gb_predicted": rec["memory"]["temp_bytes"] / 1e9,
+               "seconds": seconds}
+        emit(row)
+        if row["state_bytes"][0] != row["state_bytes"][1]:
+            failures.append(f"dryrun fsdp rank {rank}: state bytes "
+                            f"{row['state_bytes']}")
+        if pred != row["collectives_measured"]:
+            failures.append(f"dryrun fsdp rank {rank}: collectives "
+                            f"predicted {pred}, measured "
+                            f"{row['collectives_measured']}")
     return failures
 
 
-def start_dryrun() -> "tuple":
-    """Start the dry run phase (:func:`dryrun_check` on ``MEASURED``) in a
-    process of its own that sees no card: its fake process group never
-    meets the gloo phases.  Returns the process and the card memory
-    check's failures."""
+def stop_process(proc) -> None:
+    """End ``proc`` if it still runs, and reap it."""
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+
+
+def start_dryrun() -> dict:
+    """Start the dry run phase (:func:`dryrun_check`) in a process of its
+    own that sees no card (its fake process group never meets the gloo
+    phases), its output to files under ``build/``: it traces while this
+    process runs its phases, then waits for ``MEASURED``
+    (:func:`phase_dryrun_examples` writes it).  It is ended when this
+    process exits, however it exits.  Returns the process, its paths and
+    the card memory check's failures."""
+    import atexit
     import subprocess
     import torch
     from repro_torch.launch import dryrun
@@ -5112,15 +5625,21 @@ def start_dryrun() -> "tuple":
     if total != dryrun.CARD_BYTES:
         failures.append(f"dryrun: CARD_BYTES {dryrun.CARD_BYTES}, the "
                         f"card's total_memory {total}")
-    path = os.path.join(HERE, "build", "dryrun_measured.json")
-    with open(path, "w") as f:
-        json.dump(MEASURED, f)
+    d = os.path.join(HERE, "build")
+    os.makedirs(d, exist_ok=True)
+    paths = {k: os.path.join(d, f"dryrun_{k}") for k in (
+        "measured.json", "stdout.txt", "stderr.txt")}
+    if os.path.exists(paths["measured.json"]):
+        os.remove(paths["measured.json"])
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                             "--dryrun-check", path], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True)
-    return proc, failures
+    with open(paths["stdout.txt"], "w") as out, \
+            open(paths["stderr.txt"], "w") as err:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--dryrun-check", paths["measured.json"],
+                                 "--dryrun-parent", str(os.getpid())],
+                                env=env, stdout=out, stderr=err)
+    atexit.register(stop_process, proc)
+    return {"proc": proc, "paths": paths, "failures": failures}
 
 
 def phase_examples() -> None:
@@ -5143,11 +5662,16 @@ def phase_examples() -> None:
                              f"{tuple(res.tokens.shape)}, not (4, 16)")
 
 
-def phase_dryrun_examples() -> None:
-    """The dry run phase in its process, the examples on the card
-    meanwhile; then the dry run's lines and gates."""
+def phase_dryrun_examples(dry: dict) -> None:
+    """``MEASURED`` to the dry run's process (started by
+    :func:`start_dryrun`), the examples on the card meanwhile; then the
+    dry run's lines and gates."""
     from repro_torch.kernels import abstract
-    proc, failures = start_dryrun()
+    proc, paths, failures = dry["proc"], dry["paths"], dry["failures"]
+    tmp = paths["measured.json"] + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(MEASURED, f)
+    os.replace(tmp, paths["measured.json"])
     try:
         with timed("examples"):
             phase_examples()
@@ -5157,14 +5681,15 @@ def phase_dryrun_examples() -> None:
         if abstract.WORK:
             failures.append(f"real tensors took the shape-only kernels: "
                             f"{abstract.WORK}")
-        out, err = proc.communicate(timeout=600)
+        proc.wait(timeout=600)
     finally:
         # a failed phase or an expired wait leaves no tracing child
-        if proc.poll() is None:
-            proc.kill()
-        proc.wait()
-    print(out, end="", flush=True)
+        stop_process(proc)
+    with open(paths["stdout.txt"]) as f:
+        print(f.read(), end="", flush=True)
     if proc.returncode:
+        with open(paths["stderr.txt"]) as f:
+            err = f.read()
         failures.append(f"dryrun: exit {proc.returncode}: {err[-3000:]}")
     if failures:
         raise AssertionError("; ".join(failures))
@@ -5180,10 +5705,11 @@ def main(argv=None) -> int:
                          "phase alone, its run from each")
     ap.add_argument("--dryrun-check", default=None,
                     help=argparse.SUPPRESS)    # the dry run phase's process
+    ap.add_argument("--dryrun-parent", type=int, default=None,
+                    help=argparse.SUPPRESS)    # and the pid it waits on
     args = ap.parse_args(argv)
     if args.dryrun_check:
-        with open(args.dryrun_check) as f:
-            failures = dryrun_check(json.load(f))
+        failures = dryrun_check(args.dryrun_check, args.dryrun_parent)
         for line in failures:
             print(line, file=sys.stderr)
         return 1 if failures else 0
@@ -5280,10 +5806,15 @@ def main(argv=None) -> int:
                 counts, histories[variant] = phase_train(variant)
             paths.update(counts)
         compare_padded_training(*(histories[v] for v in DS_VARIANTS))
+        free_memory()
+        with timed("train_rg_geometries"):
+            paths.update(phase_rg_geometries())
         for variant in REMAT_VARIANTS:
             free_memory()
             with timed(f"remat {variant}"):
                 phase_remat(variant)
+        # the dry run traces off the card while the phases below run
+        dry = start_dryrun()
         free_memory()
         with timed("checkpoint"):
             phase_checkpoint()
@@ -5298,7 +5829,7 @@ def main(argv=None) -> int:
             paths.update(phase_a15b2())
         free_memory()
         with timed("dryrun + examples"):
-            phase_dryrun_examples()
+            phase_dryrun_examples(dry)
         # launches: the sum over the main paths driven (serving and
         # training in each configuration, training with the fp8 wgrad),
         # each counted from 0
@@ -5336,6 +5867,41 @@ def main(argv=None) -> int:
             if name == "flash_attention":
                 row["shapes"] = t["shapes"]
             rows.append(row)
+        # B4 and B6 at each other wgrad geometry of the pool: timed at the
+        # ragged routed_1536 shape with a bf16 dw (the rest under
+        # "times", beside span 1's); launches: the wrapper's count at
+        # that geometry in the recurrentgemma run under it at its wgrad
+        # precision
+        for name in ("wgrad", "wgrad_fp8"):
+            prec = "fp8" if name == "wgrad_fp8" else "bf16"
+            for geometry, geo in wgrad_geometries().items():
+                if geometry == "span1":
+                    continue
+                t = WGRAD_GEOMETRY_TIMES[(name, geometry, "routed_1536",
+                                          "bfloat16")]
+                run = RG_GEOMETRY_RUNS[(geometry, prec)]
+                row = {"name": f"{name}_{geometry}", "route": "cuda",
+                       "source": SOURCES[name], "replaces": REPLACES[name],
+                       "geometry": dict(zip(("block_n", "n_span", "k_span"),
+                                            geo)),
+                       "launches": run["wgrad_launches_at_geometry"],
+                       "launches_by_path": {
+                           f"train_rg_{geometry}_{prec}_wgrad":
+                           run["wgrad_launches_at_geometry"]},
+                       "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                       "eager_ms": t["eager_ms"], "plain_ms": t["plain_ms"],
+                       "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                       "library_ms": t["library_ms"],
+                       "library_note": t["library_note"], "times": {}}
+                for (kn, g, shape, dt), tt in WGRAD_GEOMETRY_TIMES.items():
+                    if (kn, g) == (name, geometry):
+                        one = WGRAD_GEOMETRY_TIMES[(kn, "span1", shape, dt)]
+                        row["times"][f"{shape} {dt}"] = {
+                            "shape": tt["shape"], "span1_ms": one["ms"],
+                            **{k: tt[k] for k in (
+                                "ms", "eager_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}}
+                rows.append(row)
         # flash attention ran on the serve and train paths of both models,
         # and on the zoo's serve paths that reach it
         for p in ("serve_fp8_flash", "serve_qwen3_flash", "train_fp8_flash",

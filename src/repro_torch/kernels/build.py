@@ -136,14 +136,16 @@ def check(status: int, what: str) -> None:
 #: what each library's ``kernel_resources`` query reports, in its order
 #: (``csrc/resources.cuh``)
 RESOURCE_FIELDS = ("registers", "max_dynamic_smem", "smem", "threads",
-                   "static_smem", "ctas_per_sm")
+                   "static_smem", "ctas_per_sm", "cluster_ctas",
+                   "max_active_clusters")
 
 
 def resources(name: str, a: int = 0, b: int = 0, c: int = 0) -> dict:
     """What the card holds for one built variant of ``csrc/<name>.cu``'s
     kernel, as its launch runs it: registers a thread, the dynamic shared
-    memory allowed and asked, threads a CTA, static shared memory and
-    CTAs an SM (``a``, ``b``, ``c`` pick the variant; each source says
+    memory allowed and asked, threads a CTA, static shared memory, CTAs
+    an SM, the CTAs of a thread-block cluster and the clusters the card
+    holds at once (``a``, ``b``, ``c`` pick the variant; each source says
     how).  Launches nothing."""
     out = (ctypes.c_int * len(RESOURCE_FIELDS))()
     fn = function(name, "kernel_resources", [ctypes.c_int] * 3

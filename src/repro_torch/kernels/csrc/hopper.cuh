@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the TMA / wgmma kernels (grouped_gemm.cu,
-// gmm_bf16.cu, wgrad_bf16.cu, flash_attention.cu): mbarriers, TMA loads
-// and stores, 128-byte-swizzle wgmma descriptors, the wgmma products
-// (shared-memory operands with either transpose bit, or A from registers),
-// register hand-over between warpgroups and the host's tensor-map
-// encoding.  sm_90a only.
+// gmm_bf16.cu, wgrad_bf16.cu, wgrad.cu, flash_attention.cu): mbarriers,
+// TMA loads (multicast to a thread-block cluster's CTAs too) and stores,
+// the cluster's rank, barrier and remote mbarrier arrivals,
+// 128-byte-swizzle wgmma descriptors, the wgmma products (shared-memory
+// operands with either transpose bit, or A from registers), register
+// hand-over between warpgroups and the host's tensor-map encoding.
+// sm_90a only.
 #pragma once
 
 #include <cuda.h>
@@ -80,6 +82,48 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// tma_load_2d multicast to the CTAs of this cluster in `mask` (bit r: CTA
+// rank r): the box lands at dst's offset in each one's shared memory, and
+// each one's barrier at bar's offset counts its bytes
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar, int c0,
+                                                      int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1) : "memory");
+}
+
+// this CTA's rank in its thread-block cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every non-exited thread of the cluster arrives (release), then waits
+// for all of them (acquire): a peer's barriers are initialised before
+// anyone uses them, and a CTA's shared memory outlives its peers' use
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// arrive on the barrier at bar's offset in the shared memory of the
+// cluster's CTA `rank` (this CTA's own included)
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(rank) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,

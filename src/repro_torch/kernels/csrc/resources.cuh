@@ -11,7 +11,9 @@
 //   out[2] the dynamic shared memory the launch asks,
 //   out[3] threads a CTA at the launch,
 //   out[4] static shared memory,
-//   out[5] CTAs an SM holds at that launch (the occupancy calculator).
+//   out[5] CTAs an SM holds at that launch (the occupancy calculator),
+//   out[6] CTAs a thread-block cluster of the launch (1: no cluster),
+//   out[7] clusters the card holds at once (for one CTA: out[5] x SMs).
 // Returns a cudaError_t.  Launches nothing.
 #pragma once
 
@@ -32,6 +34,10 @@ int query_resources(Kernel* kernel, int threads, int smem, int* out) {
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
                                                       smem);
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = attr.maxDynamicSharedSizeBytes;
@@ -39,6 +45,8 @@ int query_resources(Kernel* kernel, int threads, int smem, int* out) {
   out[3] = threads;
   out[4] = (int)attr.sharedSizeBytes;
   out[5] = per_sm;
+  out[6] = 1;
+  out[7] = per_sm * sms;
   return 0;
 }
 

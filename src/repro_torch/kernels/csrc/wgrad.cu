@@ -24,11 +24,17 @@
 // alone and overlap only in part; shared memory carries the TMA writes,
 // the widening's reads and writes (64 KB a stage) and wgmma's reads.
 //
-// Design.  B4's schedule and epilogue (wgrad_tile.cuh): each output tile
-// (N tile, K tile, group) is summed by one CTA over the tile's whole
-// contraction, in a fixed row order, with no atomics, so two launches are
-// bitwise equal and dw is written once; persistent CTAs, one an SM, walk
-// the tiles in a fixed stride.
+// Design.  B4's schedule, clusters and epilogue (wgrad_tile.cuh): each
+// 128 x 128 sub-tile (N tile, K tile, group) is summed by one CTA over the
+// tile's whole contraction, in a fixed row order, with no atomics, so two
+// launches are bitwise equal and dw is written once; persistent CTAs, one
+// an SM, walk the tiles in a fixed stride.  At block_n 256 and at span 2
+// and 4 a super-tile runs on a 1 x 2, 2 x 2 or 4 x 4 cluster (span 4 as
+// one 16-CTA cluster), bitwise span 1: the first widening thread of each
+// CTA loads its slice of the stage's e4m3 rows (64 / cn of x's, 64 / ck
+// of dy's) and multicasts it to its cluster row (x) and column (dy); the
+// widening warps release a stage to every CTA of their row and column;
+// each CTA widens and scales its own copy.
 //   - The first widening thread keeps a 4-stage TMA ring of 64 contracted
 //     rows x (128 K of x + 128 N of dy), each one e4m3 box of 128 bytes a
 //     row in the 128-byte swizzle, starting at offsets[g], 3 chunks ahead
@@ -71,6 +77,8 @@
 namespace {
 
 using namespace hopper;
+using wgrad::Cluster;
+using wgrad::Geom;
 using wgrad::kRows;
 using wgrad::kTile;
 using wgrad::Tile;
@@ -90,8 +98,8 @@ constexpr int smem_bytes() {
 }
 
 struct Maps {
-  CUtensorMap x;     // [M, K] e4m3: box 128 K x 64 rows, 128B swizzle
-  CUtensorMap dy;    // [M, N] e4m3: box 128 N x 64 rows, 128B swizzle
+  CUtensorMap x;     // [M, K] e4m3: box 128 K x 64 / cn rows, 128B swizzle
+  CUtensorMap dy;    // [M, N] e4m3: box 128 N x 64 / ck rows, 128B swizzle
   CUtensorMap out;   // [G * K, N] f32 or bf16: box 128 bytes x 128 rows, 128B swizzle
 };
 
@@ -147,33 +155,36 @@ __device__ __forceinline__ void widen_chunk(const uint8_t* st, uint8_t* wb,
   }
 }
 
-// The chunks of the CTA's tiles in the order the ring takes them: chunk
-// i of tile t (tile), the q-th of the walk, tiles with no rows skipped
+// The chunks of the CTA's units in the order the ring takes them: chunk
+// i of unit u (tile), the q-th of the walk, units with no rows skipped
+// (the walk's geometry and the CTA's place in its cluster are passed to
+// each step: the kernel's parameters and registers, never copied)
 struct Cursor {
   const int* offsets;
-  int M, n_tiles, k_tiles, tiles, t, i, q;   // q: chunks passed
+  int M, u, i, q;   // q: chunks passed
   Tile tile;
-  __device__ __forceinline__ Cursor(const int* offsets, int M, int n_tiles,
-                                    int k_tiles, int tiles)
-      : offsets(offsets), M(M), n_tiles(n_tiles), k_tiles(k_tiles),
-        tiles(tiles), t(blockIdx.x), i(0), q(0),
-        tile(blockIdx.x, n_tiles, k_tiles, offsets, M) {
-    settle();
+  __device__ __forceinline__ Cursor(const int* offsets, int M,
+                                    const Geom& geo, const Cluster& cl)
+      : offsets(offsets), M(M), u(wgrad::first_unit(geo)), i(0), q(0),
+        tile(u, geo, cl, offsets, M) {
+    settle(geo, cl);
   }
-  __device__ __forceinline__ bool done() const { return t >= tiles; }
-  __device__ __forceinline__ void settle() {
+  __device__ __forceinline__ bool done(const Geom& geo) const {
+    return u >= geo.units;
+  }
+  __device__ __forceinline__ void settle(const Geom& geo, const Cluster& cl) {
     while (i == tile.chunks) {
-      t += gridDim.x;
-      if (t >= tiles) return;
-      tile = Tile(t, n_tiles, k_tiles, offsets, M);
+      u += wgrad::unit_stride(geo);
+      if (u >= geo.units) return;
+      tile = Tile(u, geo, cl, offsets, M);
       i = 0;
     }
   }
-  __device__ __forceinline__ void next() {
-    if (done()) return;
+  __device__ __forceinline__ void next(const Geom& geo, const Cluster& cl) {
+    if (done(geo)) return;
     ++i;
     ++q;
-    settle();
+    settle(geo, cl);
   }
   __device__ __forceinline__ int row0() const { return tile.start + i * kRows; }
   __device__ __forceinline__ int valid() const {
@@ -191,12 +202,13 @@ struct Scales {
 
 // the scales of a widening thread's rows of chunk `cur` (0 past its rows)
 __device__ __forceinline__ void load_scales(const Cursor& cur,
+                                            const Geom& geo,
                                             const float* __restrict__ sx,
                                             const float* __restrict__ sdy,
                                             int K, int N, int rq,
                                             Scales& out) {
-  const int valid = cur.done() ? 0 : cur.valid();
-  const int row0 = cur.done() ? 0 : cur.row0();
+  const int valid = cur.done(geo) ? 0 : cur.valid();
+  const int row0 = cur.done(geo) ? 0 : cur.row0();
   const int kb = cur.tile.k0 / kTile, nb = cur.tile.n0 / kTile;
 #pragma unroll
   for (int j = 0; j < kRowsPerThread; ++j) {
@@ -209,11 +221,15 @@ __device__ __forceinline__ void load_scales(const Cursor& cur,
   }
 }
 
-template <typename OutT>
+// kCluster: the instance of the cluster geometries; the other runs span 1
+// at block_n 128 with every cluster term a constant
+template <typename OutT, bool kCluster>
 __global__ void __launch_bounds__(kThreads, 1)
 wgrad_fp8_kernel(const __grid_constant__ Maps maps,
                  const float* __restrict__ sx, const float* __restrict__ sdy,
-                 const int* __restrict__ offsets, int M, int K, int N, int G) {
+                 const int* __restrict__ offsets, int M, int K, int N, int G,
+                 const Geom walk) {
+  const Geom geo = kCluster ? walk : wgrad::single(K, N, G);
   // aligned to 1024 bytes for the swizzle by pointer arithmetic, so the
   // compiler keeps shared-memory (32-bit) addressing
   extern __shared__ uint8_t smem_raw[];
@@ -227,13 +243,13 @@ wgrad_fp8_kernel(const __grid_constant__ Maps maps,
   uint64_t* wempty = wfull + 2;               // its products are done
 
   const int tid = threadIdx.x, wg = tid / 128, lane = tid & 31;
-  const int n_tiles = N / kTile, k_tiles = K / kTile;
-  const int tiles = n_tiles * k_tiles * G;
+  const Cluster cl(geo);
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);                // every widening warp
+      // every widening warp of every CTA this CTA's loads land in
+      mbar_init(&empty[s], 8 * cl.peers());
     }
     for (int b = 0; b < 2; ++b) {
       mbar_init(&wfull[b], 8);                // every widening warp
@@ -241,36 +257,43 @@ wgrad_fp8_kernel(const __grid_constant__ Maps maps,
     }
     mbar_init_fence();
   }
-  __syncthreads();
+  if (geo.ctas() > 1)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (wg >= 2) {
     // the widening warpgroups, their registers handed to the consumers;
-    // their first thread also keeps the TMA ring kStages - 1 chunks ahead
+    // their first thread also keeps the TMA ring kStages - 1 chunks ahead:
+    // its slice of x's rows to its cluster row, of dy's to its column
     setmaxnreg_dec<96>();
     const int wt = tid - 256, c = wt & 7, rq = wt >> 3;
-    Cursor load(offsets, M, n_tiles, k_tiles, tiles);
+    const int xr = cl.nn * (kRows / cl.cn), dr = cl.kk * (kRows / cl.ck);
+    const uint16_t rows = cl.row_mask(), cols = cl.col_mask();
+    Cursor load(offsets, M, geo, cl);
     auto issue = [&]() {
-      if (wt != 0 || load.done()) return;
+      if (wt != 0 || load.done(geo)) return;
       const int s = load.q % kStages;
       mbar_wait(&empty[s], ((load.q / kStages) & 1) ^ 1);
       uint8_t* st = ring + s * kStageBytes;
       mbar_expect_tx(&full[s], kStageBytes);
-      tma_load_2d(st, &maps.x, &full[s], load.tile.k0, load.row0());
-      tma_load_2d(st + kBoxBytes, &maps.dy, &full[s], load.tile.n0,
-                  load.row0());
-      load.next();
+      cl.load(st + xr * 128, &maps.x, &full[s], load.tile.k0,
+              load.row0() + xr, rows);
+      cl.load(st + kBoxBytes + dr * 128, &maps.dy, &full[s], load.tile.n0,
+              load.row0() + dr, cols);
+      load.next(geo, cl);
     };
     for (int q = 0; q < kStages - 1; ++q) issue();
-    Cursor cur(offsets, M, n_tiles, k_tiles, tiles);
+    Cursor cur(offsets, M, geo, cl);
     Scales sc;
-    load_scales(cur, sx, sdy, K, N, rq, sc);
-    while (!cur.done()) {
+    load_scales(cur, geo, sx, sdy, K, N, rq, sc);
+    while (!cur.done(geo)) {
       issue();
       // the next chunk's scales, in flight while this chunk widens
       Cursor nxt = cur;
-      nxt.next();
+      nxt.next(geo, cl);
       Scales sn;
-      load_scales(nxt, sx, sdy, K, N, rq, sn);
+      load_scales(nxt, geo, sx, sdy, K, N, rq, sn);
       const int s = cur.q % kStages, b = cur.q & 1, valid = cur.valid();
       mbar_wait(&full[s], (cur.q / kStages) & 1);
       mbar_wait(&wempty[b], ((cur.q >> 1) & 1) ^ 1);
@@ -280,13 +303,12 @@ wgrad_fp8_kernel(const __grid_constant__ Maps maps,
                     rq + 32 * i, c, rq + 32 * i < valid, sc.dy[i], sc.x[i]);
       fence_proxy_async();
       __syncwarp();
-      if (lane == 0) {
-        mbar_arrive(&empty[s]);
-        mbar_arrive(&wfull[b]);
-      }
+      cl.release(&empty[s], lane);
+      if (lane == 0) mbar_arrive(&wfull[b]);
       sc = sn;
       cur = nxt;
     }
+    wgrad::leave_cluster<kCluster>();
     return;
   }
   setmaxnreg_inc<160>();
@@ -296,8 +318,9 @@ wgrad_fp8_kernel(const __grid_constant__ Maps maps,
   const int r = wg * 64 + ((tid / 32) & 3) * 16 + (lane >> 2);
   float acc[64];
   int it = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const Tile tl(t, n_tiles, k_tiles, offsets, M);
+  const int stride = wgrad::unit_stride(geo);
+  for (int u = wgrad::first_unit(geo); u < geo.units; u += stride) {
+    const Tile tl(u, geo, cl, offsets, M);
 #pragma unroll
     for (int j = 0; j < 64; ++j) acc[j] = 0.0f;
     for (int i = 0; i < tl.chunks; ++i, ++it) {
@@ -331,54 +354,72 @@ wgrad_fp8_kernel(const __grid_constant__ Maps maps,
                             tl.g * K + tl.k0);
   }
   if (tid == 0) tma_store_wait_all();
+  wgrad::leave_cluster<kCluster>();
 }
 
-// an [rows, cols] e4m3 matrix as a 2-D map of 128-column x kRows boxes in
-// the 128-byte swizzle
+// an [rows, cols] e4m3 matrix as a 2-D map of 128-column x `box_rows`
+// boxes in the 128-byte swizzle
 CUresult encode_e4m3_rows(CUtensorMap* map, const void* base, uint64_t rows,
-                          uint64_t cols) {
+                          uint64_t cols, uint32_t box_rows) {
   const uint64_t dims[2] = {cols, rows};
   const uint64_t strides[1] = {cols};
-  const uint32_t box[2] = {128, kRows};
+  const uint32_t box[2] = {128, box_rows};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims, strides,
                 box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace
 
-// One launch covers every group: one persistent CTA an SM (at most one a
-// tile).  K and N are multiples of 128; offsets [G + 1] int32; dw
-// [G, K, N], f32 when out_f32 else bf16.  Returns a cudaError_t, or 1000 +
-// the CUresult of a failed tensor-map encoding.
+// launch the instance of geo's form
+template <typename OutT, typename... Args>
+int run(const Geom& geo, cudaStream_t st, const Args&... args) {
+  if (geo.ctas() > 1)
+    return wgrad::launch<wgrad_fp8_kernel<OutT, true>>(
+        geo, kThreads, smem_bytes<OutT>(), st, args..., geo);
+  return wgrad::launch<wgrad_fp8_kernel<OutT, false>>(
+      geo, kThreads, smem_bytes<OutT>(), st, args..., geo);
+}
+
+// One launch covers every group.  K and N are multiples of the geometry's
+// super-tile (k_span x 128, n_span x block_n); offsets [G + 1] int32; dw
+// [G, K, N], f32 when out_f32 else bf16.  Returns a cudaError_t
+// (cudaErrorInvalidValue for a geometry outside the pool), or 1000 + the
+// CUresult of a failed tensor-map encoding.
 extern "C" int wgrad_fp8(const void* x, const void* sx, const void* dy,
                          const void* sdy, const void* offsets, void* dw, int M,
-                         int K, int N, int G, int out_f32, void* stream) {
+                         int K, int N, int G, int out_f32, int block_n,
+                         int n_span, int k_span, void* stream) {
+  const Geom geo = wgrad::geometry(block_n, n_span, k_span, K, N, G);
+  if (geo.ck == 0) return (int)cudaErrorInvalidValue;
   Maps maps;
   memset(&maps, 0, sizeof(maps));
-  CUresult r = encode_e4m3_rows(&maps.x, x, M, K);
-  if (r == CUDA_SUCCESS) r = encode_e4m3_rows(&maps.dy, dy, M, N);
+  CUresult r = encode_e4m3_rows(&maps.x, x, M, K, kRows / geo.cn);
+  if (r == CUDA_SUCCESS) r = encode_e4m3_rows(&maps.dy, dy, M, N, kRows / geo.ck);
   if (r == CUDA_SUCCESS) r = wgrad::encode_dw(&maps.out, dw, K, N, G, out_f32);
   if (r != CUDA_SUCCESS) return 1000 + (int)r;
-  const int tiles = (N / kTile) * (K / kTile) * G;
   auto st = (cudaStream_t)stream;
   auto s_x = (const float*)sx;
   auto s_dy = (const float*)sdy;
   auto offs = (const int*)offsets;
   if (out_f32)
-    return wgrad::launch_persistent<wgrad_fp8_kernel<float>>(
-        kThreads, smem_bytes<float>(), tiles, st, maps, s_x, s_dy, offs, M, K,
-        N, G);
-  return wgrad::launch_persistent<wgrad_fp8_kernel<__nv_bfloat16>>(
-      kThreads, smem_bytes<__nv_bfloat16>(), tiles, st, maps, s_x, s_dy, offs,
-      M, K, N, G);
+    return run<float>(geo, st, maps, s_x, s_dy, offs, M, K, N, G);
+  return run<__nv_bfloat16>(geo, st, maps, s_x, s_dy, offs, M, K, N, G);
 }
 
-// The resources of one variant (resources.cuh): b = 1 for an f32 dw; a
-// and c are unused.
-extern "C" int kernel_resources(int, int out_f32, int, int* out) {
-  if (out_f32)
-    return repro::query_resources(wgrad_fp8_kernel<float>, kThreads,
-                                  smem_bytes<float>(), out);
-  return repro::query_resources(wgrad_fp8_kernel<__nv_bfloat16>, kThreads,
-                                smem_bytes<__nv_bfloat16>(), out);
+// the resources of the instance that runs clusters of `ctas` CTAs
+template <typename OutT>
+int resources_of(int ctas, int* out) {
+  if (ctas > 1)
+    return wgrad::cluster_resources<wgrad_fp8_kernel<OutT, true>>(
+        kThreads, smem_bytes<OutT>(), ctas, out);
+  return wgrad::cluster_resources<wgrad_fp8_kernel<OutT, false>>(
+      kThreads, smem_bytes<OutT>(), ctas, out);
+}
+
+// The resources of one variant (resources.cuh, wgrad_tile.cuh): b = 1 for
+// an f32 dw; clusters of a x c CTAs (0 counts as 1).
+extern "C" int kernel_resources(int ck, int out_f32, int cn, int* out) {
+  const int ctas = (ck > 0 ? ck : 1) * (cn > 0 ? cn : 1);
+  return out_f32 ? resources_of<float>(ctas, out)
+                 : resources_of<__nv_bfloat16>(ctas, out);
 }

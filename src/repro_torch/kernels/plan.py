@@ -40,8 +40,11 @@ Pool autotuner
     persist to the port's own JSON cache keyed by ``(device kind,
     backend, M-bucket, K, N, G, op)``, so the measurement runs once per
     shape class per machine.  Where the card's kernel takes no tile
-    parameter, and on the CPU, where the plain versions run, an op is
-    tile-free: the cost model ranks it and nothing is measured.
+    parameter (the quantizers), and on the CPU, where the plain versions
+    run, an op is tile-free: the cost model ranks it and nothing is
+    measured.  The wgrads read ``block_n`` and the spans but no
+    ``block_m``: one measurement a distinct geometry, which the entries
+    that differ only in ``block_m`` share.
 """
 from __future__ import annotations
 
@@ -147,8 +150,9 @@ class KernelConfig:
     fuse_producer: bool = False
     # multi-tile wgrad spans: one output super-tile of (k_span*block_k,
     # n_span*block_n) a walk step.  Only the wgrad family reads them; the
-    # plain wgrads compute the same dw for any span, the CUDA wgrads have
-    # none and raise on a span > 1 (resources.missing_variant)
+    # plain wgrads compute the same dw for any span, the CUDA wgrads run
+    # the pool's spans on thread-block clusters and raise on any other
+    # (resources.missing_variant)
     n_span: int = 1
     k_span: int = 1
 
@@ -555,9 +559,10 @@ def shared_plan(group_sizes: torch.Tensor, m: int, *,
 # ONE pool serves every autotune op (the keys of ``_AUTOTUNE_OPS``): each
 # op ranks the same candidates by its own roofline terms and caches the
 # winner under its own key.  The pool is the JAX package's, entry for
-# entry; the card's grouped GEMMs take every one of its GEMM geometries,
-# and the resource model prunes what they lack (the wgrad spans, and the
-# wgrads' 256-wide N tile: no CUDA variant), each with its reason.
+# entry; the card's grouped GEMMs take every one of its GEMM geometries
+# and the wgrads every one of theirs (the spans and the 256-wide N tile
+# too); the resource model prunes what a shape makes infeasible, each
+# with its reason.
 #
 # The decode entries (block_m 8 / 16) extend the descriptor axis down to
 # serving's tiny-M regime: a decode step's grouped GEMM has M =
@@ -907,10 +912,13 @@ _AUTOTUNE_OPS = {
     "quantize": ("quantize", "fp8"),
     "act_quant": ("act_quant", "fp8"),
 }
-#: ops whose CUDA kernel takes no tile parameter: B1 and B3 have none,
-#: and the wgrads' walk (csrc/wgrad_tile.cuh) takes 64 contracted rows a
-#: stage whatever block_m is
-TILE_FREE_OPS = ("quantize", "act_quant", "wgrad", "wgrad_fp8")
+#: ops whose CUDA kernel takes no tile parameter: B1 and B3 have none
+TILE_FREE_OPS = ("quantize", "act_quant")
+#: ops whose kernel reads no block_m: the wgrads' walk
+#: (csrc/wgrad_tile.cuh) takes 64 contracted rows a stage whatever
+#: block_m is, so the entries of one (block_n, n_span, k_span) share one
+#: kernel and one measurement
+_WGRAD_OPS = ("wgrad", "wgrad_fp8")
 #: the ops the padded baseline runs (its fp8 GEMMs)
 _PADDED_OPS = ("gemm", "decode", "gemm_quant")
 
@@ -933,7 +941,9 @@ def last_autotune_report() -> "dict[str, Any]":
     """The most recent autotune() call's report: op, cache key,
     cache_hit, pruned [(config dict, reason)], skipped [(config dict,
     reason)] from the measurement loop, candidates [(config dict,
-    predicted seconds, measured seconds or None)] in rank order, and the
+    predicted seconds, measured seconds or None)] in rank order, shared
+    [(config dict, config dict)]: a wgrad candidate whose kernel is the
+    second's (the same geometry), and its measurement with it, and the
     winning source."""
     return dict(_LAST_REPORT)
 
@@ -994,11 +1004,14 @@ def _measure_candidate(config: KernelConfig, m: int, k: int, n: int, g: int,
     GEMMs (``"gemm"``, ``"decode"``, ``"gemm_quant"``, ``"gemm_bf16"``)
     run their CUDA entry points on a plan built beforehand (a layer plans
     once for all its GEMMs); under the padded baseline, its whole
-    pipeline (which plans per call).  Tile-free ops are never measured."""
+    pipeline (which plans per call).  The wgrads (``"wgrad"``,
+    ``"wgrad_fp8"``) run B4 / B6 at the config's geometry on the plan's
+    offsets, dw in bf16 as the training path takes it.  Tile-free ops
+    are never measured."""
     import numpy as np
     from repro_torch.core import padding_baseline
     from repro_torch.kernels import grouped_gemm_kernel as gk
-    from repro_torch.kernels import quant_kernel, ref
+    from repro_torch.kernels import quant_kernel, ref, wgrad_kernel
 
     if device.type != "cuda":
         raise ValueError(f"measurement needs a CUDA device, got {device}")
@@ -1024,6 +1037,22 @@ def _measure_candidate(config: KernelConfig, m: int, k: int, n: int, g: int,
 
         def run():
             return gk.gmm_bf16(x, w, gs, plan=plan, **tiles)
+    elif op in _WGRAD_OPS:
+        x, dy = randn(m, k), randn(m, n) * 1e-2
+        wkw = dict(plan=plan, out_dtype=torch.bfloat16, n_span=config.n_span,
+                   k_span=config.k_span, **tiles)
+        if op == "wgrad_fp8":
+            ops = (*ref.quantize_tilewise_ref(x),
+                   *ref.quantize_tilewise_ref(dy))
+
+            def run():
+                return wgrad_kernel.gmm_wgrad_fp8(*ops, gs, **wkw)
+        else:
+            xb, dyb = x.bfloat16(), dy.bfloat16()
+
+            def run():
+                return wgrad_kernel.gmm_wgrad(xb, dyb, gs, **wkw)
+        del x, dy
     else:
         a8, sa = ref.quantize_tilewise_ref(randn(m, k))
         b8, sb = ref.quantize_blockwise_ref(randn(g, k, n) * k ** -0.5)
@@ -1098,7 +1127,9 @@ def autotune(m: int, k: int, n: int, g: int, *,
     Pool candidates are pruned by the resource model, ranked by the cost
     model, the top ``max_candidates`` are measured on ``device`` (the
     card unless a CPU device is passed; skipped with ``measure=False``
-    and for tile-free ops), and the winner is persisted to the JSON cache
+    and for tile-free ops; for a wgrad, the top ``max_candidates``
+    distinct geometries, each once, its entries at other ``block_m``
+    sharing the measurement), and the winner is persisted to the JSON cache
     so later calls and processes reuse it without measuring.  A
     candidate whose measurement raises is skipped with its reason; if
     all do, the cost model's first stands.  ``backend`` is the config's:
@@ -1122,7 +1153,7 @@ def autotune(m: int, k: int, n: int, g: int, *,
                                                      and not tile_free):
             _LAST_REPORT.clear()
             _LAST_REPORT.update(op=op, key=key, cache_hit=True, pruned=[],
-                                skipped=[], candidates=[],
+                                skipped=[], candidates=[], shared=[],
                                 source=entry.get("source"))
             return KernelConfig.from_dict(entry["config"])
 
@@ -1136,7 +1167,7 @@ def autotune(m: int, k: int, n: int, g: int, *,
         require_transposable=op in ("gemm", "gemm_bf16", "decode",
                                     "gemm_quant"),
         family=family)
-    if op not in ("wgrad", "wgrad_fp8"):
+    if op not in _WGRAD_OPS:
         # the spans exist for the wgrad only: every span>1 entry repeats
         # its span-1 base for the other ops
         cands = tuple(c for c in cands if c.n_span == 1 and c.k_span == 1)
@@ -1159,7 +1190,7 @@ def autotune(m: int, k: int, n: int, g: int, *,
                         "block_n=%d,block_k=%d: %s", op, c.block_m,
                         c.block_n, c.block_k, reason)
     cost = _cost_fn(op)
-    if op in ("wgrad", "wgrad_fp8"):
+    if op in _WGRAD_OPS:
         # secondary key: modeled operand bytes (the roofline max() ties
         # across span widths on compute-bound shapes)
         prec = _AUTOTUNE_OPS[op][1]
@@ -1176,11 +1207,26 @@ def autotune(m: int, k: int, n: int, g: int, *,
 
     skipped: "list[tuple[KernelConfig, str]]" = []
     measured: "dict[KernelConfig, float]" = {}
+    shared: "list[tuple[KernelConfig, KernelConfig]]" = []
     if measure and not tile_free:
         _events.emit("autotune_measure", op=op, key=key)
-        # a candidate that fails to launch or measure is recorded and
-        # skipped; it must not abort the sweep
-        for c in ranked[:max_candidates]:
+        # the top max_candidates kernels: a wgrad entry that differs from
+        # a measured one only in block_m runs its kernel and shares its
+        # measurement.  A candidate that fails to launch or measure is
+        # recorded and skipped; it must not abort the sweep
+        kernels: "dict[tuple, KernelConfig]" = {}
+        for c in ranked:
+            kern = ((c.block_n, c.block_k, c.n_span, c.k_span)
+                    if op in _WGRAD_OPS else c)
+            if kern in kernels:
+                first = kernels[kern]
+                if first in measured:
+                    measured[c] = measured[first]
+                    shared.append((c, first))
+                continue
+            if len(kernels) == max_candidates:
+                continue
+            kernels[kern] = c
             try:
                 measured[c] = _measure_candidate(c, m, k, n, g, seed=seed,
                                                  op=op, device=dev)
@@ -1211,6 +1257,7 @@ def autotune(m: int, k: int, n: int, g: int, *,
         skipped=[(c.to_dict(), r) for c, r in skipped],
         candidates=[(c.to_dict(), predicted[c], measured.get(c))
                     for c in ranked],
+        shared=[(c.to_dict(), first.to_dict()) for c, first in shared],
         source=source)
     save_cache(entries, cache_path)
     return best

@@ -30,10 +30,15 @@ holds, mirroring the constants of its source.
   visit's tile is walked as ``block_m / rows`` sub-tiles by ``block_n /
   128`` halves, and its store pool holds ``log2(rows) + 1`` descriptors
   (heights 1 .. rows: 4 at block_m 8, 5 at 16, 7 at 64, 8 from 128 on,
-  since a store is no taller than the staged piece).  The wgrads tile K
-  and N at 128, walk the contracted rows 64 at a time whatever
-  ``block_m`` is, and have no multi-tile spans.  Any other geometry gets
-  a "no CUDA variant" reason.
+  since a store is no taller than the staged piece).  The wgrads (B4,
+  B6) sum 128x128 sub-tiles, walk the contracted rows 64 at a time
+  whatever ``block_m`` is, and take the pool's four wgrad geometries
+  (:data:`WGRAD_GEOMETRIES`): span 1 at ``block_n`` 128 (one CTA a
+  tile) and 256, and ``n_span = k_span`` 2 and 4 at ``block_n`` 128,
+  each super-tile on a thread-block cluster of CTAs that share operand
+  stages by TMA multicast (:func:`wgrad_cluster`; span 4 as one 16-CTA
+  cluster, a non-portable size the H100 holds 7 of at once).  Any other
+  geometry gets a "no CUDA variant" reason.
 
 A geometry that was not built is still costed by its kernel's template
 arithmetic, so :meth:`~repro_torch.kernels.plan.KernelConfig.validate`
@@ -53,7 +58,7 @@ from typing import Any, Dict, List, Optional, Tuple
 #: bump when the formulas, budgets or built geometries change: the
 #: autotune JSON cache namespaces its keys by this (``|rm<N>``), so
 #: selections made under an older model are ignored rather than trusted
-RESOURCE_MODEL_VERSION = 2
+RESOURCE_MODEL_VERSION = 3
 
 QUANT_BLOCK = 128   # 1x128 / 128x128 scale granularity
 SWIZZLE_BYTES = 128  # a shared box row in the 128-byte swizzle
@@ -82,6 +87,9 @@ CUDA_BLOCK_MS = (8, 16, 64, 128, 256, 512)
 CUDA_BLOCK_NS = (128, 256)
 #: the K tile of every CUDA GEMM, and the K and N tile of the wgrads
 CUDA_TILE_NK = 128
+#: the wgrads' geometries, ``(block_n, n_span, k_span)``: the JAX
+#: package's pool (its span entries are at block_n 128)
+WGRAD_GEOMETRIES = ((128, 1, 1), (256, 1, 1), (128, 2, 2), (128, 4, 4))
 #: the most rows of one piece: the decode instance's (block_m <= 16) and
 #: the tall instance's (``csrc/tile_geom.cuh``)
 SMALL_PIECE_ROWS = 16
@@ -220,13 +228,28 @@ KERNELS = {
 }
 
 
+def wgrad_cluster(block_n: int = 128, n_span: int = 1,
+                  k_span: int = 1) -> "Dict[str, int]":
+    """The thread-block cluster on which B4 and B6 run a pool geometry's
+    super-tile (``Geom`` of ``csrc/wgrad_tile.cuh``): ``ck`` = ``k_span``
+    by ``cn`` = ``n_span * block_n / 128`` CTAs, one a 128 x 128
+    sub-tile (1 x 1: no cluster).  Raises for a geometry outside
+    :data:`WGRAD_GEOMETRIES`."""
+    if (block_n, n_span, k_span) not in WGRAD_GEOMETRIES:
+        raise ValueError(f"no wgrad cluster for block_n={block_n}, "
+                         f"n_span={n_span}, k_span={k_span}")
+    return {"ck": k_span, "cn": n_span * block_n // CUDA_TILE_NK}
+
+
 def kernel_resources(kernel: str, *, block_m: int = 128,
-                     out_itemsize: int = 2,
-                     head_dim: int = 128) -> "Dict[str, Any]":
+                     out_itemsize: int = 2, head_dim: int = 128,
+                     cluster_ctas: int = 1) -> "Dict[str, Any]":
     """Shared memory a CTA (``buffers`` and their ``smem`` total), threads
     a CTA and the CTAs an SM is meant to hold, for one variant of
     ``kernel`` (a key of :data:`KERNELS`); for a grouped GEMM also the
-    rows of a piece and its store pool's descriptors at ``block_m``."""
+    rows of a piece and its store pool's descriptors at ``block_m``; for
+    a wgrad the CTAs of its thread-block cluster (``cluster_ctas``: 1,
+    no cluster; the shared memory a CTA is the same in every cluster)."""
     if kernel in ("gmm", "gmm_quant", "gmm_bf16"):
         extra = {"piece_rows": piece_rows(block_m),
                  "store_descriptors": store_descriptors(block_m)}
@@ -240,8 +263,10 @@ def kernel_resources(kernel: str, *, block_m: int = 128,
         threads, ctas = 128 * nc + 32, 2 if nc == 1 else 1
     elif kernel == "wgrad":
         buffers, threads, ctas = wgrad_bf16_smem(out_itemsize), 2 * 128 + 32, 1
+        extra = {"cluster_ctas": cluster_ctas}
     elif kernel == "wgrad_fp8":
         buffers, threads, ctas = wgrad_fp8_smem(out_itemsize), 4 * 128, 1
+        extra = {"cluster_ctas": cluster_ctas}
     elif kernel == "flash_attention":
         buffers = flash_smem(head_dim)
         threads, ctas = 128 + 32, 2 if head_dim == 128 else 3
@@ -261,9 +286,10 @@ def variants() -> "List[Dict[str, Any]]":
     the arguments of its library's ``kernel_resources(a, b, c, out)``
     query: B2 / B7 ``(block_m, out_f32, quantizing)``, B5 ``(block_m,
     out_f32, k_major)`` (one a block_m of :data:`CUDA_BLOCK_MS`, each
-    taking every block_n of :data:`CUDA_BLOCK_NS`), B4 / B6 ``(0,
-    out_f32, 0)``, B8 ``(head_dim, 0, 0)``, B1 ``(0, 0, 0)``, B3
-    ``(in_kind, act, 0)``."""
+    taking every block_n of :data:`CUDA_BLOCK_NS`), B4 / B6 ``(ck,
+    out_f32, cn)`` (one a cluster form of :func:`wgrad_cluster`: 1 x 1,
+    1 x 2, 2 x 2 and the span-4 form), B8 ``(head_dim, 0, 0)``, B1 ``(0,
+    0, 0)``, B3 ``(in_kind, act, 0)``."""
     out = []
 
     def add(kernel, args, label, **kw):
@@ -283,10 +309,18 @@ def variants() -> "List[Dict[str, Any]]":
                     f"block_m {bm}, {dt} out, w "
                     f"{'K' if km else 'N'}-contiguous",
                     block_m=bm, out_itemsize=it)
+    forms = []
+    for geometry in WGRAD_GEOMETRIES:
+        c = wgrad_cluster(*geometry)
+        if (c["ck"], c["cn"]) not in forms:
+            forms.append((c["ck"], c["cn"]))
     for f32, it in ((0, 2), (1, 4)):
         dt = "f32" if f32 else "bf16"
-        add("wgrad", (0, f32, 0), f"{dt} dw", out_itemsize=it)
-        add("wgrad_fp8", (0, f32, 0), f"{dt} dw", out_itemsize=it)
+        for ck, cn in forms:
+            label = f"{dt} dw, cluster {ck} x {cn}"
+            for kernel in ("wgrad", "wgrad_fp8"):
+                add(kernel, (ck, f32, cn), label, out_itemsize=it,
+                    cluster_ctas=ck * cn)
     for d in (64, 128):
         add("flash_attention", (d, 0, 0), f"head dim {d}", head_dim=d)
     add("quantize_tilewise", (0, 0, 0), "f32 in")
@@ -389,7 +423,8 @@ def missing_variant(family: str, config: Any) -> "Optional[str]":
     """Why ``family`` has no CUDA kernel built for ``config``'s geometry,
     or None.  The grouped GEMMs take ``block_m`` in :data:`CUDA_BLOCK_MS`,
     ``block_n`` in :data:`CUDA_BLOCK_NS` and a 128-deep K tile; the
-    wgrads tile K and N at 128 and have no spans (their walk reads no
+    wgrads take the ``(block_n, n_span, k_span)`` of
+    :data:`WGRAD_GEOMETRIES` at a 128-deep K tile (their walk reads no
     ``block_m``); the quantizers take no tile."""
     bm, bn, bk = config_blocks(config)
     if family in ("gemm", "gemm_quant"):
@@ -402,12 +437,11 @@ def missing_variant(family: str, config: Any) -> "Optional[str]":
                     f"block_n={bn}, block_k={bk}")
     elif family == "wgrad":
         ns, ks = config_spans(config)
-        if (bn, bk) != (CUDA_TILE_NK, CUDA_TILE_NK):
-            return (f"no CUDA variant: the wgrads tile K and N at "
-                    f"{CUDA_TILE_NK}, not block_n={bn}, block_k={bk}")
-        if (ns, ks) != (1, 1):
-            return (f"no CUDA variant: the wgrads have no multi-tile spans "
-                    f"(n_span={ns}, k_span={ks})")
+        if bk != CUDA_TILE_NK or (bn, ns, ks) not in WGRAD_GEOMETRIES:
+            return (f"no CUDA variant: the wgrads are built for (block_n, "
+                    f"n_span, k_span) in {WGRAD_GEOMETRIES} at block_k="
+                    f"{CUDA_TILE_NK}, not block_n={bn}, n_span={ns}, "
+                    f"k_span={ks}, block_k={bk}")
     return None
 
 

@@ -21,9 +21,17 @@ Two operand precisions:
     writes dw in f32 or bf16.
 
 ``n_span`` / ``k_span`` are a :class:`KernelConfig`'s multi-tile wgrad
-spans: K and N must be multiples of the span-widened tiles, the plain
-versions compute the same dw for any span, and the CUDA kernels, which
-have no spans, raise on a span > 1 rather than run span 1 in its place.
+spans: K and N must be multiples of the span-widened tiles, and the plain
+versions compute the same dw for any span.  The CUDA kernels take the JAX
+package's pool geometries (``resources.WGRAD_GEOMETRIES``: span 1 at
+``block_n`` 128 and 256, ``n_span = k_span`` 2 and 4 at ``block_n`` 128),
+each super-tile on a thread-block cluster whose CTAs share operand
+stages by TMA multicast (``resources.wgrad_cluster``), bitwise span 1;
+any other geometry raises with its reason before any launch, never run
+as span 1 in its place.
+
+Each ``*_cuda`` wrapper counts its launches in ``launches`` and, by
+``(block_n, n_span, k_span)``, in ``launches_by_geometry``.
 
 Each public function chooses by its tensor: a ``FakeTensor`` goes to the
 ``*_abstract`` version (shape-only, :mod:`~repro_torch.kernels.abstract`),
@@ -32,12 +40,13 @@ wrapper, which launches the kernel or raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels import abstract, build
+from repro_torch.kernels import abstract, build, resources
 from repro_torch.kernels.plan import QUANT_BLOCK, KernelConfig, TilePlan, \
     device_spec, wgrad_work
 from repro_torch.kernels.ref import FP8, wgrad_exact_ref, \
@@ -111,14 +120,18 @@ def gmm_wgrad_fp8_plain(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
                                num_groups=num_groups, out_dtype=out_dtype)
 
 
-def _check_cuda(block_n, block_k, n_span, k_span, operands):
-    if block_n != 128 or block_k != 128:
-        raise ValueError(f"the CUDA wgrad tiles K and N at 128, got "
-                         f"block_n={block_n}, block_k={block_k}")
-    if (n_span, k_span) != (1, 1):
-        # never drop to span 1 quietly: a tuned span would then lie
-        raise ValueError(f"the CUDA wgrad has no multi-tile spans, got "
-                         f"n_span={n_span}, k_span={k_span}")
+def _check_geometry(block_n, block_k, n_span, k_span):
+    """Raise for a geometry the kernels are not built for, before the
+    shapes or the device are looked at: never dropped to span 1 quietly,
+    or a tuned span would lie."""
+    reason = resources.missing_variant("wgrad", {
+        "block_m": 128, "block_n": block_n, "block_k": block_k,
+        "n_span": n_span, "k_span": k_span})
+    if reason is not None:
+        raise ValueError(reason)
+
+
+def _check_cuda(operands):
     dev = operands[0][1].device
     for name, t, dt in operands:
         if not t.is_cuda or t.device != dev:
@@ -137,8 +150,8 @@ WGRAD_OUT_DTYPES = (torch.float32, torch.bfloat16)
 def _launch(lib, symbol, argtypes, ptrs, m, k, n, num_groups, dev,
             out_dtype, what, extra=()):
     """Allocate dw [G, K, N] in ``out_dtype`` and launch ``symbol`` of
-    ``csrc/<lib>.cu`` with ``ptrs``, dw, the shapes and ``extra``;
-    returns ``(dw, launched)``."""
+    ``csrc/<lib>.cu`` with ``ptrs``, dw, the shapes and ``extra`` (the
+    f32 flag and the geometry); returns ``(dw, launched)``."""
     dw = torch.empty((num_groups, k, n), dtype=out_dtype, device=dev)
     if m == 0 or num_groups == 0:
         return dw.zero_(), False
@@ -149,35 +162,45 @@ def _launch(lib, symbol, argtypes, ptrs, m, k, n, num_groups, dev,
     return dw, True
 
 
+def _count(wrapper, launched, geometry):
+    """Add a launch of ``wrapper`` at ``geometry`` to its counts."""
+    wrapper.launches += launched
+    if launched:
+        wrapper.launches_by_geometry[geometry] += 1
+
+
 def gmm_wgrad_cuda(x, dy, group_sizes, *, num_groups: Optional[int] = None,
                    block_m: int = 128, block_n: int = 128,
                    block_k: int = 128,
                    out_dtype: torch.dtype = torch.float32,
                    plan: Optional[TilePlan] = None, n_span: int = 1,
                    k_span: int = 1) -> torch.Tensor:
-    """Launch B4 (one launch for every group) on bf16 CUDA tensors.  The
-    kernel writes dw in ``out_dtype``, f32 or bf16: its f32 sum rounded
-    once to nearest."""
+    """Launch B4 (one launch for every group) on bf16 CUDA tensors, at a
+    pool geometry (``block_n``, ``n_span``, ``k_span``).  The kernel
+    writes dw in ``out_dtype``, f32 or bf16: its f32 sum rounded once to
+    nearest."""
     if out_dtype not in WGRAD_OUT_DTYPES:
         raise TypeError(f"gmm_wgrad_cuda writes dw in {WGRAD_OUT_DTYPES}, "
                         f"not {out_dtype}")
+    _check_geometry(block_n, block_k, n_span, k_span)
     (m, k), (m2, n) = x.shape, dy.shape
     num_groups, offsets = _prepare(m, k, m2, n, group_sizes, num_groups,
                                    block_m, block_n, block_k, plan, n_span,
                                    k_span)
-    dev = _check_cuda(block_n, block_k, n_span, k_span, (
+    dev = _check_cuda((
         ("x", x, torch.bfloat16), ("dy", dy, torch.bfloat16),
         ("group offsets", offsets, torch.int32)))
     dw, launched = _launch(
-        "wgrad_bf16", "wgrad_bf16", [_P] * 4 + [_I] * 5 + [_P],
+        "wgrad_bf16", "wgrad_bf16", [_P] * 4 + [_I] * 8 + [_P],
         (x.data_ptr(), dy.data_ptr(), offsets.data_ptr()),
         m, k, n, num_groups, dev, out_dtype, "gmm_wgrad",
-        extra=(int(out_dtype == torch.float32),))
-    gmm_wgrad_cuda.launches += launched
+        extra=(int(out_dtype == torch.float32), block_n, n_span, k_span))
+    _count(gmm_wgrad_cuda, launched, (block_n, n_span, k_span))
     return dw
 
 
 gmm_wgrad_cuda.launches = 0
+gmm_wgrad_cuda.launches_by_geometry = collections.Counter()
 
 
 def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
@@ -187,31 +210,34 @@ def gmm_wgrad_fp8_cuda(x_fp8, s_x, dy_fp8, s_dy, group_sizes, *,
                        plan: Optional[TilePlan] = None, n_span: int = 1,
                        k_span: int = 1) -> torch.Tensor:
     """Launch B6 (one launch for every group) on e4m3 CUDA tensors and
-    their f32 1x128 scales.  The kernel writes dw in ``out_dtype``, f32 or
-    bf16: its f32 sum rounded once to nearest."""
+    their f32 1x128 scales, at a pool geometry as B4.  The kernel writes
+    dw in ``out_dtype``, f32 or bf16: its f32 sum rounded once to
+    nearest."""
     if out_dtype not in WGRAD_OUT_DTYPES:
         raise TypeError(f"gmm_wgrad_fp8_cuda writes dw in {WGRAD_OUT_DTYPES}, "
                         f"not {out_dtype}")
+    _check_geometry(block_n, block_k, n_span, k_span)
     (m, k), (m2, n) = x_fp8.shape, dy_fp8.shape
     num_groups, offsets = _prepare(m, k, m2, n, group_sizes, num_groups,
                                    block_m, block_n, block_k, plan, n_span,
                                    k_span)
     _check_scales(m, k, n, s_x, s_dy)
-    dev = _check_cuda(block_n, block_k, n_span, k_span, (
+    dev = _check_cuda((
         ("x_fp8", x_fp8, FP8), ("s_x", s_x, torch.float32),
         ("dy_fp8", dy_fp8, FP8), ("s_dy", s_dy, torch.float32),
         ("group offsets", offsets, torch.int32)))
     dw, launched = _launch(
-        "wgrad", "wgrad_fp8", [_P] * 6 + [_I] * 5 + [_P],
+        "wgrad", "wgrad_fp8", [_P] * 6 + [_I] * 8 + [_P],
         (x_fp8.data_ptr(), s_x.data_ptr(), dy_fp8.data_ptr(),
          s_dy.data_ptr(), offsets.data_ptr()),
         m, k, n, num_groups, dev, out_dtype, "gmm_wgrad_fp8",
-        extra=(int(out_dtype == torch.float32),))
-    gmm_wgrad_fp8_cuda.launches += launched
+        extra=(int(out_dtype == torch.float32), block_n, n_span, k_span))
+    _count(gmm_wgrad_fp8_cuda, launched, (block_n, n_span, k_span))
     return dw
 
 
 gmm_wgrad_fp8_cuda.launches = 0
+gmm_wgrad_fp8_cuda.launches_by_geometry = collections.Counter()
 
 
 def _abstract(name, m, k, n, num_groups, block_m, block_n, block_k,

@@ -160,15 +160,21 @@ def test_kernel_internal_calls_allowed_inside_kernels():
 def test_resource_lint_clean_pool_and_pruned_entries_counted():
     pruned = []
     assert resource_lint.run(pruned=pruned) == []
-    assert len(pruned) == 40
-    # "no CUDA variant" entries are pruned with their reason, never
-    # findings; every grouped-GEMM entry of the pool is built, so only the
-    # wgrads' are pruned: their spans and their 256-wide N tile
-    assert all(r.startswith("no CUDA variant: the wgrads")
-               for _, r in pruned)
-    assert all(t.startswith("wgrad/") for t, _ in pruned)
-    assert sum("spans" in r for _, r in pruned) == 24
-    assert not any(t.startswith(("gemm/", "gemm_quant")) for t, _ in pruned)
+    # every entry of the pool has its kernel in every family, the wgrads'
+    # spans and 256-wide N tile included: nothing is pruned
+    assert pruned == []
+    # an entry no kernel is built for is pruned with its reason and
+    # counted, never a finding, in each family
+    for family, cfg in (("gemm", {"block_m": 24}),
+                        ("gemm_quant", {"block_m": 128, "block_n": 384}),
+                        ("wgrad", {"block_m": 128, "n_span": 3,
+                                   "k_span": 3}),
+                        ("wgrad", {"block_m": 128, "block_n": 256,
+                                   "n_span": 2, "k_span": 2})):
+        assert resource_lint.check_entry(family, cfg, GEMM,
+                                         pruned=pruned) == []
+    assert len(pruned) == 4
+    assert all(r.startswith("no CUDA variant") for _, r in pruned)
 
 
 def test_launch_bound_registers_match_ptxas():
@@ -223,8 +229,13 @@ def test_tma_row_alignment_is_v03():
 
 def test_missing_variant_is_pruned_not_a_finding():
     pruned = []
+    # the wgrads take the pool's spans; a span outside it has no kernel
     fs = resource_lint.check_entry(
         "wgrad", {"block_m": 128, "n_span": 2, "k_span": 2}, GEMM,
+        pruned=pruned)
+    assert fs == [] and pruned == []
+    fs = resource_lint.check_entry(
+        "wgrad", {"block_m": 128, "n_span": 3, "k_span": 3}, GEMM,
         pruned=pruned)
     assert fs == [] and len(pruned) == 1
     assert pruned[0][1].startswith("no CUDA variant")
@@ -329,7 +340,8 @@ def test_cli_clean_tree_exits_zero_on_the_cpu(capsys):
     assert set(out["layers"]) == {"ast", "registry", "resources",
                                   "contracts", "retrace"}
     assert all(n == 0 for n in out["layers"].values())
-    assert out["resources_pruned"] > 0
+    # every pool entry has its kernel: the resource layer prunes none
+    assert out["resources_pruned"] == 0
 
 
 def test_cli_fixture_fails_and_baseline_suppresses(tmp_path, capsys):

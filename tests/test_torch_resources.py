@@ -195,29 +195,36 @@ def test_alignment_issues_in_the_papers_terms():
 
 
 def test_no_cuda_variant_reasons():
-    """Every grouped-GEMM entry of the pool is built (the 2 decode
-    entries and 4 block_m x 2 (block_n, block_k): 10); only the wgrad
-    spans keep a reason, and a geometry outside the pool gets one."""
+    """Every entry of the pool is built: the grouped GEMMs' 10 (the 2
+    decode entries and 4 block_m x 2 (block_n, block_k)), and for the
+    wgrads the 6 span entries and the 4 at block_n 256 as well; a
+    geometry outside the pool keeps its reason."""
     gemm_entries = [c for c in plan_mod.CONFIG_POOL
                     if (c.n_span, c.k_span) == (1, 1)]
     spans = [c for c in plan_mod.CONFIG_POOL
              if (c.n_span, c.k_span) != (1, 1)]
-    assert len(gemm_entries) == 10 and len(spans) == 6
+    wide = [c for c in gemm_entries if c.block_n == 256]
+    assert len(gemm_entries) == 10 and len(spans) == 6 and len(wide) == 4
     for c in gemm_entries:
-        for family in ("gemm", "gemm_quant"):
+        for family in ("gemm", "gemm_quant", "wgrad"):
             assert res.missing_variant(family, c) is None
     for c in spans:
-        assert res.missing_variant("wgrad", c).startswith(
-            "no CUDA variant: the wgrads have no multi-tile spans")
+        assert res.missing_variant("wgrad", c) is None
     assert res.CUDA_BLOCK_MS == (8, 16, 64, 128, 256, 512)
     for bad in ({"block_m": 24}, {"block_m": 1024},
                 {"block_m": 128, "block_n": 384},
                 {"block_m": 128, "block_k": 256}):
         assert res.missing_variant("gemm", bad).startswith("no CUDA variant")
-    # the wgrads read no block_m, but have no spans
+    # the wgrads read no block_m; outside the pool's (block_n, n_span,
+    # k_span) they keep a reason
     assert res.missing_variant("wgrad", {"block_m": 512}) is None
-    assert "spans" in res.missing_variant(
-        "wgrad", {"block_m": 128, "n_span": 2, "k_span": 2})
+    for bad in ({"n_span": 3, "k_span": 3}, {"n_span": 2, "k_span": 1},
+                {"n_span": 8, "k_span": 8}, {"block_n": 384},
+                {"block_n": 256, "n_span": 2, "k_span": 2},
+                {"block_k": 256}):
+        reason = res.missing_variant("wgrad", {"block_m": 128, **bad})
+        assert reason.startswith("no CUDA variant: the wgrads are built "
+                                 "for (block_n, n_span, k_span) in"), bad
     # the quantizers take no tile at all
     assert res.missing_variant("quantize", {"block_m": 8}) is None
 
@@ -247,6 +254,9 @@ def test_infeasible_reason_order():
     assert reason({"block_m": 128, "block_n": 96}).startswith("misaligned")
     assert res.infeasible_reason(
         "wgrad", {"block_m": 128, "n_span": 2, "k_span": 2},
+        smem_bytes=budget, **shape) is None
+    assert res.infeasible_reason(
+        "wgrad", {"block_m": 128, "n_span": 3, "k_span": 3},
         smem_bytes=budget, **shape).startswith("no CUDA variant")
     assert reason({"block_m": 128}, m=16).startswith("degenerate grid")
     over = res.infeasible_reason("gemm", {"block_m": 128}, smem_bytes=200000,
@@ -289,21 +299,30 @@ def test_validate_passes_the_built_pool_entries():
 
 
 def test_wgrad_spans_plain_equals_span_one_and_cuda_refuses():
+    """The plain wgrad computes span 1's dw at any span; the CUDA
+    wrappers take the pool's geometries (on CPU tensors they get as far
+    as the device check) and refuse any other with the resource model's
+    reason before they look at the shapes or the device."""
     g = torch.Generator().manual_seed(0)
-    x = torch.randn((40, 256), generator=g).bfloat16()
+    x = torch.randn((40, 512), generator=g).bfloat16()
     dy = torch.randn((40, 512), generator=g).bfloat16()
     gs = torch.tensor([10, 0, 25], dtype=torch.int32)
     one = wk.gmm_wgrad(x, dy, gs)
     wide = wk.gmm_wgrad(x, dy, gs, n_span=4, k_span=2)
     assert torch.equal(one, wide)
-    with pytest.raises(ValueError, match="k_span=4"):
-        wk.gmm_wgrad(x, dy, gs, k_span=4)            # K=256 < 4 x 128
-    # the CUDA wrapper refuses a span before it looks at the tensors
-    with pytest.raises(ValueError, match="no multi-tile spans"):
-        wk.gmm_wgrad_cuda(x, dy, gs, n_span=2)
+    with pytest.raises(ValueError, match="k_span=8"):
+        wk.gmm_wgrad(x, dy, gs, k_span=8)            # K=512 < 8 x 128
     (x8, sx), (d8, sd) = (quantize_tilewise_ref(t.float()) for t in (x, dy))
-    with pytest.raises(ValueError, match="no multi-tile spans"):
-        wk.gmm_wgrad_fp8_cuda(x8, sx, d8, sd, gs, k_span=2)
+    for fp8, cuda in ((False, wk.gmm_wgrad_cuda),
+                      (True, wk.gmm_wgrad_fp8_cuda)):
+        args = (x8, sx, d8, sd, gs) if fp8 else (x, dy, gs)
+        for bn, ns, ks in res.WGRAD_GEOMETRIES:
+            with pytest.raises(ValueError, match="must be a CUDA tensor"):
+                cuda(*args, block_n=bn, n_span=ns, k_span=ks)
+        for bad in ({"n_span": 2}, {"k_span": 2}, {"n_span": 3, "k_span": 3},
+                    {"block_n": 256, "n_span": 2, "k_span": 2}):
+            with pytest.raises(ValueError, match="no CUDA variant"):
+                cuda(*args, **bad)
 
 
 # ---------------------------------------------------------------------------
@@ -386,8 +405,54 @@ def test_measurement_needs_a_card_and_a_tiled_op():
                                     op="gemm", device=torch.device("cpu"))
     assert plan_mod.op_ignores_tiles("gemm", torch.device("cpu"))
     assert not plan_mod.op_ignores_tiles("gemm", torch.device("cuda"))
-    for op in ("quantize", "act_quant", "wgrad", "wgrad_fp8"):
+    for op in ("quantize", "act_quant"):
         assert plan_mod.op_ignores_tiles(op, torch.device("cuda"))
+    # the wgrads read their geometry on the card (not block_m), and are
+    # measured there; on the CPU every op is tile-free
+    for op in ("wgrad", "wgrad_fp8"):
+        assert not plan_mod.op_ignores_tiles(op, torch.device("cuda"))
+        assert plan_mod.op_ignores_tiles(op, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("op", ["wgrad", "wgrad_fp8"])
+def test_autotune_measures_each_wgrad_geometry_once(cache, tiled,
+                                                    monkeypatch, op):
+    """The wgrads read no block_m: at a shape where every wgrad geometry
+    of the pool is legal (qwen2-moe's shared experts, K 2048, N 5632) the
+    sweep measures one candidate per distinct (block_n, n_span, k_span),
+    and each other candidate shares its kernel's measurement."""
+    measured = []
+
+    def fake(config, *a, **kw):
+        measured.append((config.block_n, config.n_span, config.k_span))
+        assert kw["op"] == op
+        return {(128, 1, 1): 3e-3, (256, 1, 1): 2e-3, (128, 2, 2): 1e-3,
+                (128, 4, 4): 4e-3}[measured[-1]]
+    monkeypatch.setattr(plan_mod, "_measure_candidate", fake)
+    every = len(plan_mod.CONFIG_POOL)
+    cfg = plan_mod.autotune(4096, 2048, 5632, 1, op=op, device="cpu",
+                            max_candidates=every)
+    rep = plan_mod.last_autotune_report()
+    assert sorted(measured) == sorted(res.WGRAD_GEOMETRIES)
+    assert (cfg.block_n, cfg.n_span, cfg.k_span) == (128, 2, 2)
+    cands = rep["candidates"]
+    assert len(cands) == every - len(rep["pruned"])
+    assert all(t is not None for _, _, t in cands)
+    # every candidate not measured itself names the one whose kernel
+    # (and time) it shares: the same geometry, another block_m
+    assert len(rep["shared"]) == len(cands) - len(measured)
+    times = {tuple(c[k] for k in ("block_m", "block_n", "n_span", "k_span")):
+             t for c, _, t in cands}
+    for c, first in rep["shared"]:
+        geom = [(d["block_n"], d["n_span"], d["k_span"]) for d in (c, first)]
+        assert geom[0] == geom[1] and c["block_m"] != first["block_m"]
+        assert times[(c["block_m"], *geom[0])] == \
+            times[(first["block_m"], *geom[0])]
+    # max_candidates counts kernels, not entries
+    measured.clear()
+    plan_mod.autotune(4096, 2048, 5632, 1, op=op, device="cpu",
+                      max_candidates=2, refresh=True)
+    assert len(measured) == 2 == len(set(measured))
 
 
 def test_decode_on_a_tiny_batch_keeps_a_built_tile(cache):
